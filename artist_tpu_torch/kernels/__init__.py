@@ -1,0 +1,5 @@
+"""Hand-written CUDA kernels for Hopper (sm_90a) and their plain PyTorch versions."""
+
+from artist_tpu_torch.kernels.splat import BilinearSplat, splat
+
+__all__ = ["BilinearSplat", "splat"]

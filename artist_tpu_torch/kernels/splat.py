@@ -1,0 +1,277 @@
+"""Differentiable bilinear splat: hand-written CUDA kernels and their plain versions.
+
+Counterpart of ``artist_tpu/kernels/splat_pallas.py`` (``bilinear_splat_pallas``
+with ``compute_dtype=float32``). The kernels live in ``csrc/splat.cu``:
+
+- ``splat_forward`` replaces ``_splat_fwd_kernel``: one thread per ray, four
+  ``atomicAdd``s into the heliostat's bitmap.
+- ``splat_backward`` replaces ``_splat_bwd_kernel``: one thread per ray, a
+  four-tap gather of the cotangent; deterministic.
+
+Both are bound by bytes on the H100; the source's head note gives the bound
+and what the design does about it. They are built with ``nvcc`` at first use
+into ``artist_tpu_torch/_build/`` (plain C interface, loaded with
+``ctypes``) and launch on PyTorch's current stream.
+
+:class:`BilinearSplat` dispatches on the tensors' device: a CUDA tensor
+launches the kernel or raises; a CPU tensor runs the plain PyTorch version
+defined here (``splat_forward_plain``, a 4-tap ``index_add_`` scatter, and
+``splat_backward_plain``, the same 4-tap gather in PyTorch). There is no
+fallback from one to the other.
+
+``LAUNCHES`` counts kernel launches (never plain-version calls), so a run can
+show that its main path went through the kernels.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+
+import torch
+
+_PACKAGE_DIR = pathlib.Path(__file__).resolve().parent.parent
+SOURCE = pathlib.Path(__file__).resolve().parent / "csrc" / "splat.cu"
+BUILD_DIR = _PACKAGE_DIR / "_build"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+LAUNCHES = {"splat_forward": 0, "splat_backward": 0}
+
+_library: ctypes.CDLL | None = None
+
+
+def reset_launch_counts() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    candidate = pathlib.Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
+    if candidate.exists():
+        return str(candidate)
+    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+
+
+def build_library() -> tuple[pathlib.Path, str]:
+    """Compile ``csrc/splat.cu`` into a shared library unless already built.
+
+    The file name carries a hash of the source and flags, so an edited source
+    is rebuilt. Returns the library path and the compiler's output (the
+    ``-Xptxas -v`` register and spill report), empty when nothing was built.
+    """
+    digest = hashlib.sha256(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    target = BUILD_DIR / f"libsplat_{digest.hexdigest()[:16]}.so"
+    if target.exists():
+        return target, ""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    partial = target.with_name(f"{target.name}.{os.getpid()}.tmp")
+    result = subprocess.run(
+        [_nvcc(), *NVCC_FLAGS, "-o", str(partial), str(SOURCE)],
+        capture_output=True,
+        text=True,
+        check=False,
+    )
+    if result.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {SOURCE}:\n{result.stdout}{result.stderr}")
+    os.replace(partial, target)
+    return target, result.stdout + result.stderr
+
+
+def _load() -> ctypes.CDLL:
+    global _library
+    if _library is None:
+        path, _ = build_library()
+        library = ctypes.CDLL(str(path))
+        pointer, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+        sizes = [i64, i64, i32, i32, i32, pointer]  # M, N, H, W, device, stream
+        library.splat_forward.argtypes = [pointer] * 4 + sizes
+        library.splat_forward.restype = ctypes.c_int
+        library.splat_backward.argtypes = [pointer] * 7 + sizes
+        library.splat_backward.restype = ctypes.c_int
+        library.splat_error_string.argtypes = [ctypes.c_int]
+        library.splat_error_string.restype = ctypes.c_char_p
+        _library = library
+    return _library
+
+
+def _check_status(library: ctypes.CDLL, name: str, status: int) -> None:
+    if status != 0:
+        message = library.splat_error_string(status).decode()
+        raise RuntimeError(f"{name} kernel launch failed: {message} ({status})")
+
+
+def _check_rays(e: torch.Tensor, u: torch.Tensor, w: torch.Tensor) -> None:
+    """Validate the ray streams the kernels and plain versions take."""
+    for name, x in (("bitmap_e", e), ("bitmap_u", u), ("intensities", w)):
+        if x.dim() != 2:
+            raise ValueError(f"{name} must be [M, N], got shape {tuple(x.shape)}")
+        if x.shape != e.shape or x.device != e.device or x.dtype != e.dtype:
+            raise ValueError(
+                "bitmap_e, bitmap_u and intensities must share shape, device and dtype"
+            )
+        if not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if e.device.type == "cuda":
+        if e.dtype != torch.float32:
+            raise TypeError(f"the CUDA splat takes float32, got {e.dtype}")
+    elif e.device.type == "cpu":
+        if e.dtype not in (torch.float32, torch.float64):
+            raise TypeError(f"the plain splat takes float32 or float64, got {e.dtype}")
+    else:
+        raise ValueError(f"no splat for device type {e.device.type!r}")
+
+
+def _launch_args(e: torch.Tensor, height: int, width: int) -> list:
+    num_maps, rays_per_map = e.shape
+    stream = torch.cuda.current_stream(e.device).cuda_stream
+    return [num_maps, rays_per_map, height, width, e.device.index, stream]
+
+
+def splat_forward_cuda(
+    e: torch.Tensor, u: torch.Tensor, w: torch.Tensor, height: int, width: int
+) -> torch.Tensor:
+    """Launch ``splat_forward_kernel``: ``[M, N]`` rays -> ``[M, H, W]`` bitmaps."""
+    out = torch.zeros((e.shape[0], height, width), dtype=torch.float32, device=e.device)
+    if e.numel() == 0:
+        return out
+    library = _load()
+    status = library.splat_forward(
+        e.data_ptr(), u.data_ptr(), w.data_ptr(), out.data_ptr(),
+        *_launch_args(e, height, width),
+    )
+    _check_status(library, "splat_forward", status)
+    LAUNCHES["splat_forward"] += 1
+    return out
+
+
+def splat_backward_cuda(
+    e: torch.Tensor, u: torch.Tensor, w: torch.Tensor, g: torch.Tensor,
+    height: int, width: int,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Launch ``splat_backward_kernel``: per-ray (de, du, dw), each ``[M, N]``."""
+    grads = tuple(torch.empty_like(e) for _ in range(3))
+    if e.numel() == 0:
+        return grads
+    library = _load()
+    status = library.splat_backward(
+        e.data_ptr(), u.data_ptr(), w.data_ptr(), g.data_ptr(),
+        *(x.data_ptr() for x in grads),
+        *_launch_args(e, height, width),
+    )
+    _check_status(library, "splat_backward", status)
+    LAUNCHES["splat_backward"] += 1
+    return grads
+
+
+def _cells(e: torch.Tensor, u: torch.Tensor, height: int, width: int):
+    """Lower cells, fractions and the strict-bounds mask, tested in float first."""
+    lower_e = torch.floor(e)
+    lower_u = torch.floor(u)
+    valid = (lower_e >= 0) & (lower_e <= width - 2) & (lower_u >= 0) & (lower_u <= height - 2)
+    zero = torch.zeros_like(e)
+    frac_e = torch.where(valid, e - lower_e, zero)
+    frac_u = torch.where(valid, u - lower_u, zero)
+    offset = torch.where(valid, lower_u * width + lower_e, zero).long()
+    return offset, frac_e, frac_u, valid
+
+
+def splat_forward_plain(
+    e: torch.Tensor, u: torch.Tensor, w: torch.Tensor, height: int, width: int
+) -> torch.Tensor:
+    """Plain version of the forward kernel: a 4-tap ``index_add_`` scatter."""
+    num_maps = e.shape[0]
+    offset, fe, fu, valid = _cells(e, u, height, width)
+    weight = torch.where(valid, w, torch.zeros_like(w))
+    base = offset + torch.arange(num_maps, device=e.device)[:, None] * (height * width)
+    ids = torch.cat([base, base + 1, base + width, base + width + 1], dim=1)
+    values = torch.cat(
+        [
+            weight * (1.0 - fu) * (1.0 - fe),
+            weight * (1.0 - fu) * fe,
+            weight * fu * (1.0 - fe),
+            weight * fu * fe,
+        ],
+        dim=1,
+    )
+    out = torch.zeros(num_maps * height * width, dtype=e.dtype, device=e.device)
+    out.index_add_(0, ids.reshape(-1), values.reshape(-1))
+    return out.reshape(num_maps, height, width)
+
+
+def splat_backward_plain(
+    e: torch.Tensor, u: torch.Tensor, w: torch.Tensor, g: torch.Tensor,
+    height: int, width: int,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain version of the backward kernel: the same 4-tap gather and formulas."""
+    offset, fe, fu, valid = _cells(e, u, height, width)
+    flat = g.reshape(g.shape[0], height * width)
+
+    def tap(shift: int) -> torch.Tensor:
+        return torch.gather(flat, 1, offset + shift)
+
+    g00, g01, g10, g11 = tap(0), tap(1), tap(width), tap(width + 1)
+    zero = torch.zeros_like(e)
+    dw = (1.0 - fu) * (1.0 - fe) * g00 + (1.0 - fu) * fe * g01 + fu * (1.0 - fe) * g10 + fu * fe * g11
+    de = w * ((1.0 - fu) * (g01 - g00) + fu * (g11 - g10))
+    du = w * ((1.0 - fe) * (g10 - g00) + fe * (g11 - g01))
+    return (
+        torch.where(valid, de, zero),
+        torch.where(valid, du, zero),
+        torch.where(valid, dw, zero),
+    )
+
+
+class BilinearSplat(torch.autograd.Function):
+    """``[M, N]`` ray coordinates and weights -> ``[M, H, W]`` flux, with its VJP.
+
+    CUDA tensors launch the kernels in ``csrc/splat.cu``; CPU tensors run the
+    plain versions above.
+    """
+
+    @staticmethod
+    def forward(ctx, e, u, w, height: int, width: int):
+        _check_rays(e, u, w)
+        if height < 2 or width < 2:
+            raise ValueError(f"bitmap must be at least 2 x 2, got {height} x {width}")
+        ctx.save_for_backward(e, u, w)
+        ctx.bitmap_shape = (height, width)
+        if e.is_cuda:
+            return splat_forward_cuda(e, u, w, height, width)
+        return splat_forward_plain(e, u, w, height, width)
+
+    @staticmethod
+    def backward(ctx, g):
+        e, u, w = ctx.saved_tensors
+        height, width = ctx.bitmap_shape
+        g = g.contiguous()
+        if g.shape != (e.shape[0], height, width) or g.device != e.device or g.dtype != e.dtype:
+            raise ValueError(f"cotangent of shape {tuple(g.shape)} does not match the bitmaps")
+        if e.is_cuda:
+            de, du, dw = splat_backward_cuda(e, u, w, g, height, width)
+        else:
+            de, du, dw = splat_backward_plain(e, u, w, g, height, width)
+        return de, du, dw, None, None
+
+
+def splat(
+    bitmap_e: torch.Tensor,
+    bitmap_u: torch.Tensor,
+    intensities: torch.Tensor,
+    bitmap_resolution: tuple[int, int],
+) -> torch.Tensor:
+    """Differentiable bilinear splat, ``[M, N]`` rays -> ``[M, height_u, width_e]``.
+
+    ``bitmap_resolution`` is (width_e, height_u). No flip.
+    """
+    width, height = int(bitmap_resolution[0]), int(bitmap_resolution[1])
+    return BilinearSplat.apply(bitmap_e, bitmap_u, intensities, height, width)

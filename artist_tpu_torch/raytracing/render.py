@@ -1,0 +1,214 @@
+"""Differentiable render: scatter -> intersect -> splat.
+
+Counterpart of ``artist_tpu/raytracing/render.py``. Memory is bounded by a
+loop over ray chunks; each chunk runs under
+``torch.utils.checkpoint(..., use_reentrant=False)`` so the backward
+recomputes the chunk's forward (splat kernel included) instead of storing
+its per-ray tensors - the port of the JAX package's remat'd ``lax.scan``.
+The distortion scatter uses the fused component-wise rotation and never
+builds ``[M, R, P, 4, 4]`` rotation tensors.
+
+Not ported yet, and refused with ``NotImplementedError``: field-wide
+blocking (``blocking_active=True``) and cylindrical targets.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+from torch.utils.checkpoint import checkpoint
+
+from artist_tpu_torch.field.solar_tower import SolarTower
+from artist_tpu_torch.geometry.transforms import apply_distortion_rotation
+from artist_tpu_torch.raytracing import geometry
+from artist_tpu_torch.raytracing.splatting import bilinear_splat
+
+DEFAULT_MIRROR_REFLECTIVITY = 0.935
+
+
+@dataclass(frozen=True)
+class RenderConfig:
+    """Render configuration."""
+
+    bitmap_resolution: tuple[int, int] = (256, 256)  # (width_e, height_u)
+    mirror_reflectivity: float = DEFAULT_MIRROR_REFLECTIVITY
+    ray_extinction_factor: float = 0.0
+    # Chunk size along the ray axis (None = all). Each chunk is recomputed in
+    # the backward instead of storing its per-ray tensors: O(chunk) instead of
+    # O(rays) activation memory.
+    ray_chunk: int | None = None
+    # Field-wide soft blocking. Not ported yet: True raises.
+    blocking_active: bool = False
+
+
+def ray_splat_inputs(
+    tower: SolarTower,
+    preferred_directions: torch.Tensor,
+    aligned_surface_points: torch.Tensor,
+    target_area_indices: torch.Tensor,
+    distortions_u: torch.Tensor,
+    distortions_e: torch.Tensor,
+    ray_magnitude: float | torch.Tensor,
+    config: RenderConfig,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Scatter and intersect one chunk of rays: the splat's inputs.
+
+    Parameters
+    ----------
+    preferred_directions : torch.Tensor
+        Mirror reflections of the incident direction, ``[M, P, 4]``.
+    distortions_u, distortions_e : torch.Tensor
+        The chunk's sun scatter angles, ``[M, r, P]``.
+
+    Returns
+    -------
+    tuple of torch.Tensor
+        (bitmap_e, bitmap_u, intensities, final_intensities), each
+        ``[M, r, P]``; ``final_intensities`` carry reflectivity and
+        extinction.
+    """
+    ray_directions = apply_distortion_rotation(
+        e=distortions_e, u=distortions_u, directions=preferred_directions[:, None, :, :]
+    )  # [M, r, P, 4]
+    bitmap_e, bitmap_u, _, intensities = geometry.line_plane_intersections(
+        ray_directions,
+        ray_magnitude,
+        aligned_surface_points,
+        tower,
+        target_area_indices,
+        config.bitmap_resolution,
+    )
+    final_intensities = (
+        intensities * (1.0 - config.ray_extinction_factor) * config.mirror_reflectivity
+    )
+    return bitmap_e, bitmap_u, intensities, final_intensities
+
+
+def trace_rays(
+    tower: SolarTower,
+    aligned_surface_points: torch.Tensor,
+    aligned_surface_normals: torch.Tensor,
+    incident_ray_directions: torch.Tensor,
+    target_area_indices: torch.Tensor,
+    distortions_u: torch.Tensor,
+    distortions_e: torch.Tensor,
+    ray_magnitude: float | torch.Tensor = 1.0,
+    config: RenderConfig = RenderConfig(),
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Trace heliostat rays onto planar tower targets and splat flux bitmaps.
+
+    Parameters
+    ----------
+    tower : SolarTower
+        Target-area tensors.
+    aligned_surface_points, aligned_surface_normals : torch.Tensor
+        World-frame aligned surfaces ``[M, P, 4]``.
+    incident_ray_directions : torch.Tensor
+        ``[M, 4]``.
+    target_area_indices : torch.Tensor
+        Global target index per active heliostat ``[M]``.
+    distortions_u, distortions_e : torch.Tensor
+        Sun scatter angles ``[M, R, P]``.
+    ray_magnitude : float | torch.Tensor
+        Per-ray power (DNI-derived) or 1.0.
+    config : RenderConfig
+        Options.
+
+    Returns
+    -------
+    tuple of torch.Tensor
+        Flux bitmaps ``[M, height_u, width_e]``, intercept factor ``[M]``,
+        on-target factor ``[M]``, (non-)blocking factor ``[M]``.
+    """
+    if config.blocking_active:
+        raise NotImplementedError("field-wide blocking is not ported yet")
+    if tower.number_of_cylindrical_target_areas:
+        raise NotImplementedError("cylindrical target areas are not ported yet")
+    num_active, num_rays, num_points = distortions_u.shape
+
+    preferred = geometry.reflect(
+        incident_ray_directions[:, None, :], aligned_surface_normals
+    )  # [M, P, 4]
+
+    def trace_chunk(du: torch.Tensor, de: torch.Tensor):
+        bitmap_e, bitmap_u, intensities, final_intensities = ray_splat_inputs(
+            tower,
+            preferred,
+            aligned_surface_points,
+            target_area_indices,
+            du,
+            de,
+            ray_magnitude,
+            config,
+        )
+        partial_flux = bilinear_splat(
+            bitmap_e,
+            bitmap_u,
+            final_intensities,
+            config.bitmap_resolution,
+            flip_up_down=False,
+        )
+        on_target_count = torch.sum(intensities > 0, dim=(1, 2))
+        intercept_count = torch.sum(final_intensities > 0, dim=(1, 2))
+        return partial_flux, on_target_count, intercept_count
+
+    chunk = config.ray_chunk
+    if chunk is None or chunk >= num_rays:
+        flux, on_target_count, intercept_count = trace_chunk(distortions_u, distortions_e)
+    else:
+        if num_rays % chunk != 0:
+            raise ValueError(
+                f"ray_chunk ({chunk}) must divide the number of rays ({num_rays})."
+            )
+        flux = on_target_count = intercept_count = 0
+        for start in range(0, num_rays, chunk):
+            du = distortions_u[:, start : start + chunk]
+            de = distortions_e[:, start : start + chunk]
+            partial = checkpoint(
+                trace_chunk, du, de, use_reentrant=False, preserve_rng_state=False
+            )
+            flux = flux + partial[0]
+            on_target_count = on_target_count + partial[1]
+            intercept_count = intercept_count + partial[2]
+
+    # Bitmap origin is bottom-left: flip rows once at the end.
+    flux = torch.flip(flux, dims=(1,))
+
+    rays_per_heliostat = num_rays * num_points
+    intercept_factor = intercept_count / rays_per_heliostat
+    on_target_factor = on_target_count / rays_per_heliostat
+    # Without blocking every ray is unblocked.
+    blocking_factor = torch.ones_like(intercept_factor)
+    return flux, intercept_factor, on_target_factor, blocking_factor
+
+
+def get_bitmaps_per_target(
+    bitmaps_per_heliostat: torch.Tensor,
+    target_area_indices: torch.Tensor,
+    number_of_target_areas: int,
+) -> torch.Tensor:
+    """Sum per-heliostat bitmaps ``[M, H, W]`` into per-target bitmaps ``[T, H, W]``."""
+    out = torch.zeros(
+        (number_of_target_areas,) + tuple(bitmaps_per_heliostat.shape[1:]),
+        dtype=bitmaps_per_heliostat.dtype,
+        device=bitmaps_per_heliostat.device,
+    )
+    return out.index_add(0, target_area_indices, bitmaps_per_heliostat)
+
+
+def compute_ray_magnitude(
+    dni: float,
+    canting: torch.Tensor,
+    number_of_surface_points: int,
+    number_of_rays: int,
+) -> float:
+    """Per-ray power from direct normal irradiance and heliostat area.
+
+    Heliostat dimensions come from the canting-vector norms of the first
+    heliostat (facet half-extents x 4 + 2 cm gap).
+    """
+    canting_norm = torch.linalg.vector_norm(canting[0], dim=-1)[0][:2]
+    dimensions = canting_norm * 4 + 0.02
+    area = float(dimensions[0] * dimensions[1])
+    return dni * area / (number_of_surface_points * number_of_rays)

@@ -1,0 +1,132 @@
+"""Where the port's flagship step spends its time on the card: a torch.profiler breakdown.
+
+    python3 profile_torch_step.py [--steps 3] [--out profile_out]
+
+Builds the flagship step exactly as ``chip_smoke.py`` drives it (100
+heliostats, 50 x 50 points per facet x 4 facets, 32 rays per point, 256 x 256
+bitmaps, ray chunks of 4, Adam on the NURBS control points), runs one
+warm-up step, times ``--steps`` steps with the profiler off (host clock
+around synchronised steps), then profiles ``--steps`` more steps and prints:
+
+- the step time with the profiler off and on;
+- per step: device busy time (the union of all kernel and copy intervals),
+  the device's idle share of the step, and the number of kernels launched;
+- the device time of the two splat kernels and of everything else;
+- the top kernels by device time.
+
+It writes the full ``key_averages`` table and a Chrome trace under ``--out``.
+Needs one CUDA card; exits non-zero without one.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import pathlib
+import subprocess
+import sys
+import time
+
+import torch
+
+import chip_smoke
+from artist_tpu_torch.kernels.splat import build_library
+
+
+def _adam_step(control_points, optimizer, inputs) -> None:
+    optimizer.zero_grad(set_to_none=True)
+    chip_smoke.surface_loss(control_points, inputs).backward()
+    optimizer.step()
+
+
+def _timed_steps(steps: int, control_points, optimizer, inputs) -> list[float]:
+    seconds = []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        _adam_step(control_points, optimizer, inputs)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - start)
+    return seconds
+
+
+def _union_us(intervals: list[tuple[float, float]]) -> float:
+    busy, end = 0.0, float("-inf")
+    for start, stop in sorted(intervals):
+        if stop <= end:
+            continue
+        busy += stop - max(start, end)
+        end = stop
+    return busy
+
+
+def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--steps", type=int, default=3)
+    parser.add_argument("--out", type=pathlib.Path, default=pathlib.Path("profile_out"))
+    args = parser.parse_args()
+    if not torch.cuda.is_available():
+        print("profile_torch_step: no CUDA device", file=sys.stderr)
+        return 1
+    device = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    build_library()
+
+    inputs = chip_smoke.flagship_inputs(device)
+    control_points = inputs.scenario.heliostat_groups[0].nurbs_control_points.clone().requires_grad_(True)
+    optimizer = torch.optim.Adam([control_points], lr=chip_smoke.LEARNING_RATE)
+    _timed_steps(1, control_points, optimizer, inputs)  # warm-up
+    plain_seconds = _timed_steps(args.steps, control_points, optimizer, inputs)
+
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as profiler:
+        profiled_seconds = _timed_steps(args.steps, control_points, optimizer, inputs)
+
+    device_events = [
+        event for event in profiler.events()
+        if event.device_type == torch.autograd.DeviceType.CUDA
+    ]
+    intervals = [(e.time_range.start, e.time_range.end) for e in device_events]
+    busy_ms = _union_us(intervals) / 1e3 / args.steps
+    by_name: dict[str, list[float]] = {}
+    for event in device_events:
+        by_name.setdefault(event.name, []).append(event.time_range.elapsed_us() / 1e3)
+    rows = sorted(
+        ((sum(times) / args.steps, len(times) / args.steps, name) for name, times in by_name.items()),
+        reverse=True,
+    )
+    splat_ms = sum(ms for ms, _, name in rows if "splat_" in name and "_kernel" in name)
+    step_ms = 1e3 * sum(profiled_seconds) / args.steps
+    summary = {
+        "card": card,
+        "steps": args.steps,
+        "step_ms_profiler_off": [1e3 * s for s in plain_seconds],
+        "step_ms_profiler_on": [1e3 * s for s in profiled_seconds],
+        "device_busy_ms_per_step": busy_ms,
+        "device_idle_share": 1.0 - busy_ms / step_ms,
+        "device_events_per_step": len(device_events) / args.steps,
+        "splat_kernels_ms_per_step": splat_ms,
+        "other_device_ms_per_step": busy_ms - splat_ms,
+        "top": [
+            {"name": name[:120], "ms_per_step": ms, "calls_per_step": calls}
+            for ms, calls, name in rows[:15]
+        ],
+    }
+    args.out.mkdir(parents=True, exist_ok=True)
+    (args.out / "key_averages.txt").write_text(
+        profiler.key_averages().table(sort_by="self_device_time_total", row_limit=60)
+    )
+    profiler.export_chrome_trace(str(args.out / "trace.json"))
+    (args.out / "summary.json").write_text(json.dumps(summary, indent=1))
+    print(card)
+    print(json.dumps(summary))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
