@@ -130,3 +130,29 @@ def align_surfaces_with_incident_ray_directions(
         active.surface_points, active.surface_normals, orientations
     )
     return points, normals, orientations, motor_positions
+
+
+def align_surfaces_with_motor_positions(
+    active: HeliostatGroupState, motor_positions: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Align active surfaces for given motor positions ``[M, 2]``.
+
+    Returns
+    -------
+    tuple
+        (aligned_points [M, P, 4], aligned_normals [M, P, 4],
+        orientations [M, 4, 4]).
+    """
+    orientations = rigid_body.motor_positions_to_orientations(
+        motor_positions=motor_positions,
+        heliostat_positions=active.positions,
+        translation_deviations=active.translation_deviations,
+        rotation_deviations=active.rotation_deviations,
+        actuator_type=active.actuator_type,
+        actuator_non_optimizable=active.actuator_non_optimizable,
+        actuator_optimizable=active.actuator_optimizable,
+    )
+    points, normals = _apply_orientations(
+        active.surface_points, active.surface_normals, orientations
+    )
+    return points, normals, orientations

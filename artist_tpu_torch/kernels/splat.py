@@ -10,7 +10,7 @@ with ``compute_dtype=float32``). The kernels live in ``csrc/splat.cu``:
 
 Both are bound by bytes on the H100; the source's head note gives the bound
 and what the design does about it. They are built with ``nvcc`` at first use
-into ``artist_tpu_torch/_build/`` (plain C interface, loaded with
+(:mod:`artist_tpu_torch.kernels.build`; plain C interface, loaded with
 ``ctypes``) and launch on PyTorch's current stream.
 
 :class:`BilinearSplat` dispatches on the tensors' device: a CUDA tensor
@@ -26,21 +26,10 @@ show that its main path went through the kernels.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import pathlib
-import shutil
-import subprocess
 
 import torch
 
-_PACKAGE_DIR = pathlib.Path(__file__).resolve().parent.parent
-SOURCE = pathlib.Path(__file__).resolve().parent / "csrc" / "splat.cu"
-BUILD_DIR = _PACKAGE_DIR / "_build"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
+from artist_tpu_torch.kernels.build import load_library
 
 LAUNCHES = {"splat_forward": 0, "splat_backward": 0}
 
@@ -52,46 +41,10 @@ def reset_launch_counts() -> None:
         LAUNCHES[name] = 0
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    candidate = pathlib.Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
-    if candidate.exists():
-        return str(candidate)
-    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
-
-
-def build_library() -> tuple[pathlib.Path, str]:
-    """Compile ``csrc/splat.cu`` into a shared library unless already built.
-
-    The file name carries a hash of the source and flags, so an edited source
-    is rebuilt. Returns the library path and the compiler's output (the
-    ``-Xptxas -v`` register and spill report), empty when nothing was built.
-    """
-    digest = hashlib.sha256(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode())
-    target = BUILD_DIR / f"libsplat_{digest.hexdigest()[:16]}.so"
-    if target.exists():
-        return target, ""
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    partial = target.with_name(f"{target.name}.{os.getpid()}.tmp")
-    result = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", str(partial), str(SOURCE)],
-        capture_output=True,
-        text=True,
-        check=False,
-    )
-    if result.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {SOURCE}:\n{result.stdout}{result.stderr}")
-    os.replace(partial, target)
-    return target, result.stdout + result.stderr
-
-
 def _load() -> ctypes.CDLL:
     global _library
     if _library is None:
-        path, _ = build_library()
-        library = ctypes.CDLL(str(path))
+        library = load_library("splat")
         pointer, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
         sizes = [i64, i64, i32, i32, i32, pointer]  # M, N, H, W, device, stream
         library.splat_forward.argtypes = [pointer] * 4 + sizes

@@ -1,0 +1,437 @@
+"""Field-level flux shaping via motor positions: the aim-point optimizer.
+
+Counterpart of ``artist_tpu/optim/aim_point_optimizer.py:47-719``, single
+process. Each epoch aligns every heliostat group from its reparameterized
+motor positions, builds the blocking primitives from the aligned surfaces of
+the whole field, traces with blocking on (the compacted candidate route,
+K = ``blocking_candidates``), sums the flux on the chosen target and applies
+the KL (or pixel) loss plus three Augmented-Lagrangian constraints: the flux
+integral must not drop below its epoch-0 value, no heliostat's intercept may
+drop, and no pixel may exceed the maximum flux density.
+
+- The tanh reparameterization ``motor = initial + tanh(p) * scale``, with
+  ``scale`` the smaller margin to the motor limits (at least 1), keeps
+  relative update sizes comparable across heliostats and bounds each motor's
+  excursion.
+- ``torch.optim.Adam`` (eps 1e-8) takes the place of optax's ``adam(1.0)``
+  scaled by the learning rate: the update formula is the same. The
+  scheduler's rate is set on the parameter group each epoch.
+- Sun distortions come from a ``torch.Generator`` seeded with ``seed``.
+
+Not ported yet, and refused with ``NotImplementedError``: ``distributed_setup``,
+``mesh``, ``checkpoint_dir`` and ``heliostat_chunk``.
+"""
+
+from __future__ import annotations
+
+import logging
+from typing import Any, Callable
+
+import numpy as np
+import torch
+
+from artist_tpu_torch.field import heliostat_group as hg
+from artist_tpu_torch.field.solar_tower import get_centers_of_target_areas
+from artist_tpu_torch.optim import losses, training
+from artist_tpu_torch.raytracing.blocking import create_blocking_primitives_rectangles_by_index
+from artist_tpu_torch.raytracing.render import (
+    RenderConfig,
+    compute_ray_magnitude,
+    get_bitmaps_per_target,
+    trace_rays,
+)
+from artist_tpu_torch.scenario.scenario import Scenario
+from artist_tpu_torch.util import constants, indices
+
+log = logging.getLogger("artist_tpu_torch.optim")
+
+HISTORY_KEYS = (
+    "total_loss",
+    "flux_loss",
+    "local_flux_constraint",
+    "intercept_constraint",
+    "flux_integral_constraint",
+    "flux_integral",
+)
+
+
+class AimPointOptimizer:
+    """Optimize motor positions so the field's total flux matches a target distribution.
+
+    Parameters
+    ----------
+    scenario : Scenario
+        The scene; its tensors' device is where the optimization runs.
+    optimization_configuration : dict
+        ``{optimization: {...}, scheduler: {...}, constraints: {...}}``.
+    incident_ray_direction : array-like
+        The common incident ray direction ``[4]``.
+    target_area_index : int
+        Global index of the target area receiving the flux.
+    ground_truth : array-like
+        Target flux distribution ``[height_u, width_e]``.
+    dni : float
+        Direct normal irradiance in W/m^2.
+    blocking_candidates : int
+        Candidate blockers per heliostat (K) of the compacted blocking route.
+    """
+
+    def __init__(
+        self,
+        scenario: Scenario,
+        optimization_configuration: dict[str, Any],
+        incident_ray_direction,
+        target_area_index: int,
+        ground_truth,
+        dni: float,
+        bitmap_resolution: tuple[int, int] = (256, 256),
+        epsilon: float = 1e-12,
+        seed: int = 7,
+        distributed_setup=None,
+        mesh=None,
+        checkpoint_dir=None,
+        checkpoint_every: int = 25,
+        blocking_candidates: int | None = 16,
+        heliostat_chunk: int | None = None,
+    ) -> None:
+        for name, value in (
+            ("distributed_setup", distributed_setup),
+            ("mesh", mesh),
+            ("checkpoint_dir", checkpoint_dir),
+            ("heliostat_chunk", heliostat_chunk),
+        ):
+            if value is not None:
+                raise NotImplementedError(f"{name} is not ported yet")
+        self.scenario = scenario
+        self.device = scenario.heliostat_groups[0].positions.device
+        self.blocking_candidates = int(blocking_candidates) if blocking_candidates else None
+        self.optimizer_dict = optimization_configuration[constants.optimization]
+        self.scheduler_dict = optimization_configuration[constants.scheduler]
+        self.constraint_dict = optimization_configuration[constants.constraints]
+        self.incident_ray_direction = torch.as_tensor(
+            np.asarray(incident_ray_direction, dtype=np.float32), device=self.device
+        )
+        self.target_area_index = int(target_area_index)
+        self.ground_truth = torch.as_tensor(
+            np.asarray(ground_truth, dtype=np.float32), device=self.device
+        )
+        self.dni = float(dni)
+        self.bitmap_resolution = tuple(bitmap_resolution)
+        self.epsilon = epsilon
+        self.seed = seed
+
+    def _target_plane_dimensions(self) -> np.ndarray:
+        """Physical (width, height) of the chosen target area."""
+        tower = self.scenario.solar_tower
+        n_planar = tower.number_of_planar_target_areas
+        if self.target_area_index < n_planar:
+            return tower.planar_dimensions[self.target_area_index].cpu().numpy()
+        c = self.target_area_index - n_planar
+        return np.asarray(
+            [
+                float(tower.cylindrical_radii[c]) * float(tower.cylindrical_opening_angles[c]),
+                float(tower.cylindrical_heights[c]),
+            ]
+        )
+
+    @torch.no_grad()
+    def _initialize_group_parameters(self):
+        """Pre-align all groups: initial motor positions, tanh scales and per-group inputs."""
+        initial_motor_positions, scales, params, targets, incident = [], [], [], [], []
+        for group in self.scenario.heliostat_groups:
+            num = group.number_of_heliostats
+            target_indices = torch.full(
+                (num,), self.target_area_index, dtype=torch.long, device=self.device
+            )
+            directions = self.incident_ray_direction.expand(num, 4)
+            active = hg.gather_active(group, torch.arange(num, device=self.device))
+            aim = get_centers_of_target_areas(self.scenario.solar_tower, target_indices)
+            motor_positions = hg.align_surfaces_with_incident_ray_directions(
+                active, aim, directions
+            )[3]
+            minimum = group.actuator_non_optimizable[:, indices.actuator_min_motor_position]
+            maximum = group.actuator_non_optimizable[:, indices.actuator_max_motor_position]
+            scale = torch.clamp(
+                torch.minimum(motor_positions - minimum, maximum - motor_positions), min=1.0
+            )
+            initial_motor_positions.append(motor_positions)
+            scales.append(scale)
+            params.append(torch.zeros_like(motor_positions))
+            targets.append(target_indices)
+            incident.append(directions)
+        return params, scales, initial_motor_positions, targets, incident
+
+    def objective(self, loss_definition: str = "kl_divergence"):
+        """The optimization problem, from the scenario's current state.
+
+        Pre-aligns every group (initial motor positions and tanh scales, also
+        kept as ``initial_motor_positions_all_groups`` and
+        ``scales_all_groups``) and samples the sun distortions.
+
+        Returns
+        -------
+        tuple
+            ``params``: a zero ``[H_g, 2]`` tanh parameter per group;
+            ``forward(params)``: the target's total flux ``[height_u,
+            width_e]`` and the intercept, on-target and blocking factors of
+            every heliostat; ``loss_fn(params, references, lambdas)``: the
+            loss and a dict of its parts, with ``references`` = (flux
+            integral, intercepts) of epoch 0 and ``lambdas`` the three
+            multipliers (integral, intercept, local flux).
+        """
+        if loss_definition not in ("kl_divergence", "pixel"):
+            raise ValueError(f"Unknown loss for aim point optimization: {loss_definition}")
+        groups = list(self.scenario.heliostat_groups)
+        tower = self.scenario.solar_tower
+        sun = self.scenario.light_sources[0]
+        params, scales, initial_motor_positions, target_indices, incident_dirs = (
+            self._initialize_group_parameters()
+        )
+        # Exposed for inspection.
+        self.initial_motor_positions_all_groups = initial_motor_positions
+        self.scales_all_groups = scales
+
+        generator = torch.Generator(device=self.device).manual_seed(self.seed)
+        distortions, ray_magnitudes = [], []
+        for group in groups:
+            num_points = group.surface_points.shape[1]
+            distortions.append(
+                sun.get_distortions(generator, num_points, group.number_of_heliostats)
+            )
+            ray_magnitudes.append(
+                compute_ray_magnitude(self.dni, group.canting, num_points, sun.number_of_rays)
+            )
+
+        max_flux_density_per_pixel = float(
+            np.prod(self._target_plane_dimensions())
+            / np.prod(self.bitmap_resolution)
+            * self.constraint_dict[constants.max_flux_density]
+        )
+        rho_local, rho_integral, rho_intercept = self._rhos()
+        epsilon = self.epsilon
+        use_constraints = loss_definition == "kl_divergence"
+        render_config = RenderConfig(
+            bitmap_resolution=self.bitmap_resolution,
+            blocking_active=True,
+            blocking_candidates=self.blocking_candidates,
+        )
+        number_of_target_areas = tower.number_of_target_areas
+        group_offsets = np.concatenate(
+            [[0], np.cumsum([g.number_of_heliostats for g in groups])[:-1]]
+        )
+
+        def forward(group_params):
+            """Align all groups, trace with field-wide blocking, sum the target's flux."""
+            aligned = []
+            for g, group in enumerate(groups):
+                motors = initial_motor_positions[g] + torch.tanh(group_params[g]) * scales[g]
+                active = hg.gather_active(
+                    group, torch.arange(group.number_of_heliostats, device=self.device)
+                )
+                aligned.append(hg.align_surfaces_with_motor_positions(active, motors)[:2])
+            corners, spans, prim_normals = zip(
+                *(create_blocking_primitives_rectangles_by_index(points) for points, _ in aligned)
+            )
+            primitives = (torch.cat(corners), torch.cat(spans), torch.cat(prim_normals))
+
+            total_flux = 0
+            intercepts, on_targets, blockings = [], [], []
+            for g, group in enumerate(groups):
+                points, normals = aligned[g]
+                flux, intercept, on_target, blocking = trace_rays(
+                    tower=tower,
+                    aligned_surface_points=points,
+                    aligned_surface_normals=normals,
+                    incident_ray_directions=incident_dirs[g],
+                    target_area_indices=target_indices[g],
+                    distortions_u=distortions[g][0],
+                    distortions_e=distortions[g][1],
+                    ray_magnitude=ray_magnitudes[g],
+                    blocking_primitives=primitives,
+                    ray_primitive_indices=torch.arange(
+                        group.number_of_heliostats, device=self.device
+                    ) + int(group_offsets[g]),
+                    config=render_config,
+                )
+                total_flux = total_flux + get_bitmaps_per_target(
+                    flux, target_indices[g], number_of_target_areas
+                )[self.target_area_index]
+                intercepts.append(intercept)
+                on_targets.append(on_target)
+                blockings.append(blocking)
+            return total_flux, torch.cat(intercepts), torch.cat(on_targets), torch.cat(blockings)
+
+        def loss_fn(group_params, references, lambdas):
+            total_flux, intercepts, on_targets, blockings = forward(group_params)
+            loss_of = losses.kl_divergence_loss if use_constraints else losses.pixel_loss
+            flux_loss = loss_of(total_flux[None], self.ground_truth[None])[0]
+            aux = {
+                "flux_loss": flux_loss,
+                "total_flux_sum": torch.sum(total_flux),
+                "intercepts": intercepts,
+                "on_targets": on_targets,
+                "blockings": blockings,
+            }
+            if not use_constraints:
+                return flux_loss, aux
+            flux_integral_reference, intercept_reference = references
+            lambda_integral, lambda_intercept, lambda_local = lambdas
+
+            integral_difference = (flux_integral_reference - torch.sum(total_flux)) / (
+                flux_integral_reference + epsilon
+            )
+            integral_clamped = torch.clamp(integral_difference, min=0.0)
+            integral_constraint = (
+                lambda_integral * integral_clamped + 0.5 * rho_integral * integral_clamped**2
+            )
+            intercept_differences = (intercept_reference - intercepts) / (
+                intercept_reference + epsilon
+            )
+            intercept_clamped = torch.clamp(intercept_differences, min=0.0)
+            intercept_constraint = torch.mean(
+                lambda_intercept * intercept_clamped + 0.5 * rho_intercept * intercept_clamped**2
+            )
+            local_violation = (total_flux - max_flux_density_per_pixel) / (
+                max_flux_density_per_pixel + epsilon
+            )
+            local_clamped = torch.clamp(local_violation, min=0.0)
+            local_constraint = torch.max(
+                lambda_local * local_clamped + 0.5 * rho_local * local_clamped**2
+            )
+            loss = flux_loss + integral_constraint + intercept_constraint + local_constraint
+            aux.update(
+                flux_integral_constraint=integral_constraint,
+                intercept_constraint=intercept_constraint,
+                local_flux_constraint=local_constraint,
+                flux_integral_difference=integral_difference,
+                intercept_differences_mean=torch.mean(intercept_differences),
+                local_flux_violation_max=torch.max(local_violation),
+            )
+            return loss, aux
+
+        return params, forward, loss_fn
+
+    def _rhos(self) -> tuple[float, float, float]:
+        """Penalty weights (local flux, flux integral, intercept)."""
+        return tuple(
+            float(self.constraint_dict[key])
+            for key in (constants.rho_local_flux, constants.rho_flux_integral, constants.rho_intercept)
+        )
+
+    def optimize(
+        self,
+        loss_definition: str = "kl_divergence",
+        on_epoch: Callable[[int, float], None] | None = None,
+    ):
+        """Run the aim-point optimization.
+
+        ``on_epoch(epoch, loss)`` is called after each epoch's update, once
+        its loss has reached the host.
+
+        Returns
+        -------
+        tuple
+            (final loss, loss history dict, intercept factors, on-target
+            factors, blocking factors), the factors from the last epoch's
+            forward. The scenario's heliostat groups get the optimized motor
+            positions.
+        """
+        log.info("Start the aim point optimization.")
+        params, forward, loss_fn = self.objective(loss_definition)
+        use_constraints = loss_definition == "kl_divergence"
+        rho_local, rho_integral, rho_intercept = self._rhos()
+        groups = list(self.scenario.heliostat_groups)
+
+        # Epoch-0 references (the constraint terms are exactly zero there).
+        with torch.no_grad():
+            init_flux, init_intercepts, _, _ = forward(params)
+        references = (torch.sum(init_flux), init_intercepts)
+        reference_integral = float(references[0])
+        zero = torch.zeros((), device=self.device)
+        lambdas = (zero, zero, zero)
+
+        for p in params:
+            p.requires_grad_(True)
+        initial_lr = float(self.optimizer_dict[constants.initial_learning_rate])
+        optimizer = torch.optim.Adam(params, lr=initial_lr, betas=(0.9, 0.999), eps=1e-8)
+        scheduler = training.make_scheduler(initial_lr, self.scheduler_dict)
+        early_stopper = training.EarlyStopping(
+            window_size=int(self.optimizer_dict[constants.early_stopping_window]),
+            patience=int(self.optimizer_dict[constants.early_stopping_patience]),
+            min_improvement=float(self.optimizer_dict[constants.early_stopping_delta]),
+            relative=True,
+        )
+        max_epoch = int(self.optimizer_dict[constants.max_epoch])
+        tolerance = float(self.optimizer_dict[constants.tolerance])
+        log_step = int(self.optimizer_dict.get(constants.log_step, 0)) or max_epoch
+
+        history: dict[str, list[float]] = {k: [] for k in HISTORY_KEYS}
+        loss_value = np.inf
+        aux = None
+        epoch = 0
+        while loss_value > tolerance and epoch <= max_epoch:
+            if isinstance(scheduler, training.ReduceOnPlateau):
+                learning_rate = scheduler.learning_rate
+            else:
+                learning_rate = float(scheduler(epoch))
+            for param_group in optimizer.param_groups:
+                param_group["lr"] = learning_rate
+            optimizer.zero_grad(set_to_none=True)
+            loss, aux = loss_fn(params, references, lambdas)
+            loss.backward()
+            optimizer.step()
+            if use_constraints:
+                # Augmented-Lagrangian multiplier updates.
+                lambdas = tuple(
+                    torch.clamp(value + rho * aux[key].detach(), min=0.0)
+                    for value, rho, key in zip(
+                        lambdas,
+                        (rho_integral, rho_intercept, rho_local),
+                        ("flux_integral_difference", "intercept_differences_mean",
+                         "local_flux_violation_max"),
+                    )
+                )
+            scalars = ["flux_loss"]
+            if use_constraints:
+                scalars += ["total_flux_sum", "local_flux_constraint", "intercept_constraint",
+                            "flux_integral_constraint"]
+            # One host transfer per epoch for the loss and the history.
+            fetched = torch.stack([loss.detach()] + [aux[k].detach() for k in scalars]).tolist()
+            loss_value, values = fetched[0], dict(zip(scalars, fetched[1:]))
+            if isinstance(scheduler, training.ReduceOnPlateau):
+                scheduler.step(loss_value)
+            if epoch % log_step == 0:
+                log.info("Epoch: %d, Loss: %.6f, LR: %.2e", epoch, loss_value, learning_rate)
+            history["total_loss"].append(loss_value)
+            history["flux_loss"].append(values["flux_loss"])
+            if use_constraints:
+                history["flux_integral"].append(
+                    100.0 / reference_integral
+                    * (values["total_flux_sum"] - reference_integral + 1e-8)
+                )
+                for key in ("local_flux_constraint", "intercept_constraint", "flux_integral_constraint"):
+                    history[key].append(values[key])
+            if on_epoch is not None:
+                on_epoch(epoch, loss_value)
+            if early_stopper.step(loss_value):
+                log.info("Early stopping at epoch %d.", epoch)
+                break
+            epoch += 1
+
+        with torch.no_grad():
+            for g, group in enumerate(groups):
+                motor = (
+                    self.initial_motor_positions_all_groups[g]
+                    + torch.tanh(params[g]) * self.scales_all_groups[g]
+                )
+                self.scenario.heliostat_groups[g] = group.replace(motor_positions=motor.clone())
+        log.info("Aim points optimized.")
+        if aux is None:
+            return loss_value, history, None, None, None
+        return (
+            loss_value,
+            history,
+            aux["intercepts"].detach(),
+            aux["on_targets"].detach(),
+            aux["blockings"].detach(),
+        )

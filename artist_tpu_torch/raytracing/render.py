@@ -1,27 +1,40 @@
-"""Differentiable render: scatter -> intersect -> splat.
+"""Differentiable render: scatter -> intersect -> block -> splat.
 
 Counterpart of ``artist_tpu/raytracing/render.py``. Memory is bounded by a
 loop over ray chunks; each chunk runs under
 ``torch.utils.checkpoint(..., use_reentrant=False)`` so the backward
 recomputes the chunk's forward (splat kernel included) instead of storing
 its per-ray tensors - the port of the JAX package's remat'd ``lax.scan``.
-The distortion scatter uses the fused component-wise rotation and never
-builds ``[M, R, P, 4, 4]`` rotation tensors.
+With blocking on, the checkpoint is selective: the blocking sigma operator's
+output is saved, so the recompute does not launch its kernel again (the JAX
+package's ``save_only_these_names("blocking_sigma")`` policy). The
+distortion scatter uses the fused component-wise rotation and never builds
+``[M, R, P, 4, 4]`` rotation tensors.
 
-Not ported yet, and refused with ``NotImplementedError``: field-wide
-blocking (``blocking_active=True``) and cylindrical targets.
+Field-wide blocking runs on the candidate-compacted route only
+(``blocking_candidates`` set); the flat route (``blocking_candidates=None``)
+and cylindrical targets are not ported yet and raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
+from typing import NamedTuple
 
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+    noop_context_fn,
+)
 
 from artist_tpu_torch.field.solar_tower import SolarTower
 from artist_tpu_torch.geometry.transforms import apply_distortion_rotation
 from artist_tpu_torch.raytracing import geometry
+from artist_tpu_torch.raytracing.blocking import soft_ray_blocking_mask
 from artist_tpu_torch.raytracing.splatting import bilinear_splat
 
 DEFAULT_MIRROR_REFLECTIVITY = 0.935
@@ -38,8 +51,24 @@ class RenderConfig:
     # the backward instead of storing its per-ray tensors: O(chunk) instead of
     # O(rays) activation memory.
     ray_chunk: int | None = None
-    # Field-wide soft blocking. Not ported yet: True raises.
+    # Field-wide soft blocking; needs the blocking primitives.
     blocking_active: bool = False
+    # Candidate blockers per heliostat (K) of the compacted blocking route.
+    # None selects the flat route, which is not ported yet and raises.
+    blocking_candidates: int | None = 16
+
+
+class ChunkRays(NamedTuple):
+    """One chunk of rays from scatter to the splat's inputs, each ``[M, r, P]``
+    (``ray_directions`` ``[M, r, P, 4]``)."""
+
+    ray_directions: torch.Tensor
+    bitmap_e: torch.Tensor
+    bitmap_u: torch.Tensor
+    distances: torch.Tensor  # to the target hit; 0 for rays that miss it
+    intensities: torch.Tensor
+    blocked: torch.Tensor | None  # None with blocking off
+    final_intensities: torch.Tensor  # with blocking, reflectivity and extinction
 
 
 def ray_splat_inputs(
@@ -51,8 +80,10 @@ def ray_splat_inputs(
     distortions_e: torch.Tensor,
     ray_magnitude: float | torch.Tensor,
     config: RenderConfig,
-) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Scatter and intersect one chunk of rays: the splat's inputs.
+    blocking_primitives: tuple[torch.Tensor, torch.Tensor, torch.Tensor] | None = None,
+    ray_primitive_indices: torch.Tensor | None = None,
+) -> ChunkRays:
+    """Scatter, intersect and block one chunk of rays: the splat's inputs.
 
     Parameters
     ----------
@@ -60,18 +91,13 @@ def ray_splat_inputs(
         Mirror reflections of the incident direction, ``[M, P, 4]``.
     distortions_u, distortions_e : torch.Tensor
         The chunk's sun scatter angles, ``[M, r, P]``.
-
-    Returns
-    -------
-    tuple of torch.Tensor
-        (bitmap_e, bitmap_u, intensities, final_intensities), each
-        ``[M, r, P]``; ``final_intensities`` carry reflectivity and
-        extinction.
+    blocking_primitives, ray_primitive_indices :
+        As for :func:`trace_rays`; read only with ``config.blocking_active``.
     """
     ray_directions = apply_distortion_rotation(
         e=distortions_e, u=distortions_u, directions=preferred_directions[:, None, :, :]
     )  # [M, r, P, 4]
-    bitmap_e, bitmap_u, _, intensities = geometry.line_plane_intersections(
+    bitmap_e, bitmap_u, distances, intensities = geometry.line_plane_intersections(
         ray_directions,
         ray_magnitude,
         aligned_surface_points,
@@ -79,10 +105,34 @@ def ray_splat_inputs(
         target_area_indices,
         config.bitmap_resolution,
     )
+    blocked = None
+    final_intensities = intensities
+    if config.blocking_active:
+        corners, spans, normals = blocking_primitives
+        blocked = soft_ray_blocking_mask(
+            ray_origins=aligned_surface_points,
+            ray_directions=ray_directions,
+            blocking_primitives_corners=corners,
+            blocking_primitives_spans=spans,
+            blocking_primitives_normals=normals,
+            intersection_distances_target=distances,
+            ray_primitive_indices=ray_primitive_indices,
+            max_candidates=config.blocking_candidates,
+        )
+        final_intensities = intensities * (1.0 - blocked)
     final_intensities = (
-        intensities * (1.0 - config.ray_extinction_factor) * config.mirror_reflectivity
+        final_intensities * (1.0 - config.ray_extinction_factor) * config.mirror_reflectivity
     )
-    return bitmap_e, bitmap_u, intensities, final_intensities
+    return ChunkRays(
+        ray_directions, bitmap_e, bitmap_u, distances, intensities, blocked, final_intensities
+    )
+
+
+def _save_blocking_sigma(ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    """Selective-checkpoint policy: keep the sigma operator's output, recompute the rest."""
+    if op is torch.ops.artist_tpu_torch.blocking_sigma.default:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
 
 
 def trace_rays(
@@ -94,6 +144,8 @@ def trace_rays(
     distortions_u: torch.Tensor,
     distortions_e: torch.Tensor,
     ray_magnitude: float | torch.Tensor = 1.0,
+    blocking_primitives: tuple[torch.Tensor, torch.Tensor, torch.Tensor] | None = None,
+    ray_primitive_indices: torch.Tensor | None = None,
     config: RenderConfig = RenderConfig(),
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
     """Trace heliostat rays onto planar tower targets and splat flux bitmaps.
@@ -112,6 +164,12 @@ def trace_rays(
         Sun scatter angles ``[M, R, P]``.
     ray_magnitude : float | torch.Tensor
         Per-ray power (DNI-derived) or 1.0.
+    blocking_primitives : tuple | None
+        (corners ``[B, 4, 4]``, spans ``[B, 2, 4]``, normals ``[B, 4]``) of
+        the potential blockers; required when ``config.blocking_active``.
+    ray_primitive_indices : torch.Tensor | None
+        Global primitive index owned by each active heliostat ``[M]`` (a
+        heliostat never blocks itself).
     config : RenderConfig
         Options.
 
@@ -119,10 +177,15 @@ def trace_rays(
     -------
     tuple of torch.Tensor
         Flux bitmaps ``[M, height_u, width_e]``, intercept factor ``[M]``,
-        on-target factor ``[M]``, (non-)blocking factor ``[M]``.
+        on-target factor ``[M]``, (non-)blocking factor ``[M]``: the share of
+        rays with ``blocked < 1e-3``.
     """
-    if config.blocking_active:
-        raise NotImplementedError("field-wide blocking is not ported yet")
+    if config.blocking_active and config.blocking_candidates is None:
+        raise NotImplementedError(
+            "the flat blocking route (blocking_candidates=None) is not ported yet"
+        )
+    if config.blocking_active and blocking_primitives is None:
+        raise ValueError("blocking_active needs blocking_primitives")
     if tower.number_of_cylindrical_target_areas:
         raise NotImplementedError("cylindrical target areas are not ported yet")
     num_active, num_rays, num_points = distortions_u.shape
@@ -132,7 +195,7 @@ def trace_rays(
     )  # [M, P, 4]
 
     def trace_chunk(du: torch.Tensor, de: torch.Tensor):
-        bitmap_e, bitmap_u, intensities, final_intensities = ray_splat_inputs(
+        rays = ray_splat_inputs(
             tower,
             preferred,
             aligned_surface_points,
@@ -141,36 +204,51 @@ def trace_rays(
             de,
             ray_magnitude,
             config,
+            blocking_primitives,
+            ray_primitive_indices,
         )
         partial_flux = bilinear_splat(
-            bitmap_e,
-            bitmap_u,
-            final_intensities,
+            rays.bitmap_e,
+            rays.bitmap_u,
+            rays.final_intensities,
             config.bitmap_resolution,
             flip_up_down=False,
         )
-        on_target_count = torch.sum(intensities > 0, dim=(1, 2))
-        intercept_count = torch.sum(final_intensities > 0, dim=(1, 2))
-        return partial_flux, on_target_count, intercept_count
+        on_target_count = torch.sum(rays.intensities > 0, dim=(1, 2))
+        intercept_count = torch.sum(rays.final_intensities > 0, dim=(1, 2))
+        if rays.blocked is None:
+            unblocked_count = torch.full_like(on_target_count, du.shape[1] * num_points)
+        else:
+            unblocked_count = torch.sum(rays.blocked < 1e-3, dim=(1, 2))
+        return partial_flux, on_target_count, intercept_count, unblocked_count
 
     chunk = config.ray_chunk
     if chunk is None or chunk >= num_rays:
-        flux, on_target_count, intercept_count = trace_chunk(distortions_u, distortions_e)
+        flux, on_target_count, intercept_count, unblocked_count = trace_chunk(
+            distortions_u, distortions_e
+        )
     else:
         if num_rays % chunk != 0:
             raise ValueError(
                 f"ray_chunk ({chunk}) must divide the number of rays ({num_rays})."
             )
-        flux = on_target_count = intercept_count = 0
+        context_fn = (
+            functools.partial(create_selective_checkpoint_contexts, _save_blocking_sigma)
+            if config.blocking_active
+            else noop_context_fn
+        )
+        flux = on_target_count = intercept_count = unblocked_count = 0
         for start in range(0, num_rays, chunk):
             du = distortions_u[:, start : start + chunk]
             de = distortions_e[:, start : start + chunk]
             partial = checkpoint(
-                trace_chunk, du, de, use_reentrant=False, preserve_rng_state=False
+                trace_chunk, du, de, use_reentrant=False, preserve_rng_state=False,
+                context_fn=context_fn,
             )
             flux = flux + partial[0]
             on_target_count = on_target_count + partial[1]
             intercept_count = intercept_count + partial[2]
+            unblocked_count = unblocked_count + partial[3]
 
     # Bitmap origin is bottom-left: flip rows once at the end.
     flux = torch.flip(flux, dims=(1,))
@@ -178,8 +256,7 @@ def trace_rays(
     rays_per_heliostat = num_rays * num_points
     intercept_factor = intercept_count / rays_per_heliostat
     on_target_factor = on_target_count / rays_per_heliostat
-    # Without blocking every ray is unblocked.
-    blocking_factor = torch.ones_like(intercept_factor)
+    blocking_factor = unblocked_count / rays_per_heliostat
     return flux, intercept_factor, on_target_factor, blocking_factor
 
 

@@ -1,17 +1,26 @@
-"""Where the port's flagship step spends its time on the card: a torch.profiler breakdown.
+"""Where one of the port's paths spends its time on the card: a torch.profiler breakdown.
 
-    python3 profile_torch_step.py [--steps 3] [--out profile_out]
+    python3 profile_torch_step.py [--path surface_step] [--steps 3] [--out profile_out]
 
-Builds the flagship step exactly as ``chip_smoke.py`` drives it (100
-heliostats, 50 x 50 points per facet x 4 facets, 32 rays per point, 256 x 256
-bitmaps, ray chunks of 4, Adam on the NURBS control points), runs one
-warm-up step, times ``--steps`` steps with the profiler off (host clock
-around synchronised steps), then profiles ``--steps`` more steps and prints:
+``--path`` picks what a step is, each built exactly as ``chip_smoke.py``
+drives it:
+
+- ``surface_step``: the flagship surface-reconstruction step (100 heliostats,
+  50 x 50 points per facet x 4 facets, 32 rays per point, 256 x 256 bitmaps,
+  ray chunks of 4, Adam on the NURBS control points);
+- ``blocking_step``: the same step with field-wide blocking on (K = 16);
+- ``aim_point``: one epoch of the aim-point optimizer at ``bench.py``'s size
+  (100 heliostats, 8 rays per point, 8 M rays, blocking with K = 16): the
+  loss with its three penalty terms, its backward and the Adam update.
+
+It runs one warm-up step, times ``--steps`` steps with the profiler off (host
+clock around synchronised steps), then profiles ``--steps`` more and prints:
 
 - the step time with the profiler off and on;
 - per step: device busy time (the union of all kernel and copy intervals),
-  the device's idle share of the step, and the number of kernels launched;
-- the device time of the two splat kernels and of everything else;
+  the device's idle share of the step, and the number of device events;
+- the device time of the port's own kernels (splat and blocking) and of
+  everything else;
 - the top kernels by device time.
 
 It writes the full ``key_averages`` table and a Chrome trace under ``--out``.
@@ -30,21 +39,55 @@ import time
 import torch
 
 import chip_smoke
-from artist_tpu_torch.kernels.splat import build_library
+from artist_tpu_torch.kernels.build import build_all
+
+PORT_KERNELS = ("splat_forward_kernel", "splat_backward_kernel", "sigma_forward_kernel", "sigma_backward_kernel")
 
 
-def _adam_step(control_points, optimizer, inputs) -> None:
-    optimizer.zero_grad(set_to_none=True)
-    chip_smoke.surface_loss(control_points, inputs).backward()
-    optimizer.step()
+def surface_step(device: torch.device, blocking: bool):
+    inputs = chip_smoke.flagship_inputs(device, blocking=blocking)
+    control_points = inputs.scenario.heliostat_groups[0].nurbs_control_points.clone().requires_grad_(True)
+    optimizer = torch.optim.Adam([control_points], lr=chip_smoke.LEARNING_RATE)
+
+    def step() -> None:
+        optimizer.zero_grad(set_to_none=True)
+        chip_smoke.surface_loss(control_points, inputs).backward()
+        optimizer.step()
+
+    return step
 
 
-def _timed_steps(steps: int, control_points, optimizer, inputs) -> list[float]:
+def aim_point_epoch(device: torch.device):
+    scenario = chip_smoke.aim_point_scenario(
+        device, chip_smoke.AIM_HELIOSTATS, chip_smoke.AIM_SURFACE_POINTS, chip_smoke.AIM_RAYS
+    )
+    aim_point = chip_smoke.aim_point_optimizer(
+        scenario, chip_smoke.aim_point_ground_truth(chip_smoke.BITMAP, device), 0,
+        chip_smoke.AIM_CANDIDATES, chip_smoke.BITMAP,
+    )
+    params, forward, loss_fn = aim_point.objective("kl_divergence")
+    with torch.no_grad():
+        flux, intercepts, _, _ = forward(params)
+    references = (flux.sum(), intercepts)
+    lambdas = (torch.zeros((), device=device),) * 3
+    for param in params:
+        param.requires_grad_(True)
+    optimizer = torch.optim.Adam(params, lr=chip_smoke.AIM_LEARNING_RATE, eps=1e-8)
+
+    def step() -> None:
+        optimizer.zero_grad(set_to_none=True)
+        loss_fn(params, references, lambdas)[0].backward()
+        optimizer.step()
+
+    return step
+
+
+def _timed_steps(steps: int, step) -> list[float]:
     seconds = []
     for _ in range(steps):
         torch.cuda.synchronize()
         start = time.perf_counter()
-        _adam_step(control_points, optimizer, inputs)
+        step()
         torch.cuda.synchronize()
         seconds.append(time.perf_counter() - start)
     return seconds
@@ -62,6 +105,7 @@ def _union_us(intervals: list[tuple[float, float]]) -> float:
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--path", choices=("surface_step", "blocking_step", "aim_point"), default="surface_step")
     parser.add_argument("--steps", type=int, default=3)
     parser.add_argument("--out", type=pathlib.Path, default=pathlib.Path("profile_out"))
     args = parser.parse_args()
@@ -75,17 +119,18 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
-    build_library()
+    build_all()
 
-    inputs = chip_smoke.flagship_inputs(device)
-    control_points = inputs.scenario.heliostat_groups[0].nurbs_control_points.clone().requires_grad_(True)
-    optimizer = torch.optim.Adam([control_points], lr=chip_smoke.LEARNING_RATE)
-    _timed_steps(1, control_points, optimizer, inputs)  # warm-up
-    plain_seconds = _timed_steps(args.steps, control_points, optimizer, inputs)
+    if args.path == "aim_point":
+        step = aim_point_epoch(device)
+    else:
+        step = surface_step(device, blocking=args.path == "blocking_step")
+    _timed_steps(1, step)  # warm-up
+    plain_seconds = _timed_steps(args.steps, step)
 
     activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=activities) as profiler:
-        profiled_seconds = _timed_steps(args.steps, control_points, optimizer, inputs)
+        profiled_seconds = _timed_steps(args.steps, step)
 
     device_events = [
         event for event in profiler.events()
@@ -100,18 +145,19 @@ def main() -> int:
         ((sum(times) / args.steps, len(times) / args.steps, name) for name, times in by_name.items()),
         reverse=True,
     )
-    splat_ms = sum(ms for ms, _, name in rows if "splat_" in name and "_kernel" in name)
+    port_ms = {kernel: sum(ms for ms, _, name in rows if kernel in name) for kernel in PORT_KERNELS}
     step_ms = 1e3 * sum(profiled_seconds) / args.steps
     summary = {
         "card": card,
+        "path": args.path,
         "steps": args.steps,
         "step_ms_profiler_off": [1e3 * s for s in plain_seconds],
         "step_ms_profiler_on": [1e3 * s for s in profiled_seconds],
         "device_busy_ms_per_step": busy_ms,
         "device_idle_share": 1.0 - busy_ms / step_ms,
         "device_events_per_step": len(device_events) / args.steps,
-        "splat_kernels_ms_per_step": splat_ms,
-        "other_device_ms_per_step": busy_ms - splat_ms,
+        "port_kernels_ms_per_step": port_ms,
+        "other_device_ms_per_step": busy_ms - sum(port_ms.values()),
         "top": [
             {"name": name[:120], "ms_per_step": ms, "calls_per_step": calls}
             for ms, calls, name in rows[:15]

@@ -1,0 +1,345 @@
+"""The aim-point optimizer and its helpers: the port against the JAX package.
+
+Scenes are the synthetic field with its rows 3 m apart, so that heliostats
+block each other (the flagship's 12 m rows block nothing), built by the JAX
+package and carried into the port with ``convert.py``; both packages get the
+same numpy sun distortions. The JAX loss is built from the JAX package's
+public functions with ``blocking_method="pallas"`` (the compacted route the
+port follows, in interpret mode). Tolerances, each with its reason:
+
+- schedulers, early stopping and the trapezoid: the same float64 or float32
+  arithmetic, so equal to 1e-12 or 1e-6;
+- alignment by motor positions: fp32 trigonometry and matrix products, 1e-5;
+- the loss to ``rtol = 1e-4``, the epoch-0 references to 1e-4 of their scale
+  and the gradient with respect to the tanh parameters to ``1e-3`` of its
+  largest entry, as the render step's (fp32 geometry, sums in other orders),
+  under a ground truth of ones on the flux spot and zeros off it;
+- the optimizer over two epochs: JAX's optimizer takes its dense blocking
+  route on the CPU, which culls per primitive instead of per ray; the test
+  measures that route's gap to the compacted one on the epoch-0 loss and
+  allows three times it, plus the loss's ``rtol = 1e-4`` for rounding.
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+import chip_smoke
+from artist_tpu.field import heliostat_group as jax_hg
+from artist_tpu.field.solar_tower import get_centers_of_target_areas as jax_centers
+from artist_tpu.flux.bitmap import trapezoid_distribution as jax_trapezoid
+from artist_tpu.optim import losses as jax_losses
+from artist_tpu.optim import training as jax_training
+from artist_tpu.optim.aim_point_optimizer import AimPointOptimizer as JaxAimPointOptimizer
+from artist_tpu.raytracing import render as jax_render
+from artist_tpu.raytracing.blocking import create_blocking_primitives_rectangles_by_index as jax_rectangles
+from artist_tpu.scenario.synthetic import make_synthetic_scenario as jax_synthetic
+from artist_tpu.util import constants, indices
+from artist_tpu_torch.convert import scenario_from_numpy
+from artist_tpu_torch.field import heliostat_group as hg
+from artist_tpu_torch.flux.bitmap import trapezoid_distribution
+from artist_tpu_torch.optim import training
+from artist_tpu_torch.optim.aim_point_optimizer import AimPointOptimizer
+
+HELIOSTATS = 9  # three rows of three, 3 m apart
+POINTS = (5, 5)
+RAYS = 4
+BITMAP = (32, 32)
+DNI = 1000.0
+SEED = 7
+RHO = {constants.rho_flux_integral: 1.0, constants.rho_intercept: 1.0, constants.rho_local_flux: 1.0}
+MAX_FLUX_DENSITY = 1e6
+LOSSES = [5.0, 4.0, 3.9, 3.95, 3.96, 3.96, 3.97, 3.5, 3.5, 3.5, 3.5, 3.49, 3.6, 3.7, 3.8, 3.8]
+
+
+def _as_dict(x):
+    return {f.name: np.asarray(getattr(x, f.name)) for f in dataclasses.fields(x)}
+
+
+def _jax_scenario():
+    scenario = jax_synthetic(
+        number_of_heliostats=HELIOSTATS, number_of_surface_points_per_facet=POINTS, number_of_rays=RAYS
+    )
+    group = scenario.heliostat_groups[0]
+    positions = chip_smoke.row_positions(HELIOSTATS, chip_smoke.DENSE_ROW_SPACING)
+    scenario.heliostat_groups[0] = group.replace(positions=jnp.asarray(positions))
+    return scenario
+
+
+def _port_scenario(jax_scenario, distortions):
+    scenario = scenario_from_numpy(
+        jax_scenario.power_plant_position,
+        _as_dict(jax_scenario.solar_tower),
+        [_as_dict(sun) for sun in jax_scenario.light_sources],
+        [_as_dict(g) for g in jax_scenario.heliostat_groups],
+        jax_scenario.heliostat_group_names,
+        device="cpu",
+    )
+    scenario.light_sources[0] = chip_smoke.FixedDistortions(RAYS, *distortions)
+    return scenario
+
+
+def _configuration(max_epoch: int) -> dict:
+    return {
+        constants.optimization: {
+            constants.initial_learning_rate: 1e-3,
+            constants.tolerance: 0.0,
+            constants.max_epoch: max_epoch,
+            constants.batch_size: 96,
+            constants.log_step: 0,
+            constants.early_stopping_delta: 1e-9,
+            constants.early_stopping_patience: 10_000,
+            constants.early_stopping_window: 10_000,
+        },
+        constants.scheduler: {constants.scheduler_type: constants.exponential, constants.gamma: 0.99},
+        constants.constraints: {**RHO, constants.max_flux_density: MAX_FLUX_DENSITY},
+    }
+
+
+def _jax_distortions(jax_scenario):
+    """The distortions JAX's optimizer samples for the scene's one group (seed 7)."""
+    key = jax.random.split(jax.random.PRNGKey(SEED), 1)[0]
+    points = jax_scenario.heliostat_groups[0].surface_points.shape[1]
+    return tuple(np.asarray(x) for x in jax_scenario.light_sources[0].get_distortions(key, points, HELIOSTATS))
+
+
+def _jax_objective(jax_scenario, distortions, ground_truth, method):
+    """The aim-point loss built from the JAX package's public functions.
+
+    Returns ``forward(params) -> (flux, intercepts)`` and ``loss(params,
+    references, lambdas) -> loss``, the formulas of
+    ``aim_point_optimizer.py:314-528`` for one group.
+    """
+    group = jax_scenario.heliostat_groups[0]
+    tower = jax_scenario.solar_tower
+    number = HELIOSTATS
+    targets = jnp.zeros(number, jnp.int32)
+    incident = jnp.broadcast_to(jnp.asarray([0.0, 1.0, 0.0, 0.0], jnp.float32), (number, 4))
+    active = jax_hg.gather_active(group, jnp.arange(number))
+    initial = jax_hg.align_surfaces_with_incident_ray_directions(active, jax_centers(tower, targets), incident)[3]
+    limits = group.actuator_non_optimizable
+    scale = jnp.clip(
+        jnp.minimum(initial - limits[:, indices.actuator_min_motor_position],
+                    limits[:, indices.actuator_max_motor_position] - initial),
+        1.0, None,
+    )
+    magnitude = jax_render.compute_ray_magnitude(DNI, group.canting, group.surface_points.shape[1], RAYS)
+    config = jax_render.RenderConfig(
+        bitmap_resolution=BITMAP, blocking_active=True, blocking_method=method, blocking_candidates=16
+    )
+    du, de = (jnp.asarray(x) for x in distortions)
+    max_density = float(np.prod(np.asarray(tower.planar_dimensions[0])) / np.prod(BITMAP) * MAX_FLUX_DENSITY)
+
+    def forward(params):
+        motors = initial + jnp.tanh(params) * scale
+        points, normals, _ = jax_hg.align_surfaces_with_motor_positions(active, motors)
+        flux, intercepts, _, _ = jax_render.trace_rays(
+            tower, points, normals, incident, targets, du, de, ray_magnitude=magnitude,
+            blocking_primitives=jax_rectangles(points), ray_primitive_indices=jnp.arange(number), config=config,
+        )
+        return jax_render.get_bitmaps_per_target(flux, targets, tower.number_of_target_areas)[0], intercepts
+
+    def loss(params, references, lambdas):
+        flux, intercepts = forward(params)
+        integral, intercept_reference = references
+        flux_loss = jax_losses.kl_divergence_loss(flux[None], jnp.asarray(ground_truth)[None])[0]
+        a = jnp.clip((integral - jnp.sum(flux)) / (integral + 1e-12), 0.0, None)
+        b = jnp.clip((intercept_reference - intercepts) / (intercept_reference + 1e-12), 0.0, None)
+        c = jnp.clip((flux - max_density) / (max_density + 1e-12), 0.0, None)
+        return (
+            flux_loss
+            + lambdas[0] * a + 0.5 * a**2
+            + jnp.mean(lambdas[1] * b + 0.5 * b**2)
+            + jnp.max(lambdas[2] * c + 0.5 * c**2)
+        )
+
+    return forward, loss
+
+
+@pytest.fixture(scope="module")
+def scene():
+    """The dense-row scene, its distortions and a ground truth of ones on the flux spot."""
+    jax_scenario = _jax_scenario()
+    distortions = _jax_distortions(jax_scenario)
+    forward, _ = _jax_objective(jax_scenario, distortions, np.ones(BITMAP[::-1], np.float32), "pallas")
+    flux = np.asarray(forward(jnp.zeros((HELIOSTATS, 2)))[0])
+    spot = (flux > 0.05 * flux.max()).astype(np.float32)
+    return distortions, spot
+
+
+@pytest.mark.parametrize("kind", [constants.exponential, constants.cyclic, constants.reduce_on_plateau])
+def test_schedulers_match_jax(kind):
+    parameters = {
+        constants.exponential: {constants.gamma: 0.93},
+        constants.cyclic: {constants.lr_min: 1e-5, constants.lr_max: 1e-3, constants.step_size_up: 3},
+        constants.reduce_on_plateau: {
+            constants.reduce_factor: 0.5, constants.patience: 2, constants.threshold: 1e-3,
+            constants.cooldown: 1, constants.lr_min: 1e-4,
+        },
+    }[kind]
+    config = {constants.scheduler_type: kind, **parameters}
+    ours, theirs = training.make_scheduler(1e-2, config), jax_training.make_scheduler(1e-2, config)
+    if kind == constants.reduce_on_plateau:
+        mine = [ours.step(loss) for loss in LOSSES]
+        other = [theirs.step(loss) for loss in LOSSES]
+        assert len(set(mine)) > 2  # the rate was reduced more than once
+    else:
+        mine = [ours(epoch) for epoch in range(len(LOSSES))]
+        other = [float(theirs(epoch)) for epoch in range(len(LOSSES))]
+    np.testing.assert_allclose(mine, other, rtol=1e-6, atol=1e-12)
+    with pytest.raises(ValueError):
+        training.make_scheduler(1e-2, {constants.scheduler_type: "unknown"})
+
+
+@pytest.mark.parametrize("window, patience, delta", [(3, 2, 1e-2), (5, 1, 0.2), (2, 4, 0.0)])
+def test_early_stopping_matches_jax(window, patience, delta):
+    ours = training.EarlyStopping(window_size=window, patience=patience, min_improvement=delta)
+    theirs = jax_training.EarlyStopping(window_size=window, patience=patience, min_improvement=delta)
+    mine = [ours.step(loss) for loss in LOSSES]
+    assert mine == [theirs.step(loss) for loss in LOSSES]
+    assert any(mine) or window == 2
+
+
+@pytest.mark.parametrize("width, slope, plateau", [(256, 30, 60), (33, 0, 10), (64, 7, 0)])
+def test_trapezoid_distribution_matches_jax(width, slope, plateau):
+    np.testing.assert_allclose(
+        trapezoid_distribution(width, slope, plateau, device="cpu").numpy(),
+        np.asarray(jax_trapezoid(width, slope, plateau)),
+        rtol=0, atol=1e-6,
+    )
+
+
+def test_align_surfaces_with_motor_positions_matches_jax():
+    jax_scenario = _jax_scenario()
+    scenario = _port_scenario(jax_scenario, (np.zeros(1), np.zeros(1)))
+    motors = np.random.RandomState(2).uniform(1e4, 6e4, (HELIOSTATS, 2)).astype(np.float32)
+    theirs = jax_hg.align_surfaces_with_motor_positions(
+        jax_hg.gather_active(jax_scenario.heliostat_groups[0], jnp.arange(HELIOSTATS)), jnp.asarray(motors)
+    )
+    ours = hg.align_surfaces_with_motor_positions(
+        hg.gather_active(scenario.heliostat_groups[0], torch.arange(HELIOSTATS)), torch.tensor(motors)
+    )
+    for mine, other in zip(ours, theirs):
+        np.testing.assert_allclose(mine.numpy(), np.asarray(other), rtol=0, atol=1e-5)
+
+
+def test_aim_point_loss_and_gradient_match_jax(scene):
+    distortions, spot = scene
+    jax_scenario = _jax_scenario()
+    jax_forward, jax_loss = _jax_objective(jax_scenario, distortions, spot, "pallas")
+    optimizer = AimPointOptimizer(
+        scenario=_port_scenario(jax_scenario, distortions), optimization_configuration=_configuration(1),
+        incident_ray_direction=[0.0, 1.0, 0.0, 0.0], target_area_index=0, ground_truth=spot, dni=DNI,
+        bitmap_resolution=BITMAP,
+    )
+    params, forward, loss_fn = optimizer.objective("kl_divergence")
+
+    # The epoch-0 references.
+    zeros = jnp.zeros((HELIOSTATS, 2))
+    flux_jax, intercepts_jax = (np.asarray(x) for x in jax_forward(zeros))
+    with torch.no_grad():
+        flux, intercepts, _, blockings = forward(params)
+    np.testing.assert_allclose(flux.numpy(), flux_jax, rtol=0, atol=1e-4 * flux_jax.max())
+    np.testing.assert_allclose(float(flux.sum()), float(flux_jax.sum()), rtol=1e-4)
+    np.testing.assert_allclose(intercepts.numpy(), intercepts_jax, rtol=0, atol=1e-6)
+    assert float(blockings.min()) < 1.0  # the scene blocks
+
+    # Loss and gradient away from epoch 0, with the multipliers on.
+    theta = np.random.RandomState(4).normal(0.0, 0.05, (HELIOSTATS, 2)).astype(np.float32)
+    lambdas = (0.3, 0.2, 0.1)
+    references = (float(flux_jax.sum()) * 1.01, intercepts_jax * 1.001)
+    loss_jax, grad_jax = jax.value_and_grad(jax_loss)(
+        jnp.asarray(theta), (jnp.float32(references[0]), jnp.asarray(references[1])), lambdas
+    )
+    leaf = torch.tensor(theta, requires_grad=True)
+    loss, aux = loss_fn(
+        [leaf], (torch.tensor(references[0]), torch.tensor(references[1])),
+        tuple(torch.tensor(x) for x in lambdas),
+    )
+    loss.backward()
+    assert float(aux["intercept_constraint"].detach()) > 0 and float(aux["flux_integral_constraint"].detach()) > 0
+    np.testing.assert_allclose(loss.item(), float(loss_jax), rtol=1e-4)
+    grad_jax = np.asarray(grad_jax)
+    assert np.abs(grad_jax).max() > 0
+    np.testing.assert_allclose(leaf.grad.numpy(), grad_jax, rtol=0, atol=1e-3 * np.abs(grad_jax).max())
+
+
+def test_aim_point_optimizer_two_epochs_against_jax(scene):
+    distortions, spot = scene
+    # The gap between JAX's dense route (its optimizer's CPU default) and the
+    # compacted route, measured on the epoch-0 loss.
+    zeros = jnp.zeros((HELIOSTATS, 2))
+    epoch0 = {}
+    for method in ("xla", "pallas"):
+        forward, loss = _jax_objective(_jax_scenario(), distortions, spot, method)
+        flux, intercepts = forward(zeros)
+        epoch0[method] = float(loss(zeros, (jnp.sum(flux), intercepts), (0.0, 0.0, 0.0)))
+    gap = abs(epoch0["xla"] - epoch0["pallas"])
+
+    jax_scenario = _jax_scenario()
+    scenario = _port_scenario(jax_scenario, distortions)
+    kwargs = dict(
+        optimization_configuration=_configuration(1), incident_ray_direction=[0.0, 1.0, 0.0, 0.0],
+        target_area_index=0, ground_truth=spot, dni=DNI, bitmap_resolution=BITMAP, seed=SEED,
+    )
+    theirs = JaxAimPointOptimizer(scenario=jax_scenario, **kwargs)
+    _, jax_history, *_ = theirs.optimize("kl_divergence")
+    ours = AimPointOptimizer(scenario=scenario, **kwargs)
+    final_loss, history, intercepts, on_targets, blockings = ours.optimize("kl_divergence")
+
+    assert len(history["total_loss"]) == 2 and final_loss == history["total_loss"][-1]
+    for key in ("total_loss", "flux_loss"):
+        np.testing.assert_allclose(
+            history[key], jax_history[key], rtol=1e-4, atol=3 * gap, err_msg=key
+        )
+    np.testing.assert_allclose(history["total_loss"][0], epoch0["pallas"], rtol=1e-4)
+    assert float(blockings.min()) < 1.0 and intercepts.shape == on_targets.shape == (HELIOSTATS,)
+    # The motors moved, within the tanh bound of their scale.
+    motors = scenario.heliostat_groups[0].motor_positions
+    initial = ours.initial_motor_positions_all_groups[0]
+    scale = ours.scales_all_groups[0]
+    assert bool((motors != initial).any())
+    assert bool(((motors - initial).abs() <= scale * (1 + 1e-6)).all())
+    # The write-back, through the tanh parameters each package's motors give
+    # back: p = artanh((motors - initial) / scale). Two Adam steps move each p
+    # by at most 2 lr. They agree to 1% of one step (lr); measured 4e-6, 0.4% of
+    # a step, on a heliostat whose second step nearly cancels its first, where
+    # the gradients' rounding weighs most. Every |p| exceeds 0.1 lr, so a
+    # write-back in the wrong direction or of half the update fails.
+    learning_rate = 1e-3
+
+    def tanh_parameters(optimizer, motors):
+        initial = np.asarray(optimizer.initial_motor_positions_all_groups[0], np.float64)
+        scale = np.asarray(optimizer.scales_all_groups[0], np.float64)
+        return np.arctanh((np.asarray(motors, np.float64) - initial) / scale)
+
+    np.testing.assert_allclose(
+        np.asarray(scale), np.asarray(theirs.scales_all_groups[0]), rtol=1e-6
+    )
+    jax_parameters = tanh_parameters(theirs, jax_scenario.heliostat_groups[0].motor_positions)
+    assert np.abs(jax_parameters).min() > 0.1 * learning_rate
+    np.testing.assert_allclose(
+        tanh_parameters(ours, motors.numpy()), jax_parameters, rtol=0, atol=1e-2 * learning_rate
+    )
+
+
+@pytest.mark.parametrize("option", ["distributed_setup", "mesh", "checkpoint_dir", "heliostat_chunk"])
+def test_aim_point_optimizer_refuses_what_is_not_ported(option):
+    scenario = _port_scenario(_jax_scenario(), (np.zeros(1), np.zeros(1)))
+    with pytest.raises(NotImplementedError):
+        AimPointOptimizer(
+            scenario=scenario, optimization_configuration=_configuration(1),
+            incident_ray_direction=[0.0, 1.0, 0.0, 0.0], target_area_index=0,
+            ground_truth=np.ones(BITMAP[::-1]), dni=DNI, **{option: 2},
+        )
+
+
+def test_chip_smoke_aim_point_agreement_runs_on_the_cpu():
+    """Rehearsal of chip_smoke.py's aim-point agreement phase, CPU against CPU, K = 16 and 32."""
+    results = chip_smoke.check_small_aim_point_against_cpu(torch.device("cpu"))
+    assert sorted(results) == [16, 32]
