@@ -1,36 +1,54 @@
-"""Soft blocking optical depth over per-heliostat candidates: CUDA kernels and plain versions.
+"""Soft blocking optical depth and the flat route's AABB cull: CUDA kernels and plain versions.
 
-Counterpart of the candidate-compacted ("grouped") path of
-``artist_tpu/kernels/blocking_pallas.py`` (``blocking_sigma_pallas_grouped``).
-The kernels live in ``csrc/blocking.cu``:
+Counterparts of both routes of ``artist_tpu/kernels/blocking_pallas.py``. The
+kernels live in ``csrc/blocking.cu``:
 
-- ``blocking_sigma_forward`` replaces ``_sigma_forward_kernel`` with
-  ``gated=True``: one thread per ray, a loop over the owner's K candidates
-  held in shared memory.
-- ``blocking_sigma_backward`` replaces ``_sigma_bwd_fused_kernel`` (and, for
-  K > 16, the split ``_sigma_bwd_rays_kernel`` / ``_sigma_bwd_prims_kernel``):
-  the same layout; per-ray cotangents written directly, per-candidate
-  cotangents reduced in the block and added atomically.
+- the candidate-compacted ("grouped") route,
+  ``blocking_sigma_pallas_grouped``:
 
-What bounds them on the H100 depends on how many candidates the corridor
-test keeps: operations when every slot is kept, the ray streams' bytes in
-real fields; the source's head note gives the bound and what the design does
-about it.
+  - ``blocking_sigma_forward`` replaces ``_sigma_forward_kernel`` with
+    ``gated=True``: one thread per ray, a loop over the owner's K candidates
+    held in shared memory;
+  - ``blocking_sigma_backward`` replaces ``_sigma_bwd_fused_kernel`` (and, for
+    K > 16, the split ``_sigma_bwd_rays_kernel`` / ``_sigma_bwd_prims_kernel``):
+    the same layout; per-ray cotangents written directly, per-candidate
+    cotangents reduced in the block and added atomically;
+
+- the flat route over every primitive of the field,
+  ``soft_ray_blocking_mask_pallas``:
+
+  - ``blocking_cull`` replaces ``_cull_kernel``: the AABB slab test, OR-reduced
+    over every ray into a keep flag per primitive (no gradient); it equals its
+    plain version bit for bit;
+  - ``blocking_sigma_flat_forward`` replaces ``_sigma_forward_kernel`` with
+    ``gated=False``: one thread per ray over all kept primitives;
+  - ``blocking_sigma_flat_backward`` replaces ``_sigma_bwd_rays_kernel`` and
+    ``_sigma_bwd_prims_kernel`` with ``gated=False``, fused: per-ray
+    cotangents, and per-primitive cotangents summed over the whole field by a
+    persistent grid and a second, fixed-order reduction.
+
+What bounds them on the H100 depends on how many primitives a ray meets:
+operations on the flat route and with every candidate slot kept, the ray
+streams' bytes when the corridor test keeps few candidates; the source's head
+note gives the bounds and what the design does about them.
 
 Inputs, each contiguous: ``origins [M, P, 4]`` (the aligned surface points;
 ray ``i`` of a heliostat starts at point ``i mod P``), ``directions [M, N, 4]``,
-``t_target [M, N]`` (the ray's target-hit distance; not differentiated),
-``columns [M, K, 16]`` (nx ny nz ux uy uz vx vy vz c0n c0u c0v uu vv uv
-inv_det of each candidate) and ``keep [M, K]`` (1 for a real candidate, 0 for
-a padded slot). The output is ``sigma [M, N]``.
+``t_target [M, N]`` (the ray's target-hit distance; not differentiated).
+Compacted: ``columns [M, K, 16]`` (nx ny nz ux uy uz vx vy vz c0n c0u c0v uu vv
+uv inv_det of each candidate) and ``keep [M, K]`` (1 for a real candidate, 0
+for a padded slot). Flat: ``columns [B, 16]`` and ``keep [B]`` of every
+primitive; the cull also takes ``own [M]`` (int64: the primitive each
+heliostat owns, -1 for none) and ``aabb [B, 6]`` (min xyz, max xyz). sigma
+is ``[M, N]``.
 
-:func:`blocking_sigma` is a ``torch.library`` operator with its own autograd
-formula, so that a selective checkpoint can save its output
-(:mod:`artist_tpu_torch.raytracing.render`). Its implementation dispatches on
-the tensors' device: a CUDA tensor launches the kernel or raises; a CPU
-tensor runs the plain PyTorch version defined here. There is no fallback
-from one to the other. ``LAUNCHES`` counts kernel launches (never plain
-calls).
+:func:`blocking_sigma` and :func:`blocking_sigma_flat` are ``torch.library``
+operators with their own autograd formulas, and :func:`blocking_cull` one
+without a gradient, so that a selective checkpoint can save their outputs
+(:mod:`artist_tpu_torch.raytracing.render`). Each dispatches on the tensors'
+device: a CUDA tensor launches the kernel or raises; a CPU tensor runs the
+plain PyTorch version defined here. There is no fallback from one to the
+other. ``LAUNCHES`` counts kernel launches (never plain calls).
 """
 
 from __future__ import annotations
@@ -42,10 +60,23 @@ import torch
 
 from artist_tpu_torch.kernels.build import load_library
 
-LAUNCHES = {"blocking_sigma_forward": 0, "blocking_sigma_backward": 0}
+LAUNCHES = {
+    "blocking_sigma_forward": 0,
+    "blocking_sigma_backward": 0,
+    "blocking_cull": 0,
+    "blocking_sigma_flat_forward": 0,
+    "blocking_sigma_flat_backward": 0,
+}
 NUM_COLUMNS = 16
 # Shared memory bounds K: (17 + 8 x 16) floats per candidate in the backward.
+# The flat route takes any number of primitives, in tiles.
 MAX_CANDIDATES = 384
+# The kernels' blocks are 256 threads; an SM of sm_90 holds at most 2048
+# threads, so at most 8 such blocks at once.
+KERNEL_THREADS = 256
+MAX_BLOCKS_PER_SM = 8
+# The cull's inverse direction is 1 / (d + CULL_DIRECTION_OFFSET), as the TPU kernel's.
+CULL_DIRECTION_OFFSET = 1e-12
 # Exponents of the soft gates are clamped here: e^80 stays finite in fp32.
 EXP_CLAMP = 80.0
 
@@ -62,12 +93,22 @@ def _load() -> ctypes.CDLL:
     if _library is None:
         library = load_library("blocking")
         pointer, i64, i32, f32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_float
-        # M, N, P, K, softness, offset, epsilon, tail, device, stream
+        # M, N, P, K or B, softness, offset, epsilon, tail, device, stream
         sizes = [i64, i64, i32, i32, f32, f32, f32, f32, i32, pointer]
-        library.blocking_sigma_forward.argtypes = [pointer] * 6 + sizes
-        library.blocking_sigma_forward.restype = ctypes.c_int
-        library.blocking_sigma_backward.argtypes = [pointer] * 9 + sizes
-        library.blocking_sigma_backward.restype = ctypes.c_int
+        for name, pointers in (
+            ("blocking_sigma_forward", 6),
+            ("blocking_sigma_backward", 9),
+            ("blocking_sigma_flat_forward", 5),
+        ):
+            getattr(library, name).argtypes = [pointer] * pointers + sizes
+        # ... the partials buffer and the most blocks it holds, then the sizes.
+        library.blocking_sigma_flat_backward.argtypes = [pointer] * 9 + [i32] + sizes
+        library.blocking_cull.argtypes = [pointer] * 6 + [i64, i64, i32, i32, i32, pointer]
+        for name in (
+            "blocking_sigma_forward", "blocking_sigma_backward", "blocking_sigma_flat_forward",
+            "blocking_sigma_flat_backward", "blocking_cull",
+        ):
+            getattr(library, name).restype = ctypes.c_int
         library.blocking_error_string.argtypes = [ctypes.c_int]
         library.blocking_error_string.restype = ctypes.c_char_p
         _library = library
@@ -80,17 +121,9 @@ def _check_status(library: ctypes.CDLL, name: str, status: int) -> None:
         raise RuntimeError(f"{name} kernel launch failed: {message} ({status})")
 
 
-def _check_inputs(origins, directions, t_target, columns, keep, gbar=None) -> None:
-    """Validate what the kernels and plain versions take."""
-    tensors = {"origins": origins, "directions": directions, "t_target": t_target,
-               "columns": columns, "keep": keep}
-    if gbar is not None:
-        tensors["gbar"] = gbar
-    for name, x in tensors.items():
-        if x.device != origins.device or x.dtype != origins.dtype:
-            raise ValueError(f"{name} must share the device and dtype of origins")
-        if not x.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+def _check_tensors(origins, directions, shapes: dict) -> None:
+    """Every float tensor on the device and in the dtype of ``origins``, contiguous, of the
+    shape given in ``shapes`` (name -> (tensor, shape)); rays as the kernels lay them out."""
     if origins.dim() != 3 or origins.shape[2] != 4:
         raise ValueError(f"origins must be [M, P, 4], got {tuple(origins.shape)}")
     num, points = origins.shape[:2]
@@ -99,18 +132,16 @@ def _check_inputs(origins, directions, t_target, columns, keep, gbar=None) -> No
     rays = directions.shape[1]
     if points == 0 or rays % points:
         raise ValueError(f"the ray count ({rays}) must be a multiple of the points ({points})")
-    if columns.dim() != 3 or columns.shape[0] != num or columns.shape[2] != NUM_COLUMNS:
-        raise ValueError(f"columns must be [M, K, {NUM_COLUMNS}], got {tuple(columns.shape)}")
-    for name, x, shape in (("t_target", t_target, (num, rays)), ("keep", keep, columns.shape[:2])) + (
-        (("gbar", gbar, (num, rays)),) if gbar is not None else ()
-    ):
-        if tuple(x.shape) != tuple(shape):
+    for name, (x, shape) in {"origins": (origins, None), "directions": (directions, None), **shapes}.items():
+        if x.device != origins.device or x.dtype != origins.dtype:
+            raise ValueError(f"{name} must share the device and dtype of origins")
+        if not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+        if shape is not None and tuple(x.shape) != tuple(shape):
             raise ValueError(f"{name} must be {tuple(shape)}, got {tuple(x.shape)}")
     if origins.device.type == "cuda":
         if origins.dtype != torch.float32:
             raise TypeError(f"the CUDA blocking kernels take float32, got {origins.dtype}")
-        if columns.shape[1] > MAX_CANDIDATES:
-            raise ValueError(f"at most {MAX_CANDIDATES} candidates, got {columns.shape[1]}")
     elif origins.device.type == "cpu":
         if origins.dtype not in (torch.float32, torch.float64):
             raise TypeError(f"the plain blocking takes float32 or float64, got {origins.dtype}")
@@ -118,18 +149,52 @@ def _check_inputs(origins, directions, t_target, columns, keep, gbar=None) -> No
         raise ValueError(f"no blocking kernel for device type {origins.device.type!r}")
 
 
-def _check_cuda_inputs(origins, *tensors) -> None:
-    """The kernels read raw pointers: every tensor must be a checked CUDA tensor."""
+def _check_inputs(origins, directions, t_target, columns, keep, gbar=None) -> None:
+    """Validate what the compacted route's kernels and plain versions take."""
+    num, rays = directions.shape[:2]
+    if columns.dim() != 3 or columns.shape[0] != num or columns.shape[2] != NUM_COLUMNS:
+        raise ValueError(f"columns must be [M, K, {NUM_COLUMNS}], got {tuple(columns.shape)}")
+    shapes = {"t_target": (t_target, (num, rays)), "columns": (columns, None), "keep": (keep, columns.shape[:2])}
+    if gbar is not None:
+        shapes["gbar"] = (gbar, (num, rays))
+    _check_tensors(origins, directions, shapes)
+    if origins.is_cuda and columns.shape[1] > MAX_CANDIDATES:
+        raise ValueError(f"at most {MAX_CANDIDATES} candidates, got {columns.shape[1]}")
+
+
+def _check_flat_inputs(origins, directions, columns, keep, gbar=None) -> None:
+    """Validate what the flat route's sigma kernels and plain versions take."""
+    if columns.dim() != 2 or columns.shape[1] != NUM_COLUMNS:
+        raise ValueError(f"columns must be [B, {NUM_COLUMNS}], got {tuple(columns.shape)}")
+    shapes = {"columns": (columns, None), "keep": (keep, columns.shape[:1])}
+    if gbar is not None:
+        shapes["gbar"] = (gbar, directions.shape[:2])
+    _check_tensors(origins, directions, shapes)
+
+
+def _check_cull_inputs(origins, directions, t_target, own, aabb) -> None:
+    """Validate what the cull kernel and its plain version take."""
+    if aabb.dim() != 2 or aabb.shape[1] != 6:
+        raise ValueError(f"aabb must be [B, 6], got {tuple(aabb.shape)}")
+    _check_tensors(origins, directions, {"t_target": (t_target, directions.shape[:2]), "aabb": (aabb, None)})
+    if own.dtype != torch.int64 or own.device != origins.device or tuple(own.shape) != origins.shape[:1]:
+        raise ValueError(f"own must be int64 [M] on {origins.device}, got {own.dtype} {tuple(own.shape)}")
+    if not own.is_contiguous():
+        raise ValueError("own must be contiguous")
+
+
+def _require_cuda(origins) -> None:
+    """The kernels read raw pointers: every tensor must be a CUDA tensor."""
     if origins.device.type != "cuda":
         raise ValueError(f"the CUDA blocking kernels take CUDA tensors, got {origins.device}")
-    _check_inputs(origins, *tensors)
 
 
-def _launch_args(origins, directions, columns, softness, offset, epsilon) -> list:
+def _launch_args(origins, directions, count, softness, offset, epsilon) -> list:
+    """M, N, P, K or B, the gate parameters, e^-softness, device and stream."""
     num, points = origins.shape[:2]
     stream = torch.cuda.current_stream(origins.device).cuda_stream
     return [
-        num, directions.shape[1], points, columns.shape[1],
+        num, directions.shape[1], points, count,
         float(softness), float(offset), float(epsilon), math.exp(-softness),
         origins.device.index, stream,
     ]
@@ -138,7 +203,8 @@ def _launch_args(origins, directions, columns, softness, offset, epsilon) -> lis
 def sigma_forward_cuda(origins, directions, t_target, columns, keep,
                        softness: float, ray_origin_offset: float, epsilon: float) -> torch.Tensor:
     """Launch ``sigma_forward_kernel``: ``sigma [M, N]``."""
-    _check_cuda_inputs(origins, directions, t_target, columns, keep)
+    _require_cuda(origins)
+    _check_inputs(origins, directions, t_target, columns, keep)
     sigma = torch.empty(t_target.shape, dtype=torch.float32, device=origins.device)
     if sigma.numel() == 0:
         return sigma
@@ -146,7 +212,7 @@ def sigma_forward_cuda(origins, directions, t_target, columns, keep,
     status = library.blocking_sigma_forward(
         origins.data_ptr(), directions.data_ptr(), t_target.data_ptr(), columns.data_ptr(),
         keep.data_ptr(), sigma.data_ptr(),
-        *_launch_args(origins, directions, columns, softness, ray_origin_offset, epsilon),
+        *_launch_args(origins, directions, columns.shape[1], softness, ray_origin_offset, epsilon),
     )
     _check_status(library, "blocking_sigma_forward", status)
     LAUNCHES["blocking_sigma_forward"] += 1
@@ -156,7 +222,8 @@ def sigma_forward_cuda(origins, directions, t_target, columns, keep,
 def sigma_backward_cuda(origins, directions, t_target, columns, keep, gbar,
                         softness: float, ray_origin_offset: float, epsilon: float):
     """Launch ``sigma_backward_kernel``: cotangents of origins, directions and columns."""
-    _check_cuda_inputs(origins, directions, t_target, columns, keep, gbar)
+    _require_cuda(origins)
+    _check_inputs(origins, directions, t_target, columns, keep, gbar)
     grad_origins = torch.zeros_like(origins)
     grad_directions = torch.empty_like(directions)
     grad_columns = torch.zeros_like(columns)
@@ -167,10 +234,76 @@ def sigma_backward_cuda(origins, directions, t_target, columns, keep, gbar,
         origins.data_ptr(), directions.data_ptr(), t_target.data_ptr(), columns.data_ptr(),
         keep.data_ptr(), gbar.data_ptr(),
         grad_origins.data_ptr(), grad_directions.data_ptr(), grad_columns.data_ptr(),
-        *_launch_args(origins, directions, columns, softness, ray_origin_offset, epsilon),
+        *_launch_args(origins, directions, columns.shape[1], softness, ray_origin_offset, epsilon),
     )
     _check_status(library, "blocking_sigma_backward", status)
     LAUNCHES["blocking_sigma_backward"] += 1
+    return grad_origins, grad_directions, grad_columns
+
+
+def cull_cuda(origins, directions, t_target, own, aabb) -> torch.Tensor:
+    """Launch ``blocking_cull_kernel``: ``keep [B]``, 1.0 for a primitive some ray may meet."""
+    _require_cuda(origins)
+    _check_cull_inputs(origins, directions, t_target, own, aabb)
+    keep = torch.zeros(aabb.shape[0], dtype=torch.float32, device=origins.device)
+    if keep.numel() == 0 or t_target.numel() == 0:
+        return keep
+    library = _load()
+    num, points = origins.shape[:2]
+    status = library.blocking_cull(
+        origins.data_ptr(), directions.data_ptr(), t_target.data_ptr(), own.data_ptr(),
+        aabb.data_ptr(), keep.data_ptr(), num, directions.shape[1], points, aabb.shape[0],
+        origins.device.index, torch.cuda.current_stream(origins.device).cuda_stream,
+    )
+    _check_status(library, "blocking_cull", status)
+    LAUNCHES["blocking_cull"] += 1
+    return keep
+
+
+def sigma_flat_forward_cuda(origins, directions, columns, keep,
+                            softness: float, ray_origin_offset: float, epsilon: float) -> torch.Tensor:
+    """Launch ``sigma_flat_forward_kernel``: ``sigma [M, N]`` over every primitive."""
+    _require_cuda(origins)
+    _check_flat_inputs(origins, directions, columns, keep)
+    sigma = torch.zeros(directions.shape[:2], dtype=torch.float32, device=origins.device)
+    if sigma.numel() == 0 or columns.shape[0] == 0:
+        return sigma
+    library = _load()
+    status = library.blocking_sigma_flat_forward(
+        origins.data_ptr(), directions.data_ptr(), columns.data_ptr(), keep.data_ptr(), sigma.data_ptr(),
+        *_launch_args(origins, directions, columns.shape[0], softness, ray_origin_offset, epsilon),
+    )
+    _check_status(library, "blocking_sigma_flat_forward", status)
+    LAUNCHES["blocking_sigma_flat_forward"] += 1
+    return sigma
+
+
+def sigma_flat_backward_cuda(origins, directions, columns, keep, gbar,
+                             softness: float, ray_origin_offset: float, epsilon: float):
+    """Launch ``sigma_flat_backward_kernel`` and its reduction: cotangents of origins,
+    directions and columns ``[B, 16]`` (summed over every ray)."""
+    _require_cuda(origins)
+    _check_flat_inputs(origins, directions, columns, keep, gbar)
+    grad_origins = torch.zeros_like(origins)
+    if gbar.numel() == 0 or columns.shape[0] == 0:
+        return grad_origins, torch.zeros_like(directions), torch.zeros_like(columns)
+    grad_directions = torch.empty_like(directions)
+    grad_columns = torch.empty_like(columns)
+    library = _load()
+    primitives = columns.shape[0]
+    # Scratch: each block's column cotangents, summed in a fixed order by the
+    # reduction; rows for the most blocks the persistent grid can have.
+    sms = torch.cuda.get_device_properties(origins.device).multi_processor_count
+    blocks = min(sms * MAX_BLOCKS_PER_SM, -(-gbar.numel() // KERNEL_THREADS))
+    partials = torch.empty((blocks, primitives, NUM_COLUMNS), dtype=torch.float32, device=origins.device)
+    status = library.blocking_sigma_flat_backward(
+        origins.data_ptr(), directions.data_ptr(), columns.data_ptr(), keep.data_ptr(), gbar.data_ptr(),
+        grad_origins.data_ptr(), grad_directions.data_ptr(), partials.data_ptr(), grad_columns.data_ptr(),
+        blocks,
+        *_launch_args(origins, directions, primitives, softness, ray_origin_offset, epsilon),
+    )
+    _check_status(library, "blocking_sigma_flat_backward", status)
+    LAUNCHES["blocking_sigma_flat_backward"] += 1
     return grad_origins, grad_directions, grad_columns
 
 
@@ -183,10 +316,12 @@ def _rays(origins: torch.Tensor, directions: torch.Tensor) -> tuple[torch.Tensor
 
 
 def _pair_terms(rays, column, t_target, softness, offset, epsilon):
-    """One candidate against every ray of its heliostat (``column [M, 16]``, rays ``[M, N]``).
+    """One primitive against rays ``[M, N]`` (``column [M, 16]``: each heliostat's own).
 
     The same pair math as ``blocking_pallas.py:_pair_terms``, in the same
-    order of operations.
+    order of operations. ``t_target [M, N]`` gates each pair with
+    ``t <= t_target`` (the compacted route); ``None`` leaves it ungated (the
+    flat route).
     """
     ox, oy, oz, dx, dy, dz = rays
     nx, ny, nz, ux, uy, uz, vx, vy, vz, c0n, c0u, c0v, suu, svv, suv, inv_det = (
@@ -219,7 +354,7 @@ def _pair_terms(rays, column, t_target, softness, offset, epsilon):
     denom_u = 1.0 + au + bu + tail
     denom_v = 1.0 + av + bv + tail
     denom_t = 1.0 + ct
-    numerator = (t <= t_target).to(t.dtype)
+    numerator = 1.0 if t_target is None else (t <= t_target).to(t.dtype)
     sigma = numerator / (denom_u * denom_v * denom_t)
     return sigma, dict(
         d_dot_u=d_dot_u, d_dot_v=d_dot_v, inv_denominator=inv_denominator,
@@ -228,9 +363,59 @@ def _pair_terms(rays, column, t_target, softness, offset, epsilon):
     )
 
 
+def _pair_cotangents(rays, column, weight, t_target, gbar, softness, offset, epsilon):
+    """The hand-derived cotangents of ``blocking_pallas.py:_pair_gradients`` for one
+    primitive against rays ``[M, N]``, each pair weighted by ``gbar x weight``.
+
+    Returns the six ray cotangents (origin xyz, direction xyz) and the sixteen
+    column cotangents, each per pair, ``[M, N]``.
+    """
+    ox, oy, oz, dx, dy, dz = rays
+    nx, ny, nz, ux, uy, uz, vx, vy, vz = (column[:, j, None] for j in range(9))
+    suu, svv, suv, inv_det = (column[:, j, None] for j in range(12, 16))
+    sigma, q = _pair_terms(rays, column, t_target, softness, offset, epsilon)
+    k = softness
+    base = gbar * weight * sigma
+    g_uc = base * (k * (q["au"] - q["bu"]) / q["denom_u"])
+    g_vc = base * (k * (q["av"] - q["bv"]) / q["denom_v"])
+    g_t_front = base * (k * q["ct"] / q["denom_t"])
+    g_pu = (g_uc * svv - g_vc * suv) * inv_det
+    g_pv = (g_vc * suu - g_uc * suv) * inv_det
+    g_t = g_t_front + g_pu * q["d_dot_u"] + g_pv * q["d_dot_v"]
+    g_on = -g_t * q["inv_denominator"]
+    g_dn = torch.where(q["denominator_ok"], -q["t"] * g_t * q["inv_denominator"], 0.0)
+    g_du = g_pu * q["t"]
+    g_dv = g_pv * q["t"]
+    axes = ((nx, ux, vx), (ny, uy, vy), (nz, uz, vz))
+    ray_parts = [g_on * n_a + g_pu * u_a + g_pv * v_a for n_a, u_a, v_a in axes] + [
+        g_dn * n_a + g_du * u_a + g_dv * v_a for n_a, u_a, v_a in axes
+    ]
+    column_parts = [
+        g_on * ox + g_dn * dx, g_on * oy + g_dn * dy, g_on * oz + g_dn * dz,
+        g_pu * ox + g_du * dx, g_pu * oy + g_du * dy, g_pu * oz + g_du * dz,
+        g_pv * ox + g_dv * dx, g_pv * oy + g_dv * dy, g_pv * oz + g_dv * dz,
+        g_t * q["inv_denominator"], -g_pu, -g_pv,
+        g_vc * q["proj_v"] * inv_det,
+        g_uc * q["proj_u"] * inv_det,
+        -(g_uc * q["proj_v"] + g_vc * q["proj_u"]) * inv_det,
+        (g_uc * q["u"] + g_vc * q["v"]) / inv_det,
+    ]
+    return ray_parts, column_parts
+
+
+def _ray_cotangents(ray_grads, points):
+    """The summed per-ray cotangents -> origins ``[M, P, 4]`` (summed over each point's
+    rays) and directions ``[M, N, 4]``; the fourth (homogeneous) components get zero."""
+    num = ray_grads[0].shape[0]
+    zero = torch.zeros_like(ray_grads[0])
+    grad_origins = torch.stack(ray_grads[:3] + [zero], dim=-1)
+    grad_origins = grad_origins.reshape(num, -1, points, 4).sum(dim=1)
+    return grad_origins, torch.stack(ray_grads[3:] + [zero], dim=-1)
+
+
 def sigma_forward_plain(origins, directions, t_target, columns, keep,
                         softness: float, ray_origin_offset: float, epsilon: float) -> torch.Tensor:
-    """Plain version of the forward kernel: the pair math, one candidate at a time."""
+    """Plain version of the compacted forward kernel: the pair math, one candidate at a time."""
     rays = _rays(origins, directions)
     sigma = torch.zeros_like(t_target)
     for k in range(columns.shape[1]):
@@ -241,58 +426,82 @@ def sigma_forward_plain(origins, directions, t_target, columns, keep,
 
 def sigma_backward_plain(origins, directions, t_target, columns, keep, gbar,
                          softness: float, ray_origin_offset: float, epsilon: float):
-    """Plain version of the backward kernel: the hand-derived cotangents of
-    ``blocking_pallas.py:_pair_gradients``, one candidate at a time.
+    """Plain version of the compacted backward kernel, one candidate at a time.
 
     Returns the cotangents of origins ``[M, P, 4]`` (summed over each point's
-    rays), directions ``[M, N, 4]`` and columns ``[M, K, 16]``; the fourth
-    (homogeneous) components get zero.
+    rays), directions ``[M, N, 4]`` and columns ``[M, K, 16]`` (summed over
+    the owner's rays); the fourth (homogeneous) components get zero.
     """
-    num, points = origins.shape[:2]
     rays = _rays(origins, directions)
-    ox, oy, oz, dx, dy, dz = rays
     ray_grads = [torch.zeros_like(t_target) for _ in range(6)]
     column_grads = []
-    k = softness
     for c in range(columns.shape[1]):
-        column = columns[:, c]
-        nx, ny, nz, ux, uy, uz, vx, vy, vz = (column[:, j, None] for j in range(9))
-        suu, svv, suv, inv_det = (column[:, j, None] for j in range(12, 16))
-        sigma, q = _pair_terms(rays, column, t_target, softness, ray_origin_offset, epsilon)
-        base = gbar * keep[:, c, None] * sigma
-        g_uc = base * (k * (q["au"] - q["bu"]) / q["denom_u"])
-        g_vc = base * (k * (q["av"] - q["bv"]) / q["denom_v"])
-        g_t_front = base * (k * q["ct"] / q["denom_t"])
-        g_pu = (g_uc * svv - g_vc * suv) * inv_det
-        g_pv = (g_vc * suu - g_uc * suv) * inv_det
-        g_t = g_t_front + g_pu * q["d_dot_u"] + g_pv * q["d_dot_v"]
-        g_on = -g_t * q["inv_denominator"]
-        g_dn = torch.where(q["denominator_ok"], -q["t"] * g_t * q["inv_denominator"], 0.0)
-        g_du = g_pu * q["t"]
-        g_dv = g_pv * q["t"]
-        for axis, (n_a, u_a, v_a) in enumerate(((nx, ux, vx), (ny, uy, vy), (nz, uz, vz))):
-            ray_grads[axis] = ray_grads[axis] + (g_on * n_a + g_pu * u_a + g_pv * v_a)
-            ray_grads[3 + axis] = ray_grads[3 + axis] + (g_dn * n_a + g_du * u_a + g_dv * v_a)
-        per_pair = [
-            g_on * ox + g_dn * dx, g_on * oy + g_dn * dy, g_on * oz + g_dn * dz,
-            g_pu * ox + g_du * dx, g_pu * oy + g_du * dy, g_pu * oz + g_du * dz,
-            g_pv * ox + g_dv * dx, g_pv * oy + g_dv * dy, g_pv * oz + g_dv * dz,
-            g_t * q["inv_denominator"], -g_pu, -g_pv,
-            g_vc * q["proj_v"] * inv_det,
-            g_uc * q["proj_u"] * inv_det,
-            -(g_uc * q["proj_v"] + g_vc * q["proj_u"]) * inv_det,
-            (g_uc * q["u"] + g_vc * q["v"]) / inv_det,
-        ]
-        column_grads.append(torch.stack([x.sum(dim=1) for x in per_pair], dim=1))
-    zero = torch.zeros_like(t_target)
-    grad_origins = torch.stack(ray_grads[:3] + [zero], dim=-1)
-    grad_origins = grad_origins.reshape(num, -1, points, 4).sum(dim=1)
-    grad_directions = torch.stack(ray_grads[3:] + [zero], dim=-1)
-    if column_grads:
-        grad_columns = torch.stack(column_grads, dim=1)
-    else:
-        grad_columns = torch.zeros_like(columns)
-    return grad_origins, grad_directions, grad_columns
+        ray_parts, column_parts = _pair_cotangents(
+            rays, columns[:, c], keep[:, c, None], t_target, gbar, softness, ray_origin_offset, epsilon
+        )
+        ray_grads = [total + part for total, part in zip(ray_grads, ray_parts)]
+        column_grads.append(torch.stack([x.sum(dim=1) for x in column_parts], dim=1))
+    grad_columns = torch.stack(column_grads, dim=1) if column_grads else torch.zeros_like(columns)
+    return (*_ray_cotangents(ray_grads, origins.shape[1]), grad_columns)
+
+
+def cull_plain(origins, directions, t_target, own, aabb) -> torch.Tensor:
+    """Plain version of the cull kernel, one primitive at a time: ``keep [B]``.
+
+    The slab test of ``blocking_pallas.py:_cull_kernel`` in the same order of
+    operations, NaN propagating through every minimum and maximum: primitive
+    ``b`` is kept (1.0) when a ray not owned by ``b`` enters its AABB before
+    its target hit.
+    """
+    ox, oy, oz, dx, dy, dz = _rays(origins, directions)
+    inverses = [1.0 / (d + CULL_DIRECTION_OFFSET) for d in (dx, dy, dz)]
+    keep = torch.zeros(aabb.shape[0], dtype=origins.dtype, device=origins.device)
+    for b in range(aabb.shape[0]):
+        entry = torch.full_like(t_target, -math.inf)
+        exit_ = torch.full_like(t_target, math.inf)
+        for o, inverse, low, high in zip((ox, oy, oz), inverses, aabb[b, :3], aabb[b, 3:]):
+            t_low = (low - o) * inverse
+            t_high = (high - o) * inverse
+            entry = torch.maximum(entry, torch.minimum(t_low, t_high))
+            exit_ = torch.minimum(exit_, torch.maximum(t_low, t_high))
+        hit = (exit_ >= entry) & (exit_ > 1e-6) & (entry <= t_target) & (own[:, None] != b)
+        keep[b] = hit.any().to(keep.dtype)
+    return keep
+
+
+def sigma_flat_forward_plain(origins, directions, columns, keep,
+                             softness: float, ray_origin_offset: float, epsilon: float) -> torch.Tensor:
+    """Plain version of the flat forward kernel: the ungated pair math, one primitive at a time."""
+    num = origins.shape[0]
+    rays = _rays(origins, directions)
+    sigma = torch.zeros(directions.shape[:2], dtype=origins.dtype, device=origins.device)
+    for b in range(columns.shape[0]):
+        pair, _ = _pair_terms(
+            rays, columns[b].expand(num, NUM_COLUMNS), None, softness, ray_origin_offset, epsilon
+        )
+        sigma = sigma + keep[b] * pair
+    return sigma
+
+
+def sigma_flat_backward_plain(origins, directions, columns, keep, gbar,
+                              softness: float, ray_origin_offset: float, epsilon: float):
+    """Plain version of the flat backward kernels, one primitive at a time.
+
+    Returns the cotangents of origins ``[M, P, 4]``, directions ``[M, N, 4]``
+    and columns ``[B, 16]`` (summed over every ray of the field).
+    """
+    num = origins.shape[0]
+    rays = _rays(origins, directions)
+    ray_grads = [torch.zeros_like(gbar) for _ in range(6)]
+    column_grads = []
+    for b in range(columns.shape[0]):
+        ray_parts, column_parts = _pair_cotangents(
+            rays, columns[b].expand(num, NUM_COLUMNS), keep[b], None, gbar, softness, ray_origin_offset, epsilon
+        )
+        ray_grads = [total + part for total, part in zip(ray_grads, ray_parts)]
+        column_grads.append(torch.stack([x.sum() for x in column_parts]))
+    grad_columns = torch.stack(column_grads) if column_grads else torch.zeros_like(columns)
+    return (*_ray_cotangents(ray_grads, origins.shape[1]), grad_columns)
 
 
 @torch.library.custom_op("artist_tpu_torch::blocking_sigma", mutates_args=())
@@ -349,3 +558,72 @@ def _backward(ctx, gbar):
 
 
 blocking_sigma.register_autograd(_backward, setup_context=_setup_context)
+
+
+@torch.library.custom_op("artist_tpu_torch::blocking_cull", mutates_args=())
+def blocking_cull(
+    origins: torch.Tensor,
+    directions: torch.Tensor,
+    t_target: torch.Tensor,
+    own: torch.Tensor,
+    aabb: torch.Tensor,
+) -> torch.Tensor:
+    """The flat route's participation flags ``keep [B]`` (no gradient)."""
+    if origins.is_cuda:
+        return cull_cuda(origins, directions, t_target, own, aabb)
+    _check_cull_inputs(origins, directions, t_target, own, aabb)
+    return cull_plain(origins, directions, t_target, own, aabb)
+
+
+@torch.library.custom_op("artist_tpu_torch::blocking_sigma_flat", mutates_args=())
+def blocking_sigma_flat(
+    origins: torch.Tensor,
+    directions: torch.Tensor,
+    columns: torch.Tensor,
+    keep: torch.Tensor,
+    softness: float,
+    ray_origin_offset: float,
+    epsilon: float,
+) -> torch.Tensor:
+    """Summed soft occlusion ``sigma [M, N]`` of each ray over every kept primitive."""
+    args = (origins, directions, columns, keep, softness, ray_origin_offset, epsilon)
+    if origins.is_cuda:
+        return sigma_flat_forward_cuda(*args)
+    _check_flat_inputs(origins, directions, columns, keep)
+    return sigma_flat_forward_plain(*args)
+
+
+@torch.library.custom_op("artist_tpu_torch::blocking_sigma_flat_backward", mutates_args=())
+def blocking_sigma_flat_backward(
+    origins: torch.Tensor,
+    directions: torch.Tensor,
+    columns: torch.Tensor,
+    keep: torch.Tensor,
+    gbar: torch.Tensor,
+    softness: float,
+    ray_origin_offset: float,
+    epsilon: float,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Cotangents of origins ``[M, P, 4]``, directions ``[M, N, 4]`` and columns ``[B, 16]``."""
+    args = (origins, directions, columns, keep, gbar, softness, ray_origin_offset, epsilon)
+    if origins.is_cuda:
+        return sigma_flat_backward_cuda(*args)
+    _check_flat_inputs(origins, directions, columns, keep, gbar)
+    return sigma_flat_backward_plain(*args)
+
+
+def _setup_flat_context(ctx, inputs, output) -> None:
+    origins, directions, columns, keep, softness, offset, epsilon = inputs
+    ctx.save_for_backward(origins, directions, columns, keep)
+    ctx.parameters = (softness, offset, epsilon)
+
+
+def _flat_backward(ctx, gbar):
+    origins, directions, columns, keep = ctx.saved_tensors
+    grad_origins, grad_directions, grad_columns = blocking_sigma_flat_backward(
+        origins, directions, columns, keep, gbar.contiguous(), *ctx.parameters
+    )
+    return grad_origins, grad_directions, grad_columns, None, None, None, None
+
+
+blocking_sigma_flat.register_autograd(_flat_backward, setup_context=_setup_flat_context)

@@ -3,8 +3,9 @@
 Counterpart of ``artist_tpu/optim/aim_point_optimizer.py:47-719``, single
 process. Each epoch aligns every heliostat group from its reparameterized
 motor positions, builds the blocking primitives from the aligned surfaces of
-the whole field, traces with blocking on (the compacted candidate route,
-K = ``blocking_candidates``), sums the flux on the chosen target and applies
+the whole field, traces with blocking on (the compacted candidate route with
+K = ``blocking_candidates``, or the flat route over every primitive with the
+AABB cull when it is None or 0), sums the flux on the chosen target and applies
 the KL (or pixel) loss plus three Augmented-Lagrangian constraints: the flux
 integral must not drop below its epoch-0 value, no heliostat's intercept may
 drop, and no pixel may exceed the maximum flux density.
@@ -72,8 +73,10 @@ class AimPointOptimizer:
         Target flux distribution ``[height_u, width_e]``.
     dni : float
         Direct normal irradiance in W/m^2.
-    blocking_candidates : int
-        Candidate blockers per heliostat (K) of the compacted blocking route.
+    blocking_candidates : int | None
+        Candidate blockers per heliostat (K) of the compacted blocking route
+        (default 16); None or 0 selects the flat route over every primitive of
+        the field, O(rays x field) instead of O(rays x K).
     """
 
     def __init__(

@@ -1,23 +1,32 @@
-"""Heliostat-on-heliostat blocking: the soft differentiable mask over candidate blockers.
+"""Heliostat-on-heliostat blocking: the soft differentiable mask over the field's primitives.
 
-Counterpart of ``artist_tpu/raytracing/blocking.py`` on its candidate-compacted
-route (``soft_ray_blocking_mask`` with ``max_candidates`` set and target
-distances given, ``blocking.py:449-487`` and
-``blocking_pallas.py:soft_ray_blocking_mask_pallas_compact``). Each heliostat
-is reduced to a rectangle; a conservative corridor test picks each
-ray-owning heliostat's K most plausible blockers (stop-gradient); the pair
-kernels of :mod:`artist_tpu_torch.kernels.blocking` then sum each ray's soft
-occlusion sigma over those K only, with the reference cull's "blockers
-beyond the target hit do not block" as a per-ray hard gate; the mask is
-``1 - exp(-alpha sigma)``.
+Counterpart of ``artist_tpu/raytracing/blocking.py`` on both routes of its
+Pallas kernels. Each heliostat is reduced to a rectangle (a primitive); the
+pair kernels of :mod:`artist_tpu_torch.kernels.blocking` sum each ray's soft
+occlusion sigma over primitives, and the mask is ``1 - exp(-alpha sigma)``.
 
-On every device this is the TPU path's semantics (the JAX package's CPU
-default is a dense formulation without the per-ray gate). Rays are not padded:
-the CUDA kernel masks its ragged block edge itself.
+- **Candidate-compacted** (``max_candidates`` set and target distances given,
+  ``blocking.py:449-487`` and
+  ``blocking_pallas.py:soft_ray_blocking_mask_pallas_compact``): a
+  conservative corridor test picks each ray-owning heliostat's K most
+  plausible blockers (stop-gradient), and the sum runs over those K only,
+  with the reference cull's "blockers beyond the target hit do not block" as
+  a per-ray hard gate.
+- **Flat** (``max_candidates=None``, or no target distances;
+  ``blocking.py:488-503`` and ``blocking_pallas.py:soft_ray_blocking_mask_pallas``):
+  the sum runs over every primitive of the field that the AABB cull keeps. A
+  primitive is kept when any ray of another heliostat enters its AABB before
+  its target hit, the reference LBVH filter's semantics; without target
+  distances every primitive is kept. This is also what the JAX package
+  computes by default on the CPU (its dense XLA route), to within fp32
+  rounding.
 
-Not ported yet, and refused with ``NotImplementedError``: the flat path over
-all primitives (``max_candidates=None`` or no target distances),
-``cull_method="lbvh"`` and ``primitive_chunk``.
+On every device these are the Pallas routes' semantics. Rays are not padded:
+the CUDA kernels mask their ragged block edges themselves.
+``primitive_chunk`` is accepted and changes nothing: it bounds the JAX XLA
+route's ``[M, R, P, chunk]`` temporaries, which the kernels never hold (the
+JAX Pallas routes ignore it too). ``cull_method="lbvh"`` is not ported yet
+and raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -27,7 +36,7 @@ import math
 import torch
 
 from artist_tpu_torch.geometry.transforms import _normalize
-from artist_tpu_torch.kernels.blocking import NUM_COLUMNS, blocking_sigma
+from artist_tpu_torch.kernels.blocking import NUM_COLUMNS, blocking_cull, blocking_sigma, blocking_sigma_flat
 
 # Candidate lists are padded to a multiple of the TPU path's primitive tile,
 # so that both packages see the same K.
@@ -205,6 +214,38 @@ def primitive_table(
     return table
 
 
+@torch.no_grad()
+def cull_primitives(
+    ray_origins: torch.Tensor,
+    ray_directions: torch.Tensor,
+    blocking_primitives_corners: torch.Tensor,
+    ray_primitive_indices: torch.Tensor | None,
+    intersection_distances_target: torch.Tensor,
+) -> torch.Tensor:
+    """The flat route's participation flags ``keep [B]`` (1.0 or 0.0; stop-gradient).
+
+    Primitive ``b`` is kept when a ray not owned by ``b`` enters its
+    axis-aligned bounding box before its target hit. Rays ``[M, R, P, 4]``
+    (origins ``[M, P, 4]``), target distances ``[M, R, P]``; each heliostat's
+    own primitive from ``ray_primitive_indices [M]`` (None: none).
+    """
+    num, rays, points = ray_directions.shape[:3]
+    dtype = ray_origins.dtype
+    corners = blocking_primitives_corners[:, :, :3].to(dtype)
+    aabb = torch.cat([corners.amin(dim=1), corners.amax(dim=1)], dim=1).contiguous()
+    if ray_primitive_indices is None:
+        own = torch.full((num,), -1, dtype=torch.int64, device=ray_origins.device)
+    else:
+        own = ray_primitive_indices.to(torch.int64).contiguous()
+    return blocking_cull(
+        ray_origins.contiguous(),
+        ray_directions.reshape(num, rays * points, 4).contiguous(),
+        intersection_distances_target.reshape(num, rays * points).to(dtype).contiguous(),
+        own,
+        aabb,
+    )
+
+
 def soft_ray_blocking_mask(
     ray_origins: torch.Tensor,
     ray_directions: torch.Tensor,
@@ -231,51 +272,60 @@ def soft_ray_blocking_mask(
         ``[M, R, P, 4]``.
     blocking_primitives_* : torch.Tensor
         ``[B, 4, 4]`` corners, ``[B, 2, 4]`` spans, ``[B, 4]`` normals.
-    intersection_distances_target : torch.Tensor
-        Per-ray distance to the target hit ``[M, R, P]``; drives the per-ray
-        behind-target gate (no gradient).
+    intersection_distances_target : torch.Tensor | None
+        Per-ray distance to the target hit ``[M, R, P]`` (no gradient): the
+        compacted route's per-ray behind-target gate, the flat route's cull.
+        None: the flat route over every primitive, without a cull.
     ray_primitive_indices : torch.Tensor | None
         Global primitive index owned by each ray-emitting heliostat ``[M]``.
-    max_candidates : int
-        Candidate blockers per heliostat (K).
+    cull_method : str
+        ``"dense"``; ``"lbvh"`` is not ported yet.
+    primitive_chunk : int | None
+        Accepted for the JAX signature's sake; changes nothing here.
+    max_candidates : int | None
+        Candidate blockers per heliostat (K) of the compacted route; None
+        selects the flat route.
 
     Returns
     -------
     torch.Tensor
         blocked in [0, 1], ``[M, R, P]``.
     """
-    if max_candidates is None or intersection_distances_target is None:
-        raise NotImplementedError(
-            "the flat blocking path over all primitives is not ported yet: "
-            "pass max_candidates and intersection_distances_target"
-        )
     if cull_method != "dense":
         raise NotImplementedError(f"cull_method={cull_method!r} is not ported yet")
-    if primitive_chunk is not None:
-        raise NotImplementedError("primitive_chunk is not ported yet")
     num, rays, points = ray_directions.shape[:3]
-    indices, valid = select_blocking_candidates(
-        ray_origins, ray_directions, blocking_primitives_corners, ray_primitive_indices,
-        intersection_distances_target, max_candidates,
-    )
-    # Pad K to a multiple of the tile with keep = 0 slots.
-    k_pad = -(-indices.shape[1] // CANDIDATE_TILE) * CANDIDATE_TILE
-    indices = torch.nn.functional.pad(indices, (0, k_pad - indices.shape[1]))
-    valid = torch.nn.functional.pad(valid, (0, k_pad - valid.shape[1]))
+    directions = ray_directions.reshape(num, rays * points, 4).contiguous()
     table = primitive_table(
         blocking_primitives_corners, blocking_primitives_spans, blocking_primitives_normals, epsilon
     ).to(ray_origins.dtype)
-    # One gather for all columns; its backward scatter-adds the candidates'
-    # cotangents onto the primitives.
-    columns = table.index_select(0, indices.reshape(-1)).reshape(num, k_pad, NUM_COLUMNS)
-    sigma = blocking_sigma(
-        ray_origins.contiguous(),
-        ray_directions.reshape(num, rays * points, 4).contiguous(),
-        intersection_distances_target.detach().reshape(num, rays * points).contiguous(),
-        columns,
-        valid.to(ray_origins.dtype),
-        float(softness),
-        float(ray_origin_offset),
-        float(epsilon),
-    )
+    parameters = (float(softness), float(ray_origin_offset), float(epsilon))
+    if max_candidates is not None and intersection_distances_target is not None:
+        indices, valid = select_blocking_candidates(
+            ray_origins, ray_directions, blocking_primitives_corners, ray_primitive_indices,
+            intersection_distances_target, max_candidates,
+        )
+        # Pad K to a multiple of the tile with keep = 0 slots.
+        k_pad = -(-indices.shape[1] // CANDIDATE_TILE) * CANDIDATE_TILE
+        indices = torch.nn.functional.pad(indices, (0, k_pad - indices.shape[1]))
+        valid = torch.nn.functional.pad(valid, (0, k_pad - valid.shape[1]))
+        # One gather for all columns; its backward scatter-adds the candidates'
+        # cotangents onto the primitives.
+        columns = table.index_select(0, indices.reshape(-1)).reshape(num, k_pad, NUM_COLUMNS)
+        sigma = blocking_sigma(
+            ray_origins.contiguous(),
+            directions,
+            intersection_distances_target.detach().reshape(num, rays * points).contiguous(),
+            columns,
+            valid.to(ray_origins.dtype),
+            *parameters,
+        )
+    else:
+        if intersection_distances_target is None:
+            keep = torch.ones(table.shape[0], dtype=table.dtype, device=table.device)
+        else:
+            keep = cull_primitives(
+                ray_origins, ray_directions, blocking_primitives_corners, ray_primitive_indices,
+                intersection_distances_target,
+            )
+        sigma = blocking_sigma_flat(ray_origins.contiguous(), directions, table.contiguous(), keep, *parameters)
     return 1.0 - torch.exp(-alpha * sigma.reshape(num, rays, points))

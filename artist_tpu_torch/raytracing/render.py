@@ -5,16 +5,22 @@ loop over ray chunks; each chunk runs under
 ``torch.utils.checkpoint(..., use_reentrant=False)`` so the backward
 recomputes the chunk's forward (splat kernel included) instead of storing
 its per-ray tensors - the port of the JAX package's remat'd ``lax.scan``.
-With blocking on, the checkpoint is selective: the blocking sigma operator's
-output is saved, so the recompute does not launch its kernel again (the JAX
-package's ``save_only_these_names("blocking_sigma")`` policy). The
-distortion scatter uses the fused component-wise rotation and never builds
-``[M, R, P, 4, 4]`` rotation tensors.
+With blocking on, the checkpoint is selective: the outputs of the blocking
+sigma operators and of the flat route's cull are saved, so the recompute
+does not launch their kernels again (the JAX package's
+``save_only_these_names("blocking_sigma")`` policy, and a cull that is not
+run twice). The distortion scatter uses the fused component-wise rotation
+and never builds ``[M, R, P, 4, 4]`` rotation tensors.
 
-Field-wide blocking runs on the candidate-compacted route only
-(``blocking_candidates`` set); the flat route (``blocking_candidates=None``)
-and cylindrical targets are not ported yet and raise
-``NotImplementedError``.
+Kernel launches per checkpointed ray chunk, forward and backward: two splat
+forwards (the recompute runs it again) and one splat backward; with
+blocking on the compacted route (``blocking_candidates`` set) one sigma
+forward and one sigma backward; on the flat route
+(``blocking_candidates=None``) one cull, one flat sigma forward and one
+flat sigma backward. Without ray chunks there is no recompute: one launch of
+each forward and backward kernel per trace.
+
+Cylindrical targets are not ported yet and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -54,7 +60,7 @@ class RenderConfig:
     # Field-wide soft blocking; needs the blocking primitives.
     blocking_active: bool = False
     # Candidate blockers per heliostat (K) of the compacted blocking route.
-    # None selects the flat route, which is not ported yet and raises.
+    # None selects the flat route over every primitive, with the AABB cull.
     blocking_candidates: int | None = 16
 
 
@@ -128,9 +134,17 @@ def ray_splat_inputs(
     )
 
 
+_SAVED_BLOCKING_OPS = (
+    torch.ops.artist_tpu_torch.blocking_sigma.default,
+    torch.ops.artist_tpu_torch.blocking_sigma_flat.default,
+    torch.ops.artist_tpu_torch.blocking_cull.default,
+)
+
+
 def _save_blocking_sigma(ctx, op, *args, **kwargs) -> CheckpointPolicy:
-    """Selective-checkpoint policy: keep the sigma operator's output, recompute the rest."""
-    if op is torch.ops.artist_tpu_torch.blocking_sigma.default:
+    """Selective-checkpoint policy: keep the sigma operators' and the cull's outputs,
+    recompute the rest."""
+    if op in _SAVED_BLOCKING_OPS:
         return CheckpointPolicy.MUST_SAVE
     return CheckpointPolicy.PREFER_RECOMPUTE
 
@@ -180,10 +194,6 @@ def trace_rays(
         on-target factor ``[M]``, (non-)blocking factor ``[M]``: the share of
         rays with ``blocked < 1e-3``.
     """
-    if config.blocking_active and config.blocking_candidates is None:
-        raise NotImplementedError(
-            "the flat blocking route (blocking_candidates=None) is not ported yet"
-        )
     if config.blocking_active and blocking_primitives is None:
         raise ValueError("blocking_active needs blocking_primitives")
     if tower.number_of_cylindrical_target_areas:

@@ -20,20 +20,31 @@ exits non-zero without them. It imports only ``torch``, ``numpy`` and the
       apart, where the check must not be vacuous, and there with every
       candidate slot kept, at K = 16 and at K = 32; the arbiter is the plain
       version in float64;
+   c. the flat route's kernels on the flat aim-point path's own first-epoch
+      inputs (8 M rays against all 100 primitives) and on the same field
+      with its rows 3 m apart: the AABB cull bit for bit against its plain
+      version, there and on a batch of edge cases, and the flat sigma pair
+      against the float64 arbiter;
 4. surface step: the flagship surface-reconstruction step (100 heliostats,
    50 x 50 points per facet x 4 facets, 32 rays per point = 32 M rays,
    256 x 256 bitmaps, ray chunks of 4) built from the port's public
    functions, one warm-up and three timed ``torch.optim.Adam`` steps on the
    NURBS control points, with the kernels' launch counts asserted;
-5. aim point (this slice's main path): ``AimPointOptimizer.optimize`` at
+5. aim point: ``AimPointOptimizer.optimize`` at
    ``bench.py``'s aim-point size (100 heliostats, 50 x 50 points per facet x
    4 facets, 8 rays per point = 8 M rays, field-wide blocking with K = 16),
    one warm-up and three timed epochs, launch counts asserted;
 6. blocking step: the surface step of phase 4 with field-wide blocking on;
 7. agreement: the small surface step and a small aim-point step on a packed
    dense-row field under a low receiver (at K = 16 and at K = 32, where some
-   heliostat keeps more than 16 candidates), each on the card against the
-   same step on the CPU.
+   heliostat keeps more than 16 candidates, and on the flat route), each on
+   the card against the same step on the CPU;
+8. flat aim point (this slice's main path): phase 5 with
+   ``blocking_candidates=None``, field-wide blocking over all 100 primitives
+   with the AABB cull, launch counts asserted; then one warm-up and one
+   timed epoch of it on the field with its rows 3 m apart, where the cull
+   keeps most primitives and some blocking factor must fall below 1;
+9. flat blocking step: the blocking step of phase 6 on the flat route.
 
 Each driven path sets every launch count to 0 just before it and reads them
 just after. Then one JSON line of per-kernel numbers and, last, the
@@ -90,15 +101,33 @@ SEED = 7
 STEPS = 3  # timed, after one warm-up
 LEARNING_RATE = 1e-4
 
-KERNELS = ("splat_forward", "splat_backward", "blocking_sigma_forward", "blocking_sigma_backward")
+KERNELS = (
+    "splat_forward", "splat_backward", "blocking_sigma_forward", "blocking_sigma_backward",
+    "blocking_cull", "blocking_sigma_flat_forward", "blocking_sigma_flat_backward",
+)
+
+
+def launches(**counts: int) -> dict[str, int]:
+    """A launch count for every kernel: the ones named, 0 for the rest."""
+    return {name: counts.get(name, 0) for name in KERNELS}
+
+
 # Per step with RAY_CHUNK = 4: eight chunks, each splat forward run once in
 # the forward pass and once more when checkpointing recomputes the chunk in
 # the backward pass; one splat backward per chunk. With blocking on, the
-# selective checkpoint saves sigma, so the recompute does not launch the sigma
-# forward again: one sigma forward and one sigma backward per chunk.
+# selective checkpoint saves sigma (and the flat route's keep flags), so the
+# recompute does not launch the sigma forward (or the cull) again: per chunk
+# one sigma forward and one sigma backward, and on the flat route one cull.
 CHUNKS = RAYS // RAY_CHUNK
-LAUNCHES_PER_STEP = dict(zip(KERNELS, (2 * CHUNKS, CHUNKS, 0, 0)))
-LAUNCHES_PER_BLOCKING_STEP = dict(zip(KERNELS, (2 * CHUNKS, CHUNKS, CHUNKS, CHUNKS)))
+SPLAT_PER_STEP = dict(splat_forward=2 * CHUNKS, splat_backward=CHUNKS)
+LAUNCHES_PER_STEP = launches(**SPLAT_PER_STEP)
+LAUNCHES_PER_BLOCKING_STEP = launches(
+    **SPLAT_PER_STEP, blocking_sigma_forward=CHUNKS, blocking_sigma_backward=CHUNKS
+)
+LAUNCHES_PER_FLAT_BLOCKING_STEP = launches(
+    **SPLAT_PER_STEP, blocking_cull=CHUNKS, blocking_sigma_flat_forward=CHUNKS,
+    blocking_sigma_flat_backward=CHUNKS,
+)
 
 # The aim-point optimizer as bench.py:_bench_aim_point configures it.
 AIM_HELIOSTATS = 100
@@ -106,13 +135,26 @@ AIM_SURFACE_POINTS = (50, 50)
 AIM_RAYS = 8  # 100 x 10,000 points x 8 = 8 M rays per epoch, no ray chunks
 AIM_CANDIDATES = 16
 AIM_EPOCHS = 3  # timed, after one warm-up epoch
+DENSE_AIM_EPOCHS = 1  # timed, on the field with its rows 3 m apart (flat route)
 AIM_LEARNING_RATE = 1e-3
 AIM_GAMMA = 0.99
 DNI = 1000.0
-# Per epoch: one forward and one backward of each kernel (no ray chunks);
-# per optimize() call, one more forward of each for the epoch-0 references.
-AIM_LAUNCHES_PER_EPOCH = dict.fromkeys(KERNELS, 1)
-AIM_LAUNCHES_PER_CALL = dict(zip(KERNELS, (1, 0, 1, 0)))
+# Per epoch: one forward and one backward of each kernel of the route (no ray
+# chunks), and on the flat route one cull; per optimize() call, one more
+# forward of each (and one more cull) for the epoch-0 references.
+AIM_LAUNCHES_PER_EPOCH = {
+    AIM_CANDIDATES: launches(
+        splat_forward=1, splat_backward=1, blocking_sigma_forward=1, blocking_sigma_backward=1
+    ),
+    None: launches(
+        splat_forward=1, splat_backward=1, blocking_cull=1, blocking_sigma_flat_forward=1,
+        blocking_sigma_flat_backward=1,
+    ),
+}
+AIM_LAUNCHES_PER_CALL = {
+    AIM_CANDIDATES: launches(splat_forward=1, blocking_sigma_forward=1),
+    None: launches(splat_forward=1, blocking_cull=1, blocking_sigma_flat_forward=1),
+}
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s and fp32 FLOP/s outside
 # the tensor cores (the splat does no matrix work).
@@ -134,6 +176,10 @@ BACKWARD_FLOPS_PER_RAY = 29
 # ray cotangents 36, the 16 candidate cotangents 41, their sum over rays 16.
 SIGMA_FORWARD_OPS_PER_PAIR = 72
 SIGMA_BACKWARD_OPS_PER_PAIR = 194
+# fp32 operations per (ray, primitive) pair the cull tests: per axis two
+# differences, two products, a minimum, a maximum and the running entry and
+# exit (24), three comparisons, the own-primitive test and two ANDs.
+CULL_OPS_PER_PAIR = 30
 
 # Kernel-vs-plain tolerances, in units of the fp32 rounding unit u = 2^-24.
 # Forward: kernel and plain version add the same fp32 deposits (the products
@@ -219,10 +265,12 @@ def step_inputs(
     bitmap_resolution: tuple[int, int],
     ray_chunk: int | None,
     blocking: bool = False,
+    candidates: int | None = AIM_CANDIDATES,
 ) -> StepInputs:
     """The flagship step's inputs: every heliostat active, incident light from
     the south horizon ``[0, 1, 0, 0]``, target 0, aim point the target's
-    centre, an all-ones ground truth; field-wide blocking (K = 16) if asked."""
+    centre, an all-ones ground truth; field-wide blocking if asked, on the
+    compacted route with ``candidates`` per heliostat or, with None, the flat one."""
     group = scenario.heliostat_groups[0]
     device = group.positions.device
     num = group.number_of_heliostats
@@ -238,7 +286,8 @@ def step_inputs(
         ground_truth=torch.ones((num, bitmap_resolution[1], bitmap_resolution[0]), device=device),
         surface_points_per_facet=surface_points_per_facet,
         config=RenderConfig(
-            bitmap_resolution=bitmap_resolution, ray_chunk=ray_chunk, blocking_active=blocking
+            bitmap_resolution=bitmap_resolution, ray_chunk=ray_chunk, blocking_active=blocking,
+            blocking_candidates=candidates,
         ),
     )
 
@@ -297,7 +346,9 @@ def surface_loss(control_points: torch.Tensor, inputs: StepInputs) -> torch.Tens
     return torch.sum(kl_divergence_loss(flux, inputs.ground_truth)) / num
 
 
-def flagship_inputs(device: torch.device, blocking: bool = False) -> StepInputs:
+def flagship_inputs(
+    device: torch.device, blocking: bool = False, candidates: int | None = AIM_CANDIDATES
+) -> StepInputs:
     scenario = make_synthetic_scenario(
         number_of_heliostats=HELIOSTATS,
         number_of_surface_points_per_facet=SURFACE_POINTS,
@@ -310,7 +361,7 @@ def flagship_inputs(device: torch.device, blocking: bool = False) -> StepInputs:
         generator, group.surface_points.shape[1], group.number_of_heliostats
     )
     return step_inputs(
-        scenario, distortions_u, distortions_e, SURFACE_POINTS, BITMAP, RAY_CHUNK, blocking
+        scenario, distortions_u, distortions_e, SURFACE_POINTS, BITMAP, RAY_CHUNK, blocking, candidates
     )
 
 
@@ -658,16 +709,22 @@ def aim_point_optimizer(scenario, ground_truth, max_epoch: int, candidates: int,
     )
 
 
-class CaptureSigmaInputs(TorchDispatchMode):
-    """Records the arguments of every blocking sigma operator call it sees."""
+# The blocking operators whose inputs the kernel phases take from the path, and
+# how many of their arguments are tensors.
+CAPTURED_OPS = {"blocking_sigma": 5, "blocking_sigma_flat": 4, "blocking_cull": 5}
+
+
+class CaptureBlockingInputs(TorchDispatchMode):
+    """Records the arguments of every blocking operator call it sees, by operator name."""
 
     def __init__(self):
         super().__init__()
-        self.calls = []
+        self.calls = {name: [] for name in CAPTURED_OPS}
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-        if func is torch.ops.artist_tpu_torch.blocking_sigma.default:
-            self.calls.append(args)
+        for name in CAPTURED_OPS:
+            if func is getattr(torch.ops.artist_tpu_torch, name).default:
+                self.calls[name].append(args)
         return func(*args, **(kwargs or {}))
 
 
@@ -675,15 +732,23 @@ def first_epoch(optimizer: AimPointOptimizer):
     """``optimizer.objective()`` and its epoch-0 forward without gradient.
 
     Returns ``params``, ``loss_fn``, the forward's outputs (the target's flux,
-    intercepts, on-target and blocking factors) and the sigma operator's own
-    inputs in that forward, ``(tensors, (softness, offset, epsilon))``.
+    intercepts, on-target and blocking factors) and the blocking operators'
+    own inputs in that forward, ``{name: (tensors, parameters)}`` for each
+    operator it called once (the compacted route's ``blocking_sigma``, or
+    the flat route's ``blocking_cull`` and ``blocking_sigma_flat``).
     """
     params, forward, loss_fn = optimizer.objective("kl_divergence")
-    capture = CaptureSigmaInputs()
+    capture = CaptureBlockingInputs()
     with torch.no_grad(), capture:
         outputs = forward(params)
-    (call,) = capture.calls
-    return params, loss_fn, outputs, (tuple(call[:5]), tuple(call[5:]))
+    captured = {}
+    for name, calls in capture.calls.items():
+        if len(calls) > 1:
+            raise AssertionError(f"the epoch-0 forward called {name} {len(calls)} times")
+        if calls:
+            tensors = CAPTURED_OPS[name]
+            captured[name] = (tuple(calls[0][:tensors]), tuple(calls[0][tensors:]))
+    return params, loss_fn, outputs, captured
 
 
 def _per_heliostat(fn, tensors, parameters, dtype, chunk: int = 10):
@@ -754,19 +819,27 @@ def check_sigma_pair(label: str, inputs, parameters, gbar, alpha: float = 100.0)
 def time_sigma_pair(inputs, parameters, gbar) -> dict[str, dict]:
     """The sigma kernels' and plain versions' times on ``inputs``, and the card's
     bound for the same work: the kept pairs' operations or the bytes of every
-    input read once and every output written once, whichever takes longer."""
+    input the function needs read once and every output written once,
+    whichever takes longer. A heliostat with no kept candidate has sigma 0 and
+    zero cotangents whatever its rays are, so only its outputs count."""
     origins, directions, t_target, columns, keep = inputs
     num, points = origins.shape[:2]
     rays, candidates = directions.shape[1], columns.shape[1]
-    pairs = rays * float(keep.sum())  # the kernels skip keep = 0 slots
-    ray_bytes, point_bytes, candidate_bytes = num * rays, num * points, num * candidates
-    # Forward: per ray, direction 16 and t_target 4 read, sigma 4 written; per
-    # point, origin 16 read; per candidate, 16 columns 64 and keep 4 read.
-    forward_bytes = 24 * ray_bytes + 16 * point_bytes + 68 * candidate_bytes
-    # Backward: per ray, direction 16, t_target 4 and gbar 4 read, direction
-    # cotangent 16 written; per point, origin 16 read and its cotangent 16
-    # written; per candidate, columns 64 and keep 4 read, cotangents 64 written.
-    backward_bytes = 40 * ray_bytes + 32 * point_bytes + 132 * candidate_bytes
+    kept = float(keep.sum())
+    pairs = rays * kept  # the kernels skip keep = 0 slots
+    needed = float((keep.sum(dim=1) > 0).sum())  # heliostats with a kept candidate
+    # Forward: per ray, sigma 4 written, and where needed direction 16 and
+    # t_target 4 read; per needed point, origin 16 read; per slot, keep 4 read,
+    # and per kept slot its 16 columns 64.
+    forward_bytes = 4 * num * rays + 4 * num * candidates + needed * (20 * rays + 16 * points) + 64 * kept
+    # Backward: the direction cotangent 16 per ray, the origin cotangent 16 per
+    # point and the column cotangents 64 per slot written; keep 4 per slot
+    # read; where needed, per ray direction 16, t_target 4 and gbar 4 read and
+    # per point origin 16; per kept slot its columns 64.
+    backward_bytes = (
+        16 * num * rays + 16 * num * points + 68 * num * candidates
+        + needed * (24 * rays + 16 * points) + 64 * kept
+    )
     return {
         "blocking_sigma_forward": dict(
             ms=event_ms(lambda: blocking_kernels.sigma_forward_cuda(*inputs, *parameters)),
@@ -788,7 +861,7 @@ def sigma_inputs(device: torch.device, row_spacing: float | None, candidates: in
     epoch-0 forward at full size, the field's rows ``row_spacing`` apart if given."""
     scenario = aim_point_scenario(device, AIM_HELIOSTATS, AIM_SURFACE_POINTS, AIM_RAYS, row_spacing)
     optimizer = aim_point_optimizer(scenario, aim_point_ground_truth(BITMAP, device), 0, candidates, BITMAP)
-    return first_epoch(optimizer)[3]
+    return first_epoch(optimizer)[3]["blocking_sigma"]
 
 
 # Phase 3b's inputs: (label, key in the kernel line, row spacing, K, every slot
@@ -873,12 +946,310 @@ def check_blocking_kernels(device: torch.device) -> dict[str, dict]:
     return timings
 
 
-def drive_aim_point(device: torch.device) -> dict:
-    """Phase 5: AimPointOptimizer.optimize at bench.py's aim-point size, one warm-up
-    and AIM_EPOCHS timed epochs, host clock around synchronised epochs."""
-    scenario = aim_point_scenario(device, AIM_HELIOSTATS, AIM_SURFACE_POINTS, AIM_RAYS)
+# --------------------------------------------------------------------------- #
+# The flat route's kernels (phase 3c).
+# --------------------------------------------------------------------------- #
+
+
+def cull_edge_cases() -> list[tuple]:
+    """Hand-built cull inputs, one heliostat each, and the keep flags they must give.
+
+    Returns ``(name, origins [1, P, 4], directions [1, N, 4], t_target [1, N],
+    own [1] (int64), aabb [3, 6], expected keep [3])`` numpy tuples. Primitive
+    0 spans y in [1, 2] and primitive 1 y in [3, 4], both x and z in [-1, 1];
+    primitive 2 spans x in [2, 3], y in [1, 2], z in [-1, 1]. The cases: the
+    own primitive; a blocker beyond the target; direction components of
+    exactly 0 and -0; a component of -1e-12, whose inverse is infinite (and
+    NaN where the origin lies on the box's face: 0 x inf); t_target = -1e30;
+    NaN and infinite directions. A minimum or maximum that drops NaN (fmaxf)
+    keeps primitives 0 and 1 in the NaN cases.
+    """
+    aabb = np.array([[-1, 1, -1, 1, 2, 1], [-1, 3, -1, 1, 4, 1], [2, 1, -1, 3, 2, 1]], np.float32)
+    up = (0.0, 1.0, 0.0)
+
+    def case(name, points, directions, expected, t_target=10.0, own=-1):
+        origins = np.ones((1, len(points), 4), np.float32)
+        origins[0, :, :3] = points
+        rays = np.zeros((1, len(directions), 4), np.float32)
+        rays[0, :, :3] = directions
+        t = np.full((1, len(directions)), t_target, np.float32)
+        return name, origins, rays, t, np.array([own], np.int64), aabb, np.array(expected, np.float32)
+
+    return [
+        case("own", [(0, 0, 0)], [up], [0, 1, 0], own=0),
+        case("beyond_target", [(0, 0, 0)], [up], [1, 0, 0], t_target=2.5),
+        case("zero_components", [(1.5, 0, 0), (2.5, 0, 0)], [up, (-0.0, 1.0, -0.0)], [0, 0, 1]),
+        case("minus_1e-12", [(0.5, 0, 0)], [(-1e-12, 1, 0)], [1, 1, 0]),
+        case("zero_times_inf", [(-1, 0, 0)], [(-1e-12, 1, 0)], [0, 0, 0]),
+        case("t_target_-1e30", [(0, 0, 0)], [up], [0, 0, 0], t_target=-1e30),
+        case("nan_inf_directions", [(0, 0, 0)],
+             [(np.nan, 1, 0), (np.inf, 1, 0), (-np.inf, 1, 0), (0, np.inf, 0)], [0, 0, 0]),
+    ]
+
+
+def check_cull_edge_cases(device: torch.device) -> int:
+    """The cull kernel on each edge case: equal to its plain version and to the expected
+    flags. Returns the number of cases."""
+    cases = cull_edge_cases()
+    for name, *arrays, expected in cases:
+        tensors = [torch.tensor(x, device=device) for x in arrays]
+        kernel = blocking_kernels.cull_cuda(*tensors).cpu().numpy()
+        plain = blocking_kernels.cull_plain(*tensors).cpu().numpy()
+        if not (np.array_equal(kernel, plain) and np.array_equal(kernel, expected)):
+            raise AssertionError(f"cull edge case {name}: kernel {kernel}, plain {plain}, expected {expected}")
+    return len(cases)
+
+
+def flat_inputs(device: torch.device, row_spacing: float | None):
+    """The cull's and the flat sigma operator's inputs in the flat aim-point path's
+    epoch-0 forward at full size, the field's rows ``row_spacing`` apart if given:
+    the cull's tensors, and the sigma operator's ``(tensors, parameters)``."""
+    scenario = aim_point_scenario(device, AIM_HELIOSTATS, AIM_SURFACE_POINTS, AIM_RAYS, row_spacing)
+    optimizer = aim_point_optimizer(scenario, aim_point_ground_truth(BITMAP, device), 0, None, BITMAP)
+    captured = first_epoch(optimizer)[3]
+    return captured["blocking_cull"][0], captured["blocking_sigma_flat"]
+
+
+def _flat_per_heliostat(fn, rays, primitives, parameters, dtype, chunk: int = 10):
+    """``fn(origins, directions, columns, keep, [gbar,] *parameters)`` over slices of the
+    heliostat axis (float64 would not fit whole); the column cotangents are summed."""
+    parts = []
+    for start in range(0, rays[0].shape[0], chunk):
+        origins, directions, *gbar = (x[start : start + chunk].to(dtype) for x in rays)
+        parts.append(fn(origins, directions, *(x.to(dtype) for x in primitives), *gbar, *parameters))
+    if isinstance(parts[0], torch.Tensor):
+        return torch.cat(parts)
+    grad_origins, grad_directions, grad_columns = zip(*parts)
+    return torch.cat(grad_origins), torch.cat(grad_directions), torch.stack(grad_columns).sum(dim=0)
+
+
+def check_flat_sigma_pair(label: str, inputs, parameters, gbar, alpha: float = 100.0) -> dict:
+    """The flat sigma kernels against the plain version, fp32 and float64, on ``inputs``
+    (origins, directions, columns, keep), held to the arbiter as in phase 3b."""
+    origins, directions, columns, keep = inputs
+    sigma = blocking_kernels.sigma_flat_forward_cuda(*inputs, *parameters)
+    grads = blocking_kernels.sigma_flat_backward_cuda(*inputs, gbar, *parameters)
+    torch.cuda.synchronize()
+    rays, primitives = (origins, directions), (columns, keep)
+    forward, backward = blocking_kernels.sigma_flat_forward_plain, blocking_kernels.sigma_flat_backward_plain
+    plain = _flat_per_heliostat(forward, rays, primitives, parameters, torch.float32)
+    reference = _flat_per_heliostat(forward, rays, primitives, parameters, torch.float64)
+    plain_grads = _flat_per_heliostat(backward, rays + (gbar,), primitives, parameters, torch.float32)
+    reference_grads = _flat_per_heliostat(backward, rays + (gbar,), primitives, parameters, torch.float64)
+    worst = {
+        "sigma": _arbitrate(f"{label} flat sigma", sigma, plain, reference),
+        "mask": _arbitrate(
+            f"{label} flat mask", 1.0 - torch.exp(-alpha * sigma), 1.0 - torch.exp(-alpha * plain),
+            1.0 - torch.exp(-alpha * reference),
+        ),
+    }
+    for name, k, p, r in zip(("origins", "directions"), grads, plain_grads, reference_grads):
+        worst[name] = _arbitrate(f"{label} flat cotangent of {name}", k, p, r)
+    worst["columns"] = max(
+        _arbitrate(f"{label} flat cotangent of column {c}", grads[2][:, c], plain_grads[2][:, c],
+                   reference_grads[2][:, c])
+        for c in range(blocking_kernels.NUM_COLUMNS)
+    )
+    return dict(
+        worst_share=worst,
+        forward_err=float((sigma - plain).abs().max()),
+        backward_err=max(float((k - p).abs().max()) for k, p in zip(grads, plain_grads)),
+        cotangent_scale=max(float(r.abs().max()) for r in reference_grads),
+        sigma_max=float(reference.max()),
+        blocked_share=float((1.0 - torch.exp(-alpha * reference) >= 1e-3).double().mean()),
+    )
+
+
+def time_flat_kernels(cull_inputs, sigma_inputs, parameters, gbar) -> dict[str, dict]:
+    """The flat route's kernels' and plain versions' times on the path's inputs, and
+    the card's bound for the same work (as :func:`time_sigma_pair`). With no
+    primitive kept, sigma is 0 and every cotangent 0 whatever the rays are, so
+    the sigma pair's bounds count only the keep flags read and the outputs
+    written; with one kept, every ray must be read."""
+    origins, directions, t_target, own, aabb = cull_inputs
+    columns, keep = sigma_inputs[2:]
+    num, points = origins.shape[:2]
+    total, primitives = num * directions.shape[1], columns.shape[0]
+    kept = keep.double()
+    kept_count = float(kept.sum())
+    needed = 1.0 if kept_count > 0 else 0.0
+    # The cull needs, for a primitive it drops, every ray that another heliostat
+    # owns, and for one it keeps a single hit.
+    owned_rays = torch.bincount(own[own >= 0], minlength=primitives)[:primitives].double() * directions.shape[1]
+    cull_pairs = float(((total - owned_rays) * (1.0 - kept)).sum() + kept.sum())
+    pairs = total * kept_count  # the sigma kernels skip keep = 0 primitives
+    # Cull: per ray, direction 16 and t_target 4 read; per point, origin 16;
+    # per heliostat, own 8; per primitive, its box 24 read and keep 4 written.
+    cull_bytes = 20 * total + 16 * num * points + 8 * num + 28 * primitives
+    # Forward: per ray, sigma 4 written; per primitive, keep 4 read, and per kept
+    # one its 16 columns 64; if any is kept, per ray direction 16 and per point
+    # origin 16 read.
+    forward_bytes = 4 * total + 4 * primitives + 64 * kept_count + needed * (16 * total + 16 * num * points)
+    # Backward: per ray the direction cotangent 16, per point the origin
+    # cotangent 16 and per primitive the column cotangents 64 written; keep 4
+    # per primitive and columns 64 per kept one read; if any is kept, per ray
+    # direction 16 and gbar 4 and per point origin 16 read.
+    backward_bytes = (
+        16 * total + 16 * num * points + 68 * primitives + 64 * kept_count
+        + needed * (20 * total + 16 * num * points)
+    )
+    return {
+        "blocking_cull": dict(
+            ms=event_ms(lambda: blocking_kernels.cull_cuda(*cull_inputs)),
+            plain_ms=event_ms(lambda: blocking_kernels.cull_plain(*cull_inputs), 3, 1),
+            bound=bound_ms(cull_bytes, CULL_OPS_PER_PAIR * cull_pairs),
+            pairs=cull_pairs,
+        ),
+        "blocking_sigma_flat_forward": dict(
+            ms=event_ms(lambda: blocking_kernels.sigma_flat_forward_cuda(*sigma_inputs, *parameters)),
+            plain_ms=event_ms(lambda: blocking_kernels.sigma_flat_forward_plain(*sigma_inputs, *parameters), 3, 1),
+            bound=bound_ms(forward_bytes, SIGMA_FORWARD_OPS_PER_PAIR * pairs),
+            pairs=pairs,
+        ),
+        "blocking_sigma_flat_backward": dict(
+            ms=event_ms(lambda: blocking_kernels.sigma_flat_backward_cuda(*sigma_inputs, gbar, *parameters)),
+            plain_ms=event_ms(
+                lambda: blocking_kernels.sigma_flat_backward_plain(*sigma_inputs, gbar, *parameters), 3, 1
+            ),
+            bound=bound_ms(backward_bytes, SIGMA_BACKWARD_OPS_PER_PAIR * pairs),
+            pairs=pairs,
+        ),
+    }
+
+
+# Phase 3c's inputs: (label, key in the kernel line, row spacing). The first is
+# the flat aim-point path's own; on the dense rows the check must not be vacuous.
+FLAT_CASES = (("aim-point field", None, None), ("dense rows", "dense_rows", DENSE_ROW_SPACING))
+# The dense rows' primitives repeated three times (B = 300) against the rays of
+# their last 25 heliostats (2 M rays, not a whole number of 256-ray tiles; the
+# back rows, whose own boxes and front neighbours are the primitives kept, so
+# that some are kept past 128 and past 256): past one primitive tile of the
+# cull and the forward (256) and two passes of the backward (128), and a
+# ragged last ray tile.
+MANY_PRIMITIVES = dict(copies=3, heliostats=25)
+
+
+def check_many_primitives(cull_inputs, sigma_inputs, parameters) -> dict:
+    """The flat kernels on MANY_PRIMITIVES: the cull bit for bit, the sigma pair to the arbiter."""
+    copies, heliostats = MANY_PRIMITIVES["copies"], MANY_PRIMITIVES["heliostats"]
+    origins, directions, t_target, own = (x[-heliostats:] for x in cull_inputs[:4])
+    aabb = cull_inputs[4].repeat(copies, 1)
+    keep = blocking_kernels.cull_cuda(origins, directions, t_target, own, aabb)
+    plain_keep = blocking_kernels.cull_plain(origins, directions, t_target, own, aabb)
+    if not torch.equal(keep, plain_keep):
+        raise AssertionError("many primitives: the cull kernel differs from its plain version")
+    if not (keep[128:256].sum() > 0 and keep[256:].sum() > 0):
+        raise AssertionError(f"many primitives: no primitive kept past 128 or past 256 ({keep.tolist()})")
+    inputs = (origins, directions, sigma_inputs[2].repeat(copies, 1), keep)
+    gbar = torch.randn(
+        directions.shape[:2], device=origins.device, generator=torch.Generator(device=origins.device).manual_seed(SEED + 6)
+    )
+    result = check_flat_sigma_pair("many primitives", inputs, parameters, gbar)
+    result["kept_primitives"] = int(keep.sum())
+    result["shape"] = (directions.shape[0], directions.shape[1], keep.numel())
+    return result
+
+
+def check_flat_kernels(device: torch.device) -> dict[str, dict]:
+    """Phase 3c: the flat route's kernels on the flat aim-point path's first-epoch
+    inputs, on the same field with rows 3 m apart, and there with its primitives
+    repeated (MANY_PRIMITIVES). The cull equals its plain version bit for bit (and
+    the keep flags the path used); the sigma pair is held to the float64 arbiter;
+    each is timed on the first two. The kernel table reports the first."""
+    results = {}
+    for label, _, spacing in FLAT_CASES:
+        cull_inputs, (sigma_inputs, parameters) = flat_inputs(device, spacing)
+        keep = blocking_kernels.cull_cuda(*cull_inputs)
+        plain_keep = blocking_kernels.cull_plain(*cull_inputs)
+        if not (torch.equal(keep, plain_keep) and torch.equal(keep, sigma_inputs[3])):
+            raise AssertionError(
+                f"{label}: cull kernel keeps {keep.nonzero().flatten().tolist()}, plain version "
+                f"{plain_keep.nonzero().flatten().tolist()}, the path {sigma_inputs[3].nonzero().flatten().tolist()}"
+            )
+        gbar = torch.randn(
+            sigma_inputs[1].shape[:2], device=device, generator=torch.Generator(device=device).manual_seed(SEED + 4)
+        )
+        result = check_flat_sigma_pair(label, sigma_inputs, parameters, gbar)
+        result["timings"] = time_flat_kernels(cull_inputs, sigma_inputs, parameters, gbar)
+        result["kept_primitives"] = int(keep.sum())
+        result["shape"] = (sigma_inputs[1].shape[0], sigma_inputs[1].shape[1], keep.numel())
+        results[label] = result
+        if spacing is not None:
+            many = check_many_primitives(cull_inputs, sigma_inputs, parameters)
+        del cull_inputs, sigma_inputs, gbar
+        torch.cuda.empty_cache()
+    edge_cases = check_cull_edge_cases(device)
+    dense = results["dense rows"]
+    if not (dense["kept_primitives"] > 0 and dense["sigma_max"] > 0.1 and dense["blocked_share"] > 0.05):
+        raise AssertionError(
+            f"dense rows, flat: the check is vacuous ({dense['kept_primitives']} kept primitives, max sigma "
+            f"{dense['sigma_max']}, blocked share {dense['blocked_share']})"
+        )
+    replaces = {
+        "blocking_cull": "artist_tpu/kernels/blocking_pallas.py:414 (_cull_kernel, pallas_call :506)",
+        "blocking_sigma_flat_forward":
+            "artist_tpu/kernels/blocking_pallas.py:240 (_sigma_forward_kernel, gated=False, pallas_call :573)",
+        "blocking_sigma_flat_backward":
+            "artist_tpu/kernels/blocking_pallas.py:264 and :302 (_sigma_bwd_rays_kernel and "
+            "_sigma_bwd_prims_kernel, gated=False, pallas_calls :604 and :627)",
+    }
+    # The cull is held bit for bit: its error is 0 wherever the check passed.
+    errors = {"blocking_cull": None, "blocking_sigma_flat_forward": "forward_err",
+              "blocking_sigma_flat_backward": "backward_err"}
+    timings = {}
+    for name, t in results[FLAT_CASES[0][0]]["timings"].items():
+        timings[name] = dict(
+            t,
+            library_ms=None,
+            max_abs_err=max(r[errors[name]] for r in results.values()) if errors[name] else 0.0,
+            replaces=replaces[name],
+            kept_primitives={key or "aim_point": results[label]["kept_primitives"] for label, key, _ in FLAT_CASES},
+            **{
+                key: {"ms": x["ms"], "plain_ms": x["plain_ms"], "bound_ms": x["bound"][0],
+                      "bound_by": x["bound"][1], "pairs": x["pairs"]}
+                for label, key, _ in FLAT_CASES[1:]
+                for x in (results[label]["timings"][name],)
+            },
+        )
+    _log(
+        f"phase 3c flat kernels: cull bit-exact on {edge_cases} edge cases and on each field; "
+        + "; ".join(
+            f"{label} ([{r['shape'][0]}, {r['shape'][1]}] rays x B = {r['shape'][2]}): kept primitives "
+            f"{r['kept_primitives']}, max sigma {r['sigma_max']:.4g}, blocked share {r['blocked_share']:.4g}, "
+            f"largest cotangent {r['cotangent_scale']:.4g}, worst share of the arbiter's limit "
+            + json.dumps({k: round(v, 4) for k, v in r["worst_share"].items()})
+            + ", "
+            + ", ".join(
+                f"{name} kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, bound {t['bound'][0]:.4f} ms "
+                f"({t['bound'][1]}, {t['pairs']:.0f} pairs)"
+                for name, t in r["timings"].items()
+            )
+            for label, r in results.items()
+        )
+        + f"; many primitives ([{many['shape'][0]}, {many['shape'][1]}] rays x B = {many['shape'][2]}): kept "
+        f"primitives {many['kept_primitives']}, max sigma {many['sigma_max']:.4g}, worst share of the arbiter's limit "
+        + json.dumps({k: round(v, 4) for k, v in many["worst_share"].items()})
+        + "; max |kernel - fp32 plain|: "
+        + ", ".join(f"{name} {t['max_abs_err']:.3g}" for name, t in timings.items())
+    )
+    return timings
+
+
+def drive_aim_point(
+    device: torch.device,
+    candidates: int | None,
+    phase: str,
+    row_spacing: float | None = None,
+    timed_epochs: int = AIM_EPOCHS,
+) -> dict:
+    """Phases 5 and 8: AimPointOptimizer.optimize at bench.py's aim-point size, on the
+    compacted route with ``candidates`` per heliostat or, with None, the flat route;
+    one warm-up and ``timed_epochs`` timed epochs, host clock around synchronised
+    epochs. With ``row_spacing`` the field's rows are that far apart, and some
+    heliostat's blocking factor must be below 1."""
+    scenario = aim_point_scenario(device, AIM_HELIOSTATS, AIM_SURFACE_POINTS, AIM_RAYS, row_spacing)
     optimizer = aim_point_optimizer(
-        scenario, aim_point_ground_truth(BITMAP, device), AIM_EPOCHS, AIM_CANDIDATES, BITMAP
+        scenario, aim_point_ground_truth(BITMAP, device), timed_epochs, candidates, BITMAP
     )
     epoch_ends = []
 
@@ -894,19 +1265,22 @@ def drive_aim_point(device: torch.device) -> dict:
     torch.cuda.synchronize()
     seconds = time.perf_counter() - start
     launches = launch_counts()
-    epochs = 1 + AIM_EPOCHS
+    epochs = 1 + timed_epochs
     expected = {
-        name: AIM_LAUNCHES_PER_EPOCH[name] * epochs + AIM_LAUNCHES_PER_CALL[name] for name in KERNELS
+        name: AIM_LAUNCHES_PER_EPOCH[candidates][name] * epochs + AIM_LAUNCHES_PER_CALL[candidates][name]
+        for name in KERNELS
     }
     if launches != expected:
-        raise AssertionError(f"aim-point path launched {launches}, expected {expected}")
+        raise AssertionError(f"{phase} launched {launches}, expected {expected}")
     losses = history["total_loss"]
     if len(losses) != epochs or not np.isfinite(losses).all():
-        raise AssertionError(f"aim-point path: losses {losses}")
+        raise AssertionError(f"{phase}: losses {losses}")
     motors = scenario.heliostat_groups[0].motor_positions
     moved = float((motors != optimizer.initial_motor_positions_all_groups[0]).double().mean())
     if not (torch.isfinite(motors).all() and moved > 0.5):
-        raise AssertionError(f"aim-point path: motor gradient vanished ({moved} of the motors moved)")
+        raise AssertionError(f"{phase}: motor gradient vanished ({moved} of the motors moved)")
+    if not torch.isfinite(blockings).all() or (row_spacing is not None and not float(blockings.min()) < 1.0):
+        raise AssertionError(f"{phase}: blocking factors {blockings.tolist()}")
     epoch_seconds = [b - a for a, b in zip(epoch_ends, epoch_ends[1:])]
     rays = AIM_HELIOSTATS * AIM_RAYS * 4 * AIM_SURFACE_POINTS[0] * AIM_SURFACE_POINTS[1]
     mean_epoch = sum(epoch_seconds) / len(epoch_seconds)
@@ -920,15 +1294,19 @@ def drive_aim_point(device: torch.device) -> dict:
         max_memory_allocated=torch.cuda.max_memory_allocated(),
         losses=losses,
         blocking_factor_mean=float(blockings.mean()),
+        blocking_factor_min=float(blockings.min()),
         intercept_mean=float(intercepts.mean()),
         motors_moved=moved,
     )
+    field = "" if row_spacing is None else f", rows {row_spacing} m apart"
     _log(
-        f"phase 5 aim point: optimize() with {epochs} epochs (1 warm-up) of {rays} rays, K = {AIM_CANDIDATES}: "
+        f"{phase}: optimize() with {epochs} epochs (1 warm-up) of {rays} rays, "
+        f"{'flat route' if candidates is None else f'K = {candidates}'}{field}: "
         f"losses {losses}, timed epoch seconds {epoch_seconds} (mean {mean_epoch:.6f}), "
         f"{result['rays_per_second']:.6g} rays/s, setup + first epoch {result['first_epoch_and_setup_seconds']:.3f} s, "
         f"optimize() {seconds:.3f} s, max_memory_allocated {result['max_memory_allocated']} B, "
-        f"mean blocking factor {result['blocking_factor_mean']:.6f}, mean intercept {result['intercept_mean']:.6f}, "
+        f"mean blocking factor {result['blocking_factor_mean']:.6f} (least "
+        f"{result['blocking_factor_min']:.6f}), mean intercept {result['intercept_mean']:.6f}, "
         f"motors moved {moved:.4f}, launches {launches}"
     )
     return result
@@ -1007,29 +1385,33 @@ SMALL_AIM = dict(heliostats=48, surface_points=(5, 5), rays=4, bitmap=(64, 64))
 SMALL_AIM_FIELD = dict(row_spacing=DENSE_ROW_SPACING, columns=6, column_spacing=3.5, receiver_height=10.0)
 
 
-def small_aim_point_step(device: torch.device, candidates: int, distortions: np.ndarray, ground_truth=None):
+def small_aim_point_step(device: torch.device, candidates: int | None, distortions: np.ndarray, ground_truth=None):
     """The target's flux, the loss and the motor gradient of the first aim-point
-    epoch on the SMALL_AIM field on ``device``; and the keep flags ``[M, K]`` of
-    the candidates the sigma operator saw."""
+    epoch on the SMALL_AIM field on ``device``; and the keep flags the sigma
+    operator saw: ``[M, K]`` of the candidates, or on the flat route (None)
+    ``[B]`` of the primitives."""
     scenario = aim_point_scenario(
         device, SMALL_AIM["heliostats"], SMALL_AIM["surface_points"], SMALL_AIM["rays"], **SMALL_AIM_FIELD
     )
     scenario.light_sources[0] = FixedDistortions(SMALL_AIM["rays"], *distortions)
     truth = torch.ones(SMALL_AIM["bitmap"][::-1], device=device) if ground_truth is None else ground_truth.to(device)
     optimizer = aim_point_optimizer(scenario, truth, 0, candidates, SMALL_AIM["bitmap"])
-    params, loss_fn, (flux, intercepts, _, _), (inputs, _) = first_epoch(optimizer)
+    params, loss_fn, (flux, intercepts, _, _), captured = first_epoch(optimizer)
+    keep = captured["blocking_sigma"][0][4] if candidates else captured["blocking_sigma_flat"][0][3]
     references = (torch.sum(flux), intercepts)
     zero = torch.zeros((), device=device)
     params[0].requires_grad_(True)
     loss, _ = loss_fn(params, references, (zero, zero, zero))
     loss.backward()
-    return flux.cpu(), loss.item(), params[0].grad.cpu(), inputs[4].cpu()
+    return flux.cpu(), loss.item(), params[0].grad.cpu(), keep.cpu()
 
 
-def check_small_aim_point_against_cpu(device: torch.device) -> dict[int, dict]:
+def check_small_aim_point_against_cpu(device: torch.device) -> dict[int | None, dict]:
     """Phase 7b: the first aim-point epoch on the SMALL_AIM field, ``device`` vs
     CPU, at K = 16 and at K = 32 (the TPU path splits its backward in two above
-    16). At K = 32 some heliostat must keep a candidate in slots 16-31.
+    16), and on the flat route (None). At K = 32 some heliostat must keep a
+    candidate in slots 16-31; on the flat route the cull must keep some
+    primitives and drop others.
 
     The CPU run takes the kernels' plain versions. The tolerances are the
     surface step's: loss rtol 1e-4, flux 1e-4 of its peak, motor gradient
@@ -1044,22 +1426,30 @@ def check_small_aim_point_against_cpu(device: torch.device) -> dict[int, dict]:
     shape = (SMALL_AIM["heliostats"], SMALL_AIM["rays"], points)
     distortions = rng.normal(0.0, 2e-3, (2,) + shape).astype(np.float32)
     results = {}
-    for candidates in (AIM_CANDIDATES, 2 * AIM_CANDIDATES):
+    for candidates in (AIM_CANDIDATES, 2 * AIM_CANDIDATES, None):
+        route = "on the flat route" if candidates is None else f"at K = {candidates}"
         flux_cpu = small_aim_point_step(torch.device("cpu"), candidates, distortions)[0]
         spot = (flux_cpu > 0.05 * flux_cpu.max()).float()
         reset_launch_counts()
         flux_dev, loss_dev, grad_dev, keep_dev = small_aim_point_step(device, candidates, distortions, spot)
         launches = launch_counts()
         flux_cpu, loss_cpu, grad_cpu, keep_cpu = small_aim_point_step(torch.device("cpu"), candidates, distortions, spot)
-        if device.type == "cuda" and not (launches["blocking_sigma_forward"] and launches["blocking_sigma_backward"]):
-            raise AssertionError(f"small aim-point step at K = {candidates}: no sigma kernel launched ({launches})")
-        if not keep_dev.shape[1] == keep_cpu.shape[1] == candidates:
+        names = (("blocking_cull", "blocking_sigma_flat_forward", "blocking_sigma_flat_backward") if candidates is None
+                 else ("blocking_sigma_forward", "blocking_sigma_backward"))
+        if device.type == "cuda" and not all(launches[name] for name in names):
+            raise AssertionError(f"small aim-point step {route}: a blocking kernel did not launch ({launches})")
+        if candidates is None:
+            if not torch.equal(keep_dev, keep_cpu) or not 0 < int(keep_dev.sum()) < keep_dev.numel():
+                raise AssertionError(f"small aim-point step {route}: keep {keep_dev} on {device}, {keep_cpu} on cpu")
+            kept_beyond_16 = 0
+        elif not keep_dev.shape[1] == keep_cpu.shape[1] == candidates:
             raise AssertionError(
                 f"small aim-point step: K = {keep_dev.shape[1]} on {device}, {keep_cpu.shape[1]} on cpu, asked {candidates}"
             )
-        kept_beyond_16 = int(keep_dev[:, AIM_CANDIDATES:].sum())
-        if candidates > AIM_CANDIDATES and not kept_beyond_16 > 0:
-            raise AssertionError(f"small aim-point step at K = {candidates}: no candidate kept in slots 16-{candidates - 1}")
+        else:
+            kept_beyond_16 = int(keep_dev[:, AIM_CANDIDATES:].sum())
+        if candidates is not None and candidates > AIM_CANDIDATES and not kept_beyond_16 > 0:
+            raise AssertionError(f"small aim-point step {route}: no candidate kept in slots 16-{candidates - 1}")
         checks = (
             (abs(loss_dev - loss_cpu), 1e-4 * abs(loss_cpu), "loss"),
             (float((flux_dev - flux_cpu).abs().max()), 1e-4 * float(flux_cpu.abs().max()), "flux"),
@@ -1068,20 +1458,27 @@ def check_small_aim_point_against_cpu(device: torch.device) -> dict[int, dict]:
         for err, limit, what in checks:
             if not err <= limit:
                 raise AssertionError(
-                    f"small aim-point step at K = {candidates}: {what} differs between {device} and cpu: {err} > {limit}"
+                    f"small aim-point step {route}: {what} differs between {device} and cpu: {err} > {limit}"
                 )
         if not float(grad_cpu.abs().max()) > 0:
             raise AssertionError("small aim-point step: zero motor gradient")
         results[candidates] = {what: (err, limit) for err, limit, what in checks}
         results[candidates]["kept_beyond_16"] = kept_beyond_16
+        kept = (f"{int(keep_dev.sum())} of {keep_dev.numel()} primitives kept by the cull" if candidates is None
+                else f"most candidates kept by one heliostat {int(keep_dev.sum(dim=1).max())}, "
+                f"kept in slots 16 and up {kept_beyond_16}")
         _log(
-            f"phase 7b agreement: small aim-point step at K = {candidates} on {device} vs cpu: loss {loss_dev} vs "
-            f"{loss_cpu}; "
+            f"phase 7b agreement: small aim-point step {route} on {device} vs cpu: loss {loss_dev} vs {loss_cpu}; "
             + ", ".join(f"{what} max err {err:.3g} ({err / limit:.3g} of its limit)" for err, limit, what in checks)
-            + f"; most candidates kept by one heliostat {int(keep_dev.sum(dim=1).max())}, "
-            f"kept in slots 16 and up {kept_beyond_16}; launches {launches}"
+            + f"; {kept}; launches {launches}"
         )
     return results
+
+
+# The path whose run gives a kernel's "launches": this slice's main path, the flat
+# aim point (phase 8), for every kernel it runs; the compacted aim point (phase
+# 5) for the compacted sigma kernels.
+MAIN_PATH = {"blocking_sigma_forward": "aim_point", "blocking_sigma_backward": "aim_point"}
 
 
 def main() -> int:
@@ -1118,10 +1515,12 @@ def main() -> int:
     timings = check_splat_kernels(inputs)
     timings.update(check_blocking_kernels(device))
     torch.cuda.empty_cache()
+    timings.update(check_flat_kernels(device))
+    torch.cuda.empty_cache()
     paths = {"surface_step": drive_surface_step(inputs, LAUNCHES_PER_STEP, "phase 4 surface step")}
     del inputs
     torch.cuda.empty_cache()
-    paths["aim_point"] = drive_aim_point(device)
+    paths["aim_point"] = drive_aim_point(device, AIM_CANDIDATES, "phase 5 aim point")
     torch.cuda.empty_cache()
     paths["blocking_step"] = drive_surface_step(
         flagship_inputs(device, blocking=True), LAUNCHES_PER_BLOCKING_STEP, "phase 6 blocking step"
@@ -1129,17 +1528,30 @@ def main() -> int:
     torch.cuda.empty_cache()
     check_small_step_against_cpu(device)
     check_small_aim_point_against_cpu(device)
+    torch.cuda.empty_cache()
+    paths["aim_point_flat"] = drive_aim_point(device, None, "phase 8 flat aim point")
+    torch.cuda.empty_cache()
+    paths["aim_point_flat_dense"] = drive_aim_point(
+        device, None, "phase 8 flat aim point, dense rows", DENSE_ROW_SPACING, DENSE_AIM_EPOCHS
+    )
+    torch.cuda.empty_cache()
+    paths["blocking_step_flat"] = drive_surface_step(
+        flagship_inputs(device, blocking=True, candidates=None), LAUNCHES_PER_FLAT_BLOCKING_STEP,
+        "phase 9 flat blocking step",
+    )
 
+    case_keys = {key for _, key, *_ in SIGMA_CASES[1:] + FLAT_CASES[1:]} | {"kept_primitives"}
     kernels = []
     for kernel_name, t in timings.items():
+        main_path = MAIN_PATH.get(kernel_name, "aim_point_flat")
         kernels.append(
             {
                 "name": kernel_name,
                 "route": "cuda",
                 "source": f"artist_tpu_torch/kernels/csrc/{kernel_name.split('_')[0]}.cu",
                 "replaces": t["replaces"],
-                # This slice's main path is the aim-point optimizer (phase 5).
-                "launches": paths["aim_point"]["launches"][kernel_name],
+                "main_path": main_path,
+                "launches": paths[main_path]["launches"][kernel_name],
                 "launches_by_path": {path: r["launches"][kernel_name] for path, r in paths.items()},
                 "max_abs_err": t["max_abs_err"],
                 "ms": t["ms"],
@@ -1147,7 +1559,7 @@ def main() -> int:
                 "bound_ms": t["bound"][0],
                 "bound_by": t["bound"][1],
                 "library_ms": t["library_ms"],
-                **{key: t[key] for _, key, *_ in SIGMA_CASES[1:] if key in t},
+                **{key: t[key] for key in sorted(case_keys) if key in t},
             }
         )
     _log(json.dumps({"kernels": kernels}))

@@ -9,9 +9,12 @@ drives it:
   50 x 50 points per facet x 4 facets, 32 rays per point, 256 x 256 bitmaps,
   ray chunks of 4, Adam on the NURBS control points);
 - ``blocking_step``: the same step with field-wide blocking on (K = 16);
+- ``blocking_step_flat``: the same on the flat blocking route (every
+  primitive, with the AABB cull);
 - ``aim_point``: one epoch of the aim-point optimizer at ``bench.py``'s size
   (100 heliostats, 8 rays per point, 8 M rays, blocking with K = 16): the
-  loss with its three penalty terms, its backward and the Adam update.
+  loss with its three penalty terms, its backward and the Adam update;
+- ``aim_point_flat``: the same epoch on the flat blocking route.
 
 It runs one warm-up step, times ``--steps`` steps with the profiler off (host
 clock around synchronised steps), then profiles ``--steps`` more and prints:
@@ -41,11 +44,15 @@ import torch
 import chip_smoke
 from artist_tpu_torch.kernels.build import build_all
 
-PORT_KERNELS = ("splat_forward_kernel", "splat_backward_kernel", "sigma_forward_kernel", "sigma_backward_kernel")
+PORT_KERNELS = (
+    "splat_forward_kernel", "splat_backward_kernel", "sigma_forward_kernel", "sigma_backward_kernel",
+    "blocking_cull_kernel", "sigma_flat_forward_kernel", "sigma_flat_backward_kernel", "sigma_flat_reduce_kernel",
+)
+PATHS = ("surface_step", "blocking_step", "blocking_step_flat", "aim_point", "aim_point_flat")
 
 
-def surface_step(device: torch.device, blocking: bool):
-    inputs = chip_smoke.flagship_inputs(device, blocking=blocking)
+def surface_step(device: torch.device, blocking: bool, candidates: int | None):
+    inputs = chip_smoke.flagship_inputs(device, blocking=blocking, candidates=candidates)
     control_points = inputs.scenario.heliostat_groups[0].nurbs_control_points.clone().requires_grad_(True)
     optimizer = torch.optim.Adam([control_points], lr=chip_smoke.LEARNING_RATE)
 
@@ -57,13 +64,12 @@ def surface_step(device: torch.device, blocking: bool):
     return step
 
 
-def aim_point_epoch(device: torch.device):
+def aim_point_epoch(device: torch.device, candidates: int | None):
     scenario = chip_smoke.aim_point_scenario(
         device, chip_smoke.AIM_HELIOSTATS, chip_smoke.AIM_SURFACE_POINTS, chip_smoke.AIM_RAYS
     )
     aim_point = chip_smoke.aim_point_optimizer(
-        scenario, chip_smoke.aim_point_ground_truth(chip_smoke.BITMAP, device), 0,
-        chip_smoke.AIM_CANDIDATES, chip_smoke.BITMAP,
+        scenario, chip_smoke.aim_point_ground_truth(chip_smoke.BITMAP, device), 0, candidates, chip_smoke.BITMAP,
     )
     params, forward, loss_fn = aim_point.objective("kl_divergence")
     with torch.no_grad():
@@ -105,7 +111,7 @@ def _union_us(intervals: list[tuple[float, float]]) -> float:
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--path", choices=("surface_step", "blocking_step", "aim_point"), default="surface_step")
+    parser.add_argument("--path", choices=PATHS, default="surface_step")
     parser.add_argument("--steps", type=int, default=3)
     parser.add_argument("--out", type=pathlib.Path, default=pathlib.Path("profile_out"))
     args = parser.parse_args()
@@ -121,10 +127,11 @@ def main() -> int:
     ).stdout.strip().splitlines()[0]
     build_all()
 
-    if args.path == "aim_point":
-        step = aim_point_epoch(device)
+    candidates = None if args.path.endswith("_flat") else chip_smoke.AIM_CANDIDATES
+    if args.path.startswith("aim_point"):
+        step = aim_point_epoch(device, candidates)
     else:
-        step = surface_step(device, blocking=args.path == "blocking_step")
+        step = surface_step(device, args.path.startswith("blocking_step"), candidates)
     _timed_steps(1, step)  # warm-up
     plain_seconds = _timed_steps(args.steps, step)
 

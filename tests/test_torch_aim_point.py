@@ -17,7 +17,11 @@ port follows, in interpret mode). Tolerances, each with its reason:
 - the optimizer over two epochs: JAX's optimizer takes its dense blocking
   route on the CPU, which culls per primitive instead of per ray; the test
   measures that route's gap to the compacted one on the epoch-0 loss and
-  allows three times it, plus the loss's ``rtol = 1e-4`` for rounding.
+  allows three times it, plus the loss's ``rtol = 1e-4`` for rounding. On
+  the flat route (``blocking_candidates=None``) the dense route has the
+  port's semantics, and the gap measured is the one between JAX's dense and
+  flat Pallas routes (sigmoid against one-divide form); the blocking
+  factors, ray counts over the same total, agree to ``rtol = 1e-6``.
 """
 
 import dataclasses
@@ -108,7 +112,7 @@ def _jax_distortions(jax_scenario):
     return tuple(np.asarray(x) for x in jax_scenario.light_sources[0].get_distortions(key, points, HELIOSTATS))
 
 
-def _jax_objective(jax_scenario, distortions, ground_truth, method):
+def _jax_objective(jax_scenario, distortions, ground_truth, method, candidates=16):
     """The aim-point loss built from the JAX package's public functions.
 
     Returns ``forward(params) -> (flux, intercepts)`` and ``loss(params,
@@ -130,7 +134,7 @@ def _jax_objective(jax_scenario, distortions, ground_truth, method):
     )
     magnitude = jax_render.compute_ray_magnitude(DNI, group.canting, group.surface_points.shape[1], RAYS)
     config = jax_render.RenderConfig(
-        bitmap_resolution=BITMAP, blocking_active=True, blocking_method=method, blocking_candidates=16
+        bitmap_resolution=BITMAP, blocking_active=True, blocking_method=method, blocking_candidates=candidates
     )
     du, de = (jnp.asarray(x) for x in distortions)
     max_density = float(np.prod(np.asarray(tower.planar_dimensions[0])) / np.prod(BITMAP) * MAX_FLUX_DENSITY)
@@ -328,6 +332,53 @@ def test_aim_point_optimizer_two_epochs_against_jax(scene):
     )
 
 
+def test_aim_point_optimizer_flat_route_against_jax(scene):
+    """``blocking_candidates=None`` in both packages: the flat route over every primitive
+    with the AABB cull, two epochs on the dense-row field."""
+    distortions, spot = scene
+    zeros = jnp.zeros((HELIOSTATS, 2))
+    epoch0 = {}
+    for method in ("xla", "pallas"):
+        forward, loss = _jax_objective(_jax_scenario(), distortions, spot, method, candidates=None)
+        flux, intercepts = forward(zeros)
+        epoch0[method] = float(loss(zeros, (jnp.sum(flux), intercepts), (0.0, 0.0, 0.0)))
+    gap = abs(epoch0["xla"] - epoch0["pallas"])
+
+    jax_scenario = _jax_scenario()
+    scenario = _port_scenario(jax_scenario, distortions)
+    kwargs = dict(
+        optimization_configuration=_configuration(1), incident_ray_direction=[0.0, 1.0, 0.0, 0.0],
+        target_area_index=0, ground_truth=spot, dni=DNI, bitmap_resolution=BITMAP, seed=SEED,
+        blocking_candidates=None,
+    )
+    theirs = JaxAimPointOptimizer(scenario=jax_scenario, **kwargs)
+    _, jax_history, _, _, jax_blockings = theirs.optimize("kl_divergence")
+    ours = AimPointOptimizer(scenario=scenario, **kwargs)
+    assert ours.blocking_candidates is None
+    final_loss, history, _, _, blockings = ours.optimize("kl_divergence")
+
+    assert len(history["total_loss"]) == 2 and final_loss == history["total_loss"][-1]
+    for key in ("total_loss", "flux_loss"):
+        np.testing.assert_allclose(history[key], jax_history[key], rtol=1e-4, atol=3 * gap, err_msg=key)
+    np.testing.assert_allclose(history["total_loss"][0], epoch0["pallas"], rtol=1e-4)
+    assert float(blockings.min()) < 1.0  # the scene blocks
+    np.testing.assert_allclose(blockings.numpy(), np.asarray(jax_blockings), rtol=1e-6, atol=0)  # the same ray counts
+    # The written-back motors, through their tanh parameters, to 1% of one Adam step.
+    learning_rate = 1e-3
+
+    def tanh_parameters(optimizer, motors):
+        initial = np.asarray(optimizer.initial_motor_positions_all_groups[0], np.float64)
+        scale = np.asarray(optimizer.scales_all_groups[0], np.float64)
+        return np.arctanh((np.asarray(motors, np.float64) - initial) / scale)
+
+    jax_parameters = tanh_parameters(theirs, jax_scenario.heliostat_groups[0].motor_positions)
+    assert np.abs(jax_parameters).min() > 0.1 * learning_rate
+    np.testing.assert_allclose(
+        tanh_parameters(ours, scenario.heliostat_groups[0].motor_positions.numpy()), jax_parameters,
+        rtol=0, atol=1e-2 * learning_rate,
+    )
+
+
 @pytest.mark.parametrize("option", ["distributed_setup", "mesh", "checkpoint_dir", "heliostat_chunk"])
 def test_aim_point_optimizer_refuses_what_is_not_ported(option):
     scenario = _port_scenario(_jax_scenario(), (np.zeros(1), np.zeros(1)))
@@ -340,6 +391,7 @@ def test_aim_point_optimizer_refuses_what_is_not_ported(option):
 
 
 def test_chip_smoke_aim_point_agreement_runs_on_the_cpu():
-    """Rehearsal of chip_smoke.py's aim-point agreement phase, CPU against CPU, K = 16 and 32."""
+    """Rehearsal of chip_smoke.py's aim-point agreement phase, CPU against CPU, K = 16 and 32
+    and the flat route."""
     results = chip_smoke.check_small_aim_point_against_cpu(torch.device("cpu"))
-    assert sorted(results) == [16, 32]
+    assert list(results) == [16, 32, None]

@@ -1,8 +1,8 @@
 """Field-wide blocking: the port against the JAX package's candidate-compacted Pallas path.
 
 The JAX side runs ``blocking_method="pallas"`` (the compacted route, in
-interpret mode on the CPU); its CPU default is a dense formulation without
-the per-ray behind-target gate, which the port does not follow. The port's
+interpret mode on the CPU); its CPU default is the flat route, which
+``test_torch_blocking_flat.py`` holds the port's flat route against. The port's
 side runs the plain PyTorch versions of the CUDA kernels, because every
 tensor here lies on the CPU. All inputs come from numpy seeds.
 
@@ -336,18 +336,10 @@ def test_checkpointed_chunks_save_sigma(dense_rows, monkeypatch):
     assert float(leaf.grad.abs().max()) > 0
 
 
-@pytest.mark.parametrize("unported", ["flat", "no_target_distances", "lbvh", "primitive_chunk"])
+@pytest.mark.parametrize("unported", ["lbvh"])
 def test_soft_ray_blocking_mask_refuses_what_is_not_ported(grazing_scene, unported):
     (origins, directions, corners, spans, normals, t_target), own = grazing_scene
-    kwargs = dict(intersection_distances_target=torch.tensor(t_target), max_candidates=16)
-    if unported == "flat":
-        kwargs["max_candidates"] = None
-    elif unported == "no_target_distances":
-        kwargs["intersection_distances_target"] = None
-    elif unported == "lbvh":
-        kwargs["cull_method"] = "lbvh"
-    else:
-        kwargs["primitive_chunk"] = 1
+    kwargs = dict(intersection_distances_target=torch.tensor(t_target), max_candidates=16, cull_method=unported)
     with pytest.raises(NotImplementedError):
         blocking.soft_ray_blocking_mask(
             *(torch.tensor(x) for x in (origins, directions, corners, spans, normals)), **kwargs

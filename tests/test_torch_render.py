@@ -221,15 +221,12 @@ def test_bitmaps_per_target_ray_magnitude_and_losses(scenarios):
         )
 
 
-@pytest.mark.parametrize("unported", ["blocking_flat", "cylinder", "chunk"])
+@pytest.mark.parametrize("unported", ["cylinder", "chunk"])
 def test_trace_rays_refuses_what_is_not_ported(scenarios, unported):
     _, scenario, du, de = scenarios
     tower = scenario.solar_tower
     config = render.RenderConfig(bitmap_resolution=BITMAP)
-    if unported == "blocking_flat":
-        # Blocking over all primitives (no candidate compaction) is not ported yet.
-        config = render.RenderConfig(bitmap_resolution=BITMAP, blocking_active=True, blocking_candidates=None)
-    elif unported == "cylinder":
+    if unported == "cylinder":
         tower = dataclasses.replace(tower, cylindrical_centers=torch.zeros(1, 4))
     else:
         config = render.RenderConfig(bitmap_resolution=BITMAP, ray_chunk=3)
