@@ -21,6 +21,10 @@ fallback from one to the other.
 
 ``LAUNCHES`` counts kernel launches (never plain-version calls), so a run can
 show that its main path went through the kernels.
+
+:func:`splat_windowed` is the counterpart of ``bilinear_splat_windowed``: the
+same kernels at a per-heliostat window's size, placed into the map, dropping
+the rays outside the window (:func:`windowed_drop_fraction`).
 """
 
 from __future__ import annotations
@@ -82,6 +86,11 @@ def _check_rays(e: torch.Tensor, u: torch.Tensor, w: torch.Tensor) -> None:
             raise TypeError(f"the plain splat takes float32 or float64, got {e.dtype}")
     else:
         raise ValueError(f"no splat for device type {e.device.type!r}")
+
+
+def _check_bitmap(height: int, width: int) -> None:
+    if height < 2 or width < 2:
+        raise ValueError(f"bitmap must be at least 2 x 2, got {height} x {width}")
 
 
 def _launch_args(e: torch.Tensor, height: int, width: int) -> list:
@@ -194,8 +203,7 @@ class BilinearSplat(torch.autograd.Function):
     @staticmethod
     def forward(ctx, e, u, w, height: int, width: int):
         _check_rays(e, u, w)
-        if height < 2 or width < 2:
-            raise ValueError(f"bitmap must be at least 2 x 2, got {height} x {width}")
+        _check_bitmap(height, width)
         ctx.save_for_backward(e, u, w)
         ctx.bitmap_shape = (height, width)
         if e.is_cuda:
@@ -228,3 +236,72 @@ def splat(
     """
     width, height = int(bitmap_resolution[0]), int(bitmap_resolution[1])
     return BilinearSplat.apply(bitmap_e, bitmap_u, intensities, height, width)
+
+
+def _window_offsets(bitmap_e, bitmap_u, intensities, resolution, window):
+    """Per-heliostat window origins ``[M]`` (int64, no gradient, clamped inside):
+    the intensity-weighted spot centre less half the window."""
+    width, height = resolution
+    w, e, u = intensities.detach(), bitmap_e.detach(), bitmap_u.detach()
+    total = torch.sum(w, dim=1) + 1e-12
+    center_e = torch.sum(e * w, dim=1) / total
+    center_u = torch.sum(u * w, dim=1) / total
+    offset_e = torch.clamp(torch.floor(center_e - window / 2), 0, width - window).long()
+    offset_u = torch.clamp(torch.floor(center_u - window / 2), 0, height - window).long()
+    return offset_e, offset_u
+
+
+def splat_windowed(
+    bitmap_e: torch.Tensor,
+    bitmap_u: torch.Tensor,
+    intensities: torch.Tensor,
+    bitmap_resolution: tuple[int, int],
+    window: int,
+) -> torch.Tensor:
+    """Windowed splat, ``[M, N]`` rays -> ``[M, height_u, width_e]``: the counterpart
+    of ``bilinear_splat_windowed``.
+
+    Each heliostat splats into a ``window`` x ``window`` square at its
+    intensity-weighted spot centre (no gradient through the origin), through
+    :class:`BilinearSplat` on local coordinates, and the square is placed into
+    a zero map. Lossy by design: rays outside the window are dropped
+    (:func:`windowed_drop_fraction` says how much). ``window >= max(W, H)`` is
+    the full splat.
+    """
+    width, height = int(bitmap_resolution[0]), int(bitmap_resolution[1])
+    window = int(window)
+    if window >= max(width, height):
+        return splat(bitmap_e, bitmap_u, intensities, bitmap_resolution)
+    offset_e, offset_u = _window_offsets(bitmap_e, bitmap_u, intensities, (width, height), window)
+    local_e = bitmap_e - offset_e[:, None].to(bitmap_e.dtype)
+    local_u = bitmap_u - offset_u[:, None].to(bitmap_u.dtype)
+    windows = splat(local_e, local_u, intensities, (window, window))  # [M, window, window]
+    num = windows.shape[0]
+    span = torch.arange(window, device=windows.device)
+    rows = (torch.arange(num, device=windows.device) * height + offset_u)[:, None, None] + span[None, :, None]
+    pixels = rows * width + offset_e[:, None, None] + span[None, None, :]
+    out = torch.zeros(num * height * width, dtype=windows.dtype, device=windows.device)
+    return out.index_add(0, pixels.reshape(-1), windows.reshape(-1)).reshape(num, height, width)
+
+
+def windowed_drop_fraction(
+    bitmap_e: torch.Tensor,
+    bitmap_u: torch.Tensor,
+    intensities: torch.Tensor,
+    bitmap_resolution: tuple[int, int],
+    window: int,
+) -> torch.Tensor:
+    """The share of the in-bitmap intensity that :func:`splat_windowed` drops (0-d)."""
+    width, height = int(bitmap_resolution[0]), int(bitmap_resolution[1])
+    offset_e, offset_u = _window_offsets(bitmap_e, bitmap_u, intensities, (width, height), int(window))
+
+    def in_bounds(e, u, w_limit, h_limit):
+        lower_e, lower_u = torch.floor(e), torch.floor(u)
+        return (lower_e >= 0) & (lower_e <= w_limit - 2) & (lower_u >= 0) & (lower_u <= h_limit - 2)
+
+    full = in_bounds(bitmap_e, bitmap_u, width, height)
+    local = in_bounds(bitmap_e - offset_e[:, None], bitmap_u - offset_u[:, None], window, window)
+    zero = torch.zeros_like(intensities)
+    w = torch.where(full, intensities, zero)
+    kept = torch.where(local, w, zero)
+    return 1.0 - torch.sum(kept) / (torch.sum(w) + 1e-12)

@@ -13,7 +13,9 @@ run twice). The distortion scatter uses the fused component-wise rotation
 and never builds ``[M, R, P, 4, 4]`` rotation tensors.
 
 Kernel launches per checkpointed ray chunk, forward and backward: two splat
-forwards (the recompute runs it again) and one splat backward; with
+forwards (the recompute runs it again) and one splat backward, of the
+dynamic-window kernels with ``splat_block_window`` set and of the full splat
+otherwise (``splat_window`` wraps the full splat at window size); with
 blocking on the compacted route (``blocking_candidates`` set) one sigma
 forward and one sigma backward; on the flat route
 (``blocking_candidates=None``) one cull, one flat sigma forward and one
@@ -41,7 +43,7 @@ from artist_tpu_torch.field.solar_tower import SolarTower
 from artist_tpu_torch.geometry.transforms import apply_distortion_rotation
 from artist_tpu_torch.raytracing import geometry
 from artist_tpu_torch.raytracing.blocking import soft_ray_blocking_mask
-from artist_tpu_torch.raytracing.splatting import bilinear_splat
+from artist_tpu_torch.raytracing.splatting import bilinear_splat, point_tile_order
 
 DEFAULT_MIRROR_REFLECTIVITY = 0.935
 
@@ -57,6 +59,20 @@ class RenderConfig:
     # the backward instead of storing its per-ray tensors: O(chunk) instead of
     # O(rays) activation memory.
     ray_chunk: int | None = None
+    # Per-heliostat splat window (pixels) at the intensity-weighted spot
+    # centre; rays outside it are dropped. None = the full-bitmap splat.
+    splat_window: int | None = None
+    # Exact per-ray-block row window (pixels, a multiple of 8): each block of
+    # rays splats through a window at its own deposit offset, a block that
+    # exceeds it into the full map. Rays are reordered point-major over
+    # spatial point tiles so blocks have compact spans. Takes precedence over
+    # splat_window. None = the full-bitmap splat.
+    splat_block_window: int | None = None
+    # Spatial tile edge for the point reorder (splat_block_window only).
+    splat_point_tile: int = 10
+    # Surface-point grid layout (points_u, points_v, facets) for the tile
+    # reorder; None skips the permutation (plain point-major transpose).
+    splat_point_layout: tuple[int, int, int] | None = None
     # Field-wide soft blocking; needs the blocking primitives.
     blocking_active: bool = False
     # Candidate blockers per heliostat (K) of the compacted blocking route.
@@ -149,6 +165,23 @@ def _save_blocking_sigma(ctx, op, *args, **kwargs) -> CheckpointPolicy:
     return CheckpointPolicy.PREFER_RECOMPUTE
 
 
+def point_permutation(config: RenderConfig, device) -> torch.Tensor | None:
+    """The block-window route's order of the surface points (``point_tile_order``
+    of ``config.splat_point_layout``), or None without a layout."""
+    if config.splat_point_layout is None:
+        return None
+    points_u, points_v, facets = config.splat_point_layout
+    order = point_tile_order(points_u, points_v, facets, config.splat_point_tile)
+    return torch.tensor(order, dtype=torch.long, device=device)
+
+
+def point_major(x: torch.Tensor, permutation: torch.Tensor | None) -> torch.Tensor:
+    """A ray stream ``[M, r, P]`` -> ``[M, P, r]``, its points in ``permutation``'s order:
+    the block-window route's layout, where consecutive rays share compact spans."""
+    x = x.transpose(1, 2)
+    return x.contiguous() if permutation is None else x.index_select(1, permutation)
+
+
 def trace_rays(
     tower: SolarTower,
     aligned_surface_points: torch.Tensor,
@@ -203,6 +236,7 @@ def trace_rays(
     preferred = geometry.reflect(
         incident_ray_directions[:, None, :], aligned_surface_normals
     )  # [M, P, 4]
+    permutation = point_permutation(config, preferred.device)
 
     def trace_chunk(du: torch.Tensor, de: torch.Tensor):
         rays = ray_splat_inputs(
@@ -217,13 +251,24 @@ def trace_rays(
             blocking_primitives,
             ray_primitive_indices,
         )
-        partial_flux = bilinear_splat(
-            rays.bitmap_e,
-            rays.bitmap_u,
-            rays.final_intensities,
-            config.bitmap_resolution,
-            flip_up_down=False,
-        )
+        if config.splat_block_window is not None:
+            partial_flux = bilinear_splat(
+                point_major(rays.bitmap_e, permutation),
+                point_major(rays.bitmap_u, permutation),
+                point_major(rays.final_intensities, permutation),
+                config.bitmap_resolution,
+                flip_up_down=False,
+                block_window=config.splat_block_window,
+            )
+        else:
+            partial_flux = bilinear_splat(
+                rays.bitmap_e,
+                rays.bitmap_u,
+                rays.final_intensities,
+                config.bitmap_resolution,
+                flip_up_down=False,
+                window=config.splat_window,
+            )
         on_target_count = torch.sum(rays.intensities > 0, dim=(1, 2))
         intercept_count = torch.sum(rays.final_intensities > 0, dim=(1, 2))
         if rays.blocked is None:

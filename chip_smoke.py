@@ -44,7 +44,20 @@ exits non-zero without them. It imports only ``torch``, ``numpy`` and the
    with the AABB cull, launch counts asserted; then one warm-up and one
    timed epoch of it on the field with its rows 3 m apart, where the cull
    keeps most primitives and some blocking factor must fall below 1;
-9. flat blocking step: the blocking step of phase 6 on the flat route.
+9. flat blocking step: the blocking step of phase 6 on the flat route;
+10. block-window step (this slice's main path): the surface step of phase 4
+    with ``splat_block_window=96`` on rays reordered point-major over 10 x 10
+    point tiles (``bench.py``'s ``BENCH_SPLAT_BLOCK_WINDOW`` configuration),
+    its first loss equal to phase 4's;
+11. the splat-formulation tool (``artist_tpu_torch.tools.splat_formulation_bench``)
+    at its full shape (32 M rays).
+
+Phase 3 also holds the dynamic-window kernels (3d: on the block-window
+step's first chunk, reordered as that step reorders it, on rays that force
+fallback blocks and on the edge cases; the kernel's count of blocks that fit
+their window equal to the plain windows' count) and the formulation tool's
+kernels (3e); phase 7 also checks a small block-window step and a small
+windowed step (7c).
 
 Each driven path sets every launch count to 0 just before it and reads them
 just after. Then one JSON line of per-kernel numbers and, last, the
@@ -69,6 +82,7 @@ REPO = pathlib.Path(__file__).resolve().parent
 sys.path.insert(0, str(REPO))
 
 import artist_tpu_torch  # noqa: E402
+from artist_tpu_torch.kernels import splat_scatter, splat_window  # noqa: E402
 from artist_tpu_torch.field import heliostat_group as hg  # noqa: E402
 from artist_tpu_torch.field.solar_tower import get_centers_of_target_areas  # noqa: E402
 from artist_tpu_torch.flux.bitmap import trapezoid_distribution  # noqa: E402
@@ -87,8 +101,10 @@ from artist_tpu_torch.optim.aim_point_optimizer import AimPointOptimizer  # noqa
 from artist_tpu_torch.optim.losses import kl_divergence_loss  # noqa: E402
 from artist_tpu_torch.raytracing import geometry  # noqa: E402
 from artist_tpu_torch.raytracing.blocking import create_blocking_primitives_rectangles_by_index  # noqa: E402
-from artist_tpu_torch.raytracing.render import RenderConfig, ray_splat_inputs, trace_rays  # noqa: E402
+from artist_tpu_torch.raytracing.render import RenderConfig, point_permutation, ray_splat_inputs, trace_rays  # noqa: E402
+from artist_tpu_torch.raytracing.render import point_major as render_point_major  # noqa: E402
 from artist_tpu_torch.scenario.synthetic import make_synthetic_scenario  # noqa: E402
+from artist_tpu_torch.tools import splat_formulation_bench  # noqa: E402
 from artist_tpu_torch.util import constants  # noqa: E402
 
 # The flagship configuration of bench.py's differentiable step.
@@ -104,7 +120,19 @@ LEARNING_RATE = 1e-4
 KERNELS = (
     "splat_forward", "splat_backward", "blocking_sigma_forward", "blocking_sigma_backward",
     "blocking_cull", "blocking_sigma_flat_forward", "blocking_sigma_flat_backward",
+    "splat_dynamic_window_forward", "splat_dynamic_window_backward", "splat_window_2d_forward",
+    "splat_cluster_forward",
 )
+# The source of each kernel, under artist_tpu_torch/kernels/csrc/.
+SOURCES = {
+    **dict.fromkeys(("splat_forward", "splat_backward"), "splat.cu"),
+    **dict.fromkeys(KERNELS[2:7], "blocking.cu"),
+    **dict.fromkeys(KERNELS[7:10], "splat_window.cu"),
+    "splat_cluster_forward": "splat_scatter.cu",
+}
+# The block-window step: bench.py's flagship step with BENCH_SPLAT_BLOCK_WINDOW=96,
+# whose rays are reordered point-major over 10 x 10 tiles of each facet's points.
+BLOCK_WINDOW = dict(splat_block_window=96, splat_point_layout=(50, 50, 4), splat_point_tile=10)
 
 
 def launches(**counts: int) -> dict[str, int]:
@@ -127,6 +155,10 @@ LAUNCHES_PER_BLOCKING_STEP = launches(
 LAUNCHES_PER_FLAT_BLOCKING_STEP = launches(
     **SPLAT_PER_STEP, blocking_cull=CHUNKS, blocking_sigma_flat_forward=CHUNKS,
     blocking_sigma_flat_backward=CHUNKS,
+)
+# The block-window step runs the dynamic-window pair in place of the full splat's.
+LAUNCHES_PER_BLOCK_WINDOW_STEP = launches(
+    splat_dynamic_window_forward=2 * CHUNKS, splat_dynamic_window_backward=CHUNKS
 )
 
 # The aim-point optimizer as bench.py:_bench_aim_point configures it.
@@ -347,8 +379,9 @@ def surface_loss(control_points: torch.Tensor, inputs: StepInputs) -> torch.Tens
 
 
 def flagship_inputs(
-    device: torch.device, blocking: bool = False, candidates: int | None = AIM_CANDIDATES
+    device: torch.device, blocking: bool = False, candidates: int | None = AIM_CANDIDATES, **splat_options
 ) -> StepInputs:
+    """The flagship step's inputs; ``splat_options`` (``BLOCK_WINDOW``) go into its RenderConfig."""
     scenario = make_synthetic_scenario(
         number_of_heliostats=HELIOSTATS,
         number_of_surface_points_per_facet=SURFACE_POINTS,
@@ -360,13 +393,16 @@ def flagship_inputs(
     distortions_u, distortions_e = scenario.light_sources[0].get_distortions(
         generator, group.surface_points.shape[1], group.number_of_heliostats
     )
-    return step_inputs(
+    inputs = step_inputs(
         scenario, distortions_u, distortions_e, SURFACE_POINTS, BITMAP, RAY_CHUNK, blocking, candidates
     )
+    return dataclasses.replace(inputs, config=dataclasses.replace(inputs.config, **splat_options))
 
 
-def first_chunk_rays(inputs: StepInputs):
-    """The splat's inputs in the main path's first ray chunk: ``[M, chunk * P]`` each."""
+def first_chunk_rays(inputs: StepInputs, point_major: bool = False):
+    """The splat's inputs in the main path's first ray chunk: ``[M, chunk * P]`` each,
+    ray-major as the full splat takes them or, with ``point_major``, in the
+    block-window route's order (points outer, in tile order with a layout)."""
     group = inputs.scenario.heliostat_groups[0]
     chunk = inputs.config.ray_chunk
     with torch.no_grad():
@@ -383,6 +419,9 @@ def first_chunk_rays(inputs: StepInputs):
             inputs.config,
         )
     e, u, w = rays.bitmap_e, rays.bitmap_u, rays.final_intensities
+    if point_major:
+        permutation = point_permutation(inputs.config, e.device)
+        e, u, w = (render_point_major(x, permutation) for x in (e, u, w))
     num = e.shape[0]
     return tuple(x.reshape(num, -1).contiguous() for x in (e, u, w))
 
@@ -456,6 +495,83 @@ def _max_abs_err(a: torch.Tensor, b: torch.Tensor) -> float:
     return float(torch.max(torch.abs(a - b)))
 
 
+def check_forward(name: str, kernel: torch.Tensor, plain: torch.Tensor, rays, height: int, width: int):
+    """A splat forward kernel's bitmaps against its plain version's, each pixel within
+    the rounding bound of two summation orders of its deposits (the tolerance
+    note above). Returns (max |kernel - plain|, the worst share of the bound)."""
+    _, taps = _valid_taps(rays[0], rays[1], height, width)
+    deposits = torch.bincount(taps, minlength=plain.numel()).reshape(plain.shape)
+    magnitude = splat_forward_plain(rays[0], rays[1], rays[2].abs(), height, width)
+    limit = 2.01 * UNIT_ROUNDOFF * (deposits - 1).clamp(min=0) * magnitude
+    difference = (kernel - plain).abs()
+    if not bool((difference <= limit).all()):
+        worst = int(torch.argmax(difference - limit))
+        raise AssertionError(
+            f"{name}: pixel {worst} differs by {float(difference.flatten()[worst])} "
+            f"> {float(limit.flatten()[worst])} ({int(deposits.flatten()[worst])} deposits)"
+        )
+    return float(difference.max()), float((difference / limit.clamp(min=1e-38)).max())
+
+
+def check_backward(name: str, kernel_grads, plain_grads, w: torch.Tensor, cotangent: torch.Tensor):
+    """A splat backward kernel's (de, du, dw) against its plain version's, within
+    BACKWARD_TOLERANCE. Returns (the three max |kernel - plain|, the worst share)."""
+    g_max = float(cotangent.abs().max())
+    w_max = float(w.abs().max())
+    errors, worst_share = [], 0.0
+    for what, k, p, scale in zip(("de", "du", "dw"), kernel_grads, plain_grads, (g_max * w_max, g_max * w_max, g_max)):
+        err = _max_abs_err(k, p)
+        if not err <= BACKWARD_TOLERANCE * scale:
+            raise AssertionError(f"{name} {what}: max |kernel - plain| {err} > {BACKWARD_TOLERANCE * scale}")
+        errors.append(err)
+        worst_share = max(worst_share, err / (BACKWARD_TOLERANCE * scale))
+    return errors, worst_share
+
+
+def check_edge_gradients(name: str, grads, invalid: list[int], zero_weight: list[int]) -> None:
+    """No gradient on rays outside the strict bounds; dw on zero-weight in-bounds rays."""
+    de, du, dw = grads
+    if not all(bool((x[:, invalid] == 0).all()) for x in (de, du, dw)):
+        raise AssertionError(f"{name}: gradient on a ray outside the strict bounds")
+    if not bool((dw[:, zero_weight] != 0).all()):
+        raise AssertionError(f"{name}: zero-weight in-bounds ray lost its dw")
+
+
+def splat_work(e: torch.Tensor, u: torch.Tensor, w: torch.Tensor, height: int, width: int) -> dict:
+    """What a splat of these rays must do: the valid rays' taps and deposits (the
+    ``index_add_`` yardstick's inputs), and the card's bounds for the forward and the
+    backward (each input read once, each output written once, or the operations)."""
+    num, rays_per_map = e.shape
+    valid, taps = _valid_taps(e, u, height, width)
+    num_valid = int(valid.sum())
+    weights = torch.where(valid, w, torch.zeros_like(w))
+    fe, fu = e - torch.floor(e), u - torch.floor(u)
+    values = torch.cat(
+        [weights * (1 - fu) * (1 - fe), weights * (1 - fu) * fe, weights * fu * (1 - fe), weights * fu * fe],
+        dim=1,
+    )[valid.repeat(1, 4)]
+    touched = int(torch.unique(taps).numel())
+    rays_total = num * rays_per_map
+    return dict(
+        taps=taps,
+        values=values,
+        valid=num_valid,
+        touched=touched,
+        # Forward: e and u 8 per ray, w 4 per valid ray read, the maps written.
+        forward_bound=bound_ms(8 * rays_total + 4 * num_valid + 4 * num * height * width, FORWARD_FLOPS_PER_RAY * num_valid),
+        # Backward: e and u 8 per ray, w 4 per valid ray, g 4 per touched pixel read; 12 per ray written.
+        backward_bound=bound_ms(
+            8 * rays_total + 4 * num_valid + 4 * touched + 12 * rays_total, BACKWARD_FLOPS_PER_RAY * num_valid
+        ),
+    )
+
+
+def index_add_ms(work: dict, num: int, height: int, width: int) -> float:
+    """The yardstick of a splat forward: one ``index_add_`` of its taps."""
+    out = torch.zeros(num * height * width, device=work["values"].device)
+    return event_ms(lambda: out.index_add_(0, work["taps"], work["values"]))
+
+
 def check_splat_kernels(inputs: StepInputs) -> dict[str, dict]:
     """Phase 3a: each splat kernel against its plain version, then timed."""
     width, height = BITMAP
@@ -475,65 +591,28 @@ def check_splat_kernels(inputs: StepInputs) -> dict[str, dict]:
     for rays, cotangent in ((e, u, w), g), (edge, edge_g):
         kernel = splat_forward_cuda(*rays, height, width)
         plain = splat_forward_plain(*rays, height, width)
-        _, taps = _valid_taps(rays[0], rays[1], height, width)
-        deposits = torch.bincount(taps, minlength=plain.numel()).reshape(plain.shape)
-        magnitude = splat_forward_plain(rays[0], rays[1], rays[2].abs(), height, width)
-        limit = 2.01 * UNIT_ROUNDOFF * (deposits - 1).clamp(min=0) * magnitude
-        difference = (kernel - plain).abs()
-        if not bool((difference <= limit).all()):
-            worst = int(torch.argmax(difference - limit))
-            raise AssertionError(
-                f"splat_forward: pixel {worst} differs by {float(difference.flatten()[worst])} "
-                f"> {float(limit.flatten()[worst])} ({int(deposits.flatten()[worst])} deposits)"
-            )
-        forward_err = max(forward_err, float(difference.max()))
-        worst_share = max(worst_share, float((difference / limit.clamp(min=1e-38)).max()))
+        err, share = check_forward("splat_forward", kernel, plain, rays, height, width)
+        forward_err, worst_share = max(forward_err, err), max(worst_share, share)
         kernel_grads = splat_backward_cuda(*rays, cotangent, height, width)
         plain_grads = splat_backward_plain(*rays, cotangent, height, width)
-        g_max = float(cotangent.abs().max())
-        w_max = float(rays[2].abs().max())
-        for name, k, p, scale in zip(
-            ("de", "du", "dw"), kernel_grads, plain_grads, (g_max * w_max, g_max * w_max, g_max)
-        ):
-            err = _max_abs_err(k, p)
-            if not err <= BACKWARD_TOLERANCE * scale:
-                raise AssertionError(
-                    f"splat_backward {name}: max |kernel - plain| {err} > {BACKWARD_TOLERANCE * scale}"
-                )
-            backward_errs.append(err)
-            worst_share = max(worst_share, err / (BACKWARD_TOLERANCE * scale))
+        errors, share = check_backward("splat_backward", kernel_grads, plain_grads, rays[2], cotangent)
+        backward_errs += errors
+        worst_share = max(worst_share, share)
     torch.cuda.synchronize()
     # The edge cases: nothing from invalid rays, dw for zero-weight in-bounds rays.
     edge_flux = splat_forward_cuda(*edge, height, width)
     if not torch.isfinite(edge_flux).all():
         raise AssertionError("splat_forward: non-finite bitmap from NaN/inf rays")
-    de, du, dw = splat_backward_cuda(*edge, edge_g, height, width)
-    invalid = slice(4, 13)
-    if not (de[:, invalid] == 0).all() or not (dw[:, invalid] == 0).all() or not (du[:, invalid] == 0).all():
-        raise AssertionError("splat_backward: gradient on a ray outside the strict bounds")
-    if not (dw[:, 13] != 0).all():
-        raise AssertionError("splat_backward: zero-weight in-bounds ray lost its dw")
+    check_edge_gradients("splat_backward", splat_backward_cuda(*edge, edge_g, height, width), list(range(4, 13)), [13])
 
     num, rays_per_map = e.shape
-    valid, taps = _valid_taps(e, u, height, width)
-    num_valid = int(valid.sum())
-    weights = torch.where(valid, w, torch.zeros_like(w))
-    fe, fu = e - torch.floor(e), u - torch.floor(u)
-    values = torch.cat(
-        [weights * (1 - fu) * (1 - fe), weights * (1 - fu) * fe, weights * fu * (1 - fe), weights * fu * fe],
-        dim=1,
-    )[valid.repeat(1, 4)]
-    touched = int(torch.unique(taps).numel())
-    rays_total = num * rays_per_map
-    map_bytes = 4 * num * height * width
-    library_out = torch.zeros(num * height * width, device=device)
-
+    work = splat_work(e, u, w, height, width)
     timings = {
         "splat_forward": dict(
             ms=event_ms(lambda: splat_forward_cuda(e, u, w, height, width)),
             plain_ms=event_ms(lambda: splat_forward_plain(e, u, w, height, width)),
-            library_ms=event_ms(lambda: library_out.index_add_(0, taps, values)),
-            bound=bound_ms(8 * rays_total + 4 * num_valid + map_bytes, FORWARD_FLOPS_PER_RAY * num_valid),
+            library_ms=index_add_ms(work, num, height, width),
+            bound=work["forward_bound"],
             max_abs_err=forward_err,
             replaces="artist_tpu/kernels/splat_pallas.py:114 (_splat_fwd_kernel, via _splat_forward)",
         ),
@@ -541,17 +620,14 @@ def check_splat_kernels(inputs: StepInputs) -> dict[str, dict]:
             ms=event_ms(lambda: splat_backward_cuda(e, u, w, g, height, width)),
             plain_ms=event_ms(lambda: splat_backward_plain(e, u, w, g, height, width)),
             library_ms=None,
-            bound=bound_ms(
-                8 * rays_total + 4 * num_valid + 4 * touched + 12 * rays_total,
-                BACKWARD_FLOPS_PER_RAY * num_valid,
-            ),
+            bound=work["backward_bound"],
             max_abs_err=max(backward_errs),
             replaces="artist_tpu/kernels/splat_pallas.py:168 (_splat_bwd_kernel, via _splat_bwd)",
         ),
     }
     _log(
-        f"phase 3a splat kernels: [{num}, {rays_per_map}] rays ({num_valid} valid, {touched} pixels touched) "
-        f"-> [{num}, {height}, {width}] and {edge[0].shape[1]} edge-case rays x {edge[0].shape[0]}, "
+        f"phase 3a splat kernels: [{num}, {rays_per_map}] rays ({work['valid']} valid, {work['touched']} pixels "
+        f"touched) -> [{num}, {height}, {width}] and {edge[0].shape[1]} edge-case rays x {edge[0].shape[0]}, "
         f"worst error {worst_share:.3g} of its tolerance: "
         + "; ".join(
             f"{name} max_abs_err {t['max_abs_err']:.3g}, kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
@@ -563,13 +639,229 @@ def check_splat_kernels(inputs: StepInputs) -> dict[str, dict]:
     return timings
 
 
+# --------------------------------------------------------------------------- #
+# The dynamic-window kernels (phase 3d) and the formulation tool's (phase 3e).
+# --------------------------------------------------------------------------- #
+
+
+def mixed_window_rays(width: int, height: int, device: torch.device):
+    """Three heliostats of 4,000 rays in four blocks of 1,024: rows ~30-38 (the block
+    fits a 96-row window), rows spread over the bitmap (it falls back), rows
+    ~120-130 (fits), and a ragged last block over the last 56 rows (fits at the
+    origin clamped to H - 96); some rows and columns out of bounds."""
+    rng = np.random.RandomState(SEED)
+    num, n = 3, 4000
+    u = np.concatenate(
+        [
+            30 + 8 * rng.rand(num, 1024),
+            5 + (height - 56) * rng.rand(num, 1024),
+            120 + 10 * rng.rand(num, 1024),
+            height - 56 + 50 * rng.rand(num, n - 3072),
+        ],
+        axis=1,
+    )
+    e = (width - 6) * rng.rand(num, n)
+    u[:, :17] = -5.0
+    e[:, 40:50] = width + 44.0
+    w = rng.rand(num, n)
+    return tuple(torch.tensor(x.astype(np.float32), device=device) for x in (e, u, w))
+
+
+# In window_edge_rays, the copies of edge_case_rays's invalid rays (its 4-12)
+# and zero-weight in-bounds rays (13-14) at the head of the second block.
+WINDOW_EDGE_INVALID = list(range(1024, 1033))
+WINDOW_EDGE_ZERO_WEIGHT = [1033, 1034]
+
+
+def window_edge_rays(width: int, height: int, device: torch.device):
+    """The edge cases of :func:`edge_case_rays` (their block of 1,024 rays falls back)
+    and a second block that fits the 96-row window at the clamped origin
+    H - 96 with its deposits reaching the last row, holding copies of the
+    invalid (NaN, +-inf, 1e30, out of bounds) and zero-weight rays."""
+    e, u, w = (x.clone() for x in edge_case_rays(width, height, device))
+    n = u.shape[1] - 1024
+    u[:, 1024:] = torch.linspace(height - 96.0, height - 2.0, n, device=device)
+    for x in (e, u, w):
+        x[:, 1024:1035] = x[:, 4:15]
+    u[:, WINDOW_EDGE_ZERO_WEIGHT] = height - 55.75
+    return e, u, w
+
+
+def check_dynamic_window_kernels(inputs: StepInputs) -> dict[str, dict]:
+    """Phase 3d: the dynamic-window pair on the block-window step's first chunk (rays
+    point-major over tiles, as that step splats them), on rays that force
+    fallback blocks and on the edge cases, each against its plain version; the
+    kernel's count of fitting blocks equal to the plain windows' count, above
+    half the blocks on the chunk, fallbacks present on the forced input. Timed
+    on the chunk beside the full splat's kernels on the same rays."""
+    width, height = BITMAP
+    window = BLOCK_WINDOW["splat_block_window"]
+    device = inputs.ground_truth.device
+    chunk = first_chunk_rays(
+        dataclasses.replace(inputs, config=dataclasses.replace(inputs.config, **BLOCK_WINDOW)), point_major=True
+    )
+    cases = {
+        "flagship chunk": chunk,
+        "forced fallbacks": mixed_window_rays(width, height, device),
+        "edge cases": window_edge_rays(width, height, device),
+    }
+    forward_err, backward_errs, worst_share, fitting = 0.0, [], 0.0, {}
+    for seed, (label, rays) in enumerate(cases.items()):
+        g = torch.randn(
+            (rays[0].shape[0], height, width), device=device,
+            generator=torch.Generator(device=device).manual_seed(SEED + 10 + seed),
+        )
+        kernel, count = splat_window.splat_dynamic_window_forward_cuda(*rays, height, width, window)
+        plain = splat_window.splat_dynamic_window_forward_plain(*rays, height, width, window)
+        _, fits = splat_window.dyn_offsets(rays[0], rays[1], height, width, window)
+        fitting[label] = (int(count), int(fits.sum()), fits.numel())
+        if fitting[label][0] != fitting[label][1]:
+            raise AssertionError(f"{label}: {fitting[label][0]} blocks fit in the kernel, {fitting[label][1]} in the plain windows")
+        err, share = check_forward("splat_dynamic_window_forward", kernel, plain, rays, height, width)
+        forward_err, worst_share = max(forward_err, err), max(worst_share, share)
+        grads = splat_window.splat_dynamic_window_backward_cuda(*rays, g, height, width, window)
+        plain_grads = splat_window.splat_dynamic_window_backward_plain(*rays, g, height, width, window)
+        errors, share = check_backward("splat_dynamic_window_backward", grads, plain_grads, rays[2], g)
+        backward_errs += errors
+        worst_share = max(worst_share, share)
+        if label == "edge cases":
+            if not torch.isfinite(kernel).all():
+                raise AssertionError("splat_dynamic_window_forward: non-finite bitmap from NaN/inf rays")
+            for invalid, zero_weight in ((list(range(4, 13)), [13]), (WINDOW_EDGE_INVALID, WINDOW_EDGE_ZERO_WEIGHT)):
+                check_edge_gradients("splat_dynamic_window_backward", grads, invalid, zero_weight)
+        del plain, plain_grads
+    torch.cuda.synchronize()
+    ok = (
+        fitting["flagship chunk"][0] > fitting["flagship chunk"][2] / 2
+        and 0 < fitting["forced fallbacks"][0] < fitting["forced fallbacks"][2]
+        and 0 < fitting["edge cases"][0] < fitting["edge cases"][2]
+    )
+    if not ok:
+        raise AssertionError(f"dynamic window: the check is vacuous (fitting, plain, blocks: {fitting})")
+
+    e, u, w = chunk
+    num, rays_per_map = e.shape
+    g = torch.randn((num, height, width), device=device, generator=torch.Generator(device=device).manual_seed(SEED + 1))
+    work = splat_work(e, u, w, height, width)
+    fit_fraction = fitting["flagship chunk"][0] / fitting["flagship chunk"][2]
+    timings = {
+        "splat_dynamic_window_forward": dict(
+            ms=event_ms(lambda: splat_window.splat_dynamic_window_forward_cuda(e, u, w, height, width, window)),
+            plain_ms=event_ms(lambda: splat_window.splat_dynamic_window_forward_plain(e, u, w, height, width, window), 3, 1),
+            library_ms=index_add_ms(work, num, height, width),
+            full_splat_ms=event_ms(lambda: splat_forward_cuda(e, u, w, height, width)),
+            bound=work["forward_bound"],
+            max_abs_err=forward_err,
+            fit_fraction=fit_fraction,
+            replaces="artist_tpu/kernels/splat_pallas.py:393 (_dyn_fwd_kernel, pallas_call :658)",
+        ),
+        "splat_dynamic_window_backward": dict(
+            ms=event_ms(lambda: splat_window.splat_dynamic_window_backward_cuda(e, u, w, g, height, width, window)),
+            plain_ms=event_ms(
+                lambda: splat_window.splat_dynamic_window_backward_plain(e, u, w, g, height, width, window), 3, 1
+            ),
+            library_ms=None,
+            full_splat_ms=event_ms(lambda: splat_backward_cuda(e, u, w, g, height, width)),
+            bound=work["backward_bound"],
+            max_abs_err=max(backward_errs),
+            fit_fraction=fit_fraction,
+            replaces="artist_tpu/kernels/splat_pallas.py:460 (_dyn_bwd_kernel, pallas_call :706)",
+        ),
+    }
+    _log(
+        f"phase 3d dynamic-window kernels (window {window}): [{num}, {rays_per_map}] rays of the block-window "
+        f"step's first chunk ({work['valid']} valid, {work['touched']} pixels touched), the forced fallbacks "
+        f"and the edge cases; blocks fitting (kernel, plain, of): "
+        + ", ".join(f"{label} {f}" for label, f in fitting.items())
+        + f"; worst error {worst_share:.3g} of its tolerance: "
+        + "; ".join(
+            f"{name} max_abs_err {t['max_abs_err']:.3g}, kernel {t['ms']:.4f} ms, full splat's kernel "
+            f"{t['full_splat_ms']:.4f} ms on the same rays, plain {t['plain_ms']:.4f} ms, library "
+            f"{t['library_ms'] if t['library_ms'] is None else round(t['library_ms'], 4)} ms, "
+            f"bound {t['bound'][0]:.4f} ms ({t['bound'][1]})"
+            for name, t in timings.items()
+        )
+    )
+    return timings
+
+
+def check_formulation_kernels(device: torch.device) -> dict[str, dict]:
+    """Phase 3e: the formulation tool's kernels, the 2-D window forward and the
+    cluster accumulate, against their plain versions on the tool's own rays
+    (its full shape, 32 M rays) and on the edge cases; the 2-D kernel's count of
+    fitting blocks equal to the plain windows' count, some blocks fitting on
+    the tool's rays and some falling back on the edge cases. Timed on the
+    tool's rays."""
+    width, height = BITMAP
+    cases = {
+        "tool rays": splat_formulation_bench.flagship_rays(device=device),
+        "edge cases": window_edge_rays(width, height, device),
+    }
+    errors, worst_share, fitting = {"splat_window_2d_forward": 0.0, "splat_cluster_forward": 0.0}, 0.0, {}
+    for label, rays in cases.items():
+        kernel, count = splat_window.splat_window_2d_forward_cuda(*rays, height, width)
+        plain = splat_window.splat_window_2d_forward_plain(*rays, height, width)
+        _, _, fits = splat_window.window_2d_offsets(rays[0], rays[1], height, width)
+        fitting[label] = (int(count), int(fits.sum()), fits.numel())
+        if fitting[label][0] != fitting[label][1]:
+            raise AssertionError(f"{label}: {fitting[label][0]} blocks fit in the 2-D kernel, {fitting[label][1]} in the plain windows")
+        err, share = check_forward("splat_window_2d_forward", kernel, plain, rays, height, width)
+        errors["splat_window_2d_forward"], worst_share = max(errors["splat_window_2d_forward"], err), max(worst_share, share)
+        del kernel, plain
+        kernel = splat_scatter.splat_cluster_forward_cuda(*rays, height, width)
+        plain = splat_forward_plain(*rays, height, width)
+        err, share = check_forward("splat_cluster_forward", kernel, plain, rays, height, width)
+        errors["splat_cluster_forward"], worst_share = max(errors["splat_cluster_forward"], err), max(worst_share, share)
+        if not torch.isfinite(kernel).all():
+            raise AssertionError(f"{label}: non-finite bitmap from the cluster accumulate")
+        del kernel, plain
+    torch.cuda.synchronize()
+    if not (fitting["tool rays"][0] > 0 and fitting["edge cases"][0] < fitting["edge cases"][2]):
+        raise AssertionError(f"2-D window: the check is vacuous (fitting, plain, blocks: {fitting})")
+
+    e, u, w = cases["tool rays"]
+    del cases
+    num, rays_per_map = e.shape
+    work = splat_work(e, u, w, height, width)
+    library = index_add_ms(work, num, height, width)
+    timings = {
+        "splat_window_2d_forward": dict(
+            ms=event_ms(lambda: splat_window.splat_window_2d_forward_cuda(e, u, w, height, width)),
+            plain_ms=event_ms(lambda: splat_window.splat_window_2d_forward_plain(e, u, w, height, width), 3, 1),
+            fit_fraction=fitting["tool rays"][0] / fitting["tool rays"][2],
+            replaces="tools/splat_formulation_bench.py:174 (_dyn2d_fwd_kernel, pallas_call :307)",
+        ),
+        "splat_cluster_forward": dict(
+            ms=event_ms(lambda: splat_scatter.splat_cluster_forward_cuda(e, u, w, height, width)),
+            plain_ms=event_ms(lambda: splat_forward_plain(e, u, w, height, width), 3, 1),
+            replaces="tools/splat_formulation_bench.py:321 (_scatter_kernel, pallas_call :360)",
+        ),
+    }
+    for name, t in timings.items():
+        t.update(library_ms=library, bound=work["forward_bound"], max_abs_err=errors[name])
+    _log(
+        f"phase 3e formulation kernels: the tool's [{num}, {rays_per_map}] rays ({work['valid']} valid, "
+        f"{work['touched']} pixels touched) and the edge cases; 2-D blocks fitting (kernel, plain, of): "
+        + ", ".join(f"{label} {f}" for label, f in fitting.items())
+        + f"; worst error {worst_share:.3g} of its tolerance: "
+        + "; ".join(
+            f"{name} max_abs_err {t['max_abs_err']:.3g}, kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
+            f"library {t['library_ms']:.4f} ms, bound {t['bound'][0]:.4f} ms ({t['bound'][1]})"
+            for name, t in timings.items()
+        )
+    )
+    return timings
+
+
 def reset_launch_counts() -> None:
     reset_splat_launch_counts()
     blocking_kernels.reset_launch_counts()
+    splat_window.reset_launch_counts()
+    splat_scatter.reset_launch_counts()
 
 
 def launch_counts() -> dict[str, int]:
-    return {**SPLAT_LAUNCHES, **blocking_kernels.LAUNCHES}
+    return {**SPLAT_LAUNCHES, **blocking_kernels.LAUNCHES, **splat_window.LAUNCHES, **splat_scatter.LAUNCHES}
 
 
 def drive_surface_step(inputs: StepInputs, launches_per_step: dict[str, int], phase: str) -> dict:
@@ -1315,16 +1607,21 @@ def drive_aim_point(
 SMALL = dict(heliostats=4, surface_points=(5, 5), rays=8, bitmap=(32, 32), ray_chunk=4)
 
 
-def small_step(device: torch.device, distortions: np.ndarray, ground_truth: np.ndarray | None = None):
-    """Flux, loss and control-point gradient of the step at the SMALL size on ``device``."""
+def small_step(
+    device: torch.device, distortions: np.ndarray, ground_truth: np.ndarray | None = None, size: dict = SMALL,
+    **splat_options,
+):
+    """Flux, loss and control-point gradient of the step at ``size`` (SMALL) on ``device``;
+    ``splat_options`` go into its RenderConfig."""
     scenario = make_synthetic_scenario(
-        number_of_heliostats=SMALL["heliostats"],
-        number_of_surface_points_per_facet=SMALL["surface_points"],
-        number_of_rays=SMALL["rays"],
+        number_of_heliostats=size["heliostats"],
+        number_of_surface_points_per_facet=size["surface_points"],
+        number_of_rays=size["rays"],
         device=device,
     )
     du, de = (torch.tensor(x, device=device) for x in distortions)
-    inputs = step_inputs(scenario, du, de, SMALL["surface_points"], SMALL["bitmap"], SMALL["ray_chunk"])
+    inputs = step_inputs(scenario, du, de, size["surface_points"], size["bitmap"], size["ray_chunk"])
+    inputs.config = dataclasses.replace(inputs.config, **splat_options)
     if ground_truth is not None:
         inputs.ground_truth = torch.tensor(ground_truth, device=device)
     control_points = scenario.heliostat_groups[0].nurbs_control_points.clone().requires_grad_(True)
@@ -1335,42 +1632,110 @@ def small_step(device: torch.device, distortions: np.ndarray, ground_truth: np.n
     return flux.cpu(), loss.item(), control_points.grad.cpu()
 
 
-def check_small_step_against_cpu(device: torch.device) -> None:
-    """Phase 7a: flux, loss and control-point gradient of a small step, ``device`` vs CPU.
+# Phase 7c's small steps. The block-window route: 10 x 10 points a facet on a
+# 64 x 64 bitmap, so that a heliostat's 1,600 rays of a chunk make two blocks,
+# with 3 mrad sun distortions (the spot spans rows ~8-56) and 32-row windows
+# over 5 x 5 point tiles, where half the blocks fit. The windowed route: phase
+# 7a's scene with a 16-pixel window, which drops rays.
+SMALL_WINDOW_STEP = dict(heliostats=4, surface_points=(10, 10), rays=8, bitmap=(64, 64), ray_chunk=4)
+SMALL_BLOCK_WINDOW = dict(splat_block_window=32, splat_point_layout=(10, 10, 4), splat_point_tile=5)
+SMALL_WINDOW = dict(splat_window=16)
+
+
+def check_small_step_against_cpu(
+    device: torch.device,
+    phase: str = "phase 7a",
+    spread: float = 1e-2,
+    size: dict = SMALL,
+    baseline: dict | None = None,
+    **splat_options,
+) -> dict:
+    """Phases 7a and 7c: flux, loss and control-point gradient of a small step, ``device``
+    vs CPU, at ``size``; ``splat_options`` (none in 7a) go into its RenderConfig,
+    and the sun distortions have standard deviation ``spread``. Returns the
+    launch counts of the step on ``device``.
 
     The CPU run takes the kernels' plain versions. The two differ by fp32
     rounding (atomic sum orders, fused multiply-adds, transcendental
     functions) through NURBS, alignment and the splat. Tolerances: flux 1e-4
-    of its peak, loss rtol 1e-4, gradient 1e-3 of its largest entry. The
-    gradient is taken under a ground truth of ones on the spot and zeros off
-    it: under all ones, the KL gradient -p/q at a rim pixel holding one
-    deposit of a ray ~1e-5 px from a cell edge turns ulp-level geometry
-    differences into differences of tens of percent.
+    of its peak, loss rtol 1e-4, gradient 1e-3 of its largest entry; with a
+    ``baseline`` (the errors of another step on the same scene), each may
+    instead be the baseline's error plus 1e-5 of its scale. The gradient is
+    taken under a ground truth of ones on the spot and zeros off it: under all
+    ones, the KL gradient -p/q at a rim pixel holding one deposit of a ray
+    ~1e-5 px from a cell edge turns ulp-level geometry differences into
+    differences of tens of percent.
     """
-    rng = np.random.RandomState(SEED)
-    points = 4 * SMALL["surface_points"][0] * SMALL["surface_points"][1]
-    # Wider than the sun's 2.1 mrad so the spot covers much of the small bitmap.
-    distortions = rng.normal(0.0, 1e-2, (2, SMALL["heliostats"], SMALL["rays"], points)).astype(np.float32)
-    flux_cpu, _, _ = small_step(torch.device("cpu"), distortions)
-    spot = (flux_cpu > 0.05 * flux_cpu.amax(dim=(1, 2), keepdim=True)).float().numpy()
-    results = [small_step(where, distortions, spot) for where in (device, torch.device("cpu"))]
-    (flux_dev, loss_dev, grad_dev), (flux_cpu, loss_cpu, grad_cpu) = results
-    flux_err = float((flux_dev - flux_cpu).abs().max())
-    grad_err = float((grad_dev - grad_cpu).abs().max())
-    checks = (
-        (flux_err, 1e-4 * float(flux_cpu.abs().max()), "flux"),
-        (abs(loss_dev - loss_cpu), 1e-4 * abs(loss_cpu), "loss"),
-        (grad_err, 1e-3 * float(grad_cpu.abs().max()), "control-point gradient"),
-    )
-    for err, limit, what in checks:
-        if not err <= limit:
-            raise AssertionError(f"small step {what} differs between {device} and cpu: {err} > {limit}")
-    if not float(grad_cpu.abs().max()) > 0:
-        raise AssertionError("small step: zero control-point gradient")
+    errors, launches, (loss_dev, loss_cpu) = small_step_errors(device, spread, size, **splat_options)
+    limits = {}
+    for what, (err, scale, relative) in errors.items():
+        limits[what] = relative * scale
+        if baseline is not None:
+            limits[what] = max(limits[what], baseline[what][0] + 1e-5 * scale)
+        if not err <= limits[what]:
+            raise AssertionError(f"{phase} small step {what} differs between {device} and cpu: {err} > {limits[what]}")
+    if not errors["control-point gradient"][1] > 0:
+        raise AssertionError(f"{phase} small step: zero control-point gradient")
     _log(
-        f"phase 7a agreement: small surface step on {device} vs cpu: loss {loss_dev} vs {loss_cpu}; "
-        + ", ".join(f"{what} max err {err:.3g} ({err / limit:.3g} of its limit)" for err, limit, what in checks)
+        f"{phase} agreement: small surface step {splat_options or ''} on {device} vs cpu: loss {loss_dev} vs "
+        f"{loss_cpu}; "
+        + ", ".join(
+            f"{what} max err {errors[what][0]:.3g} ({errors[what][0] / limits[what]:.3g} of its limit"
+            + ("" if baseline is None else f"; full splat's {baseline[what][0]:.3g}")
+            + ")"
+            for what in errors
+        )
+        + f"; launches {launches}"
     )
+    return launches
+
+
+def small_step_errors(device: torch.device, spread: float, size: dict, spot_share: float = 0.05, **splat_options):
+    """The small step at ``size`` on ``device`` and on the CPU: each quantity's
+    ``(max |device - cpu|, scale, relative tolerance)``, the launch counts on
+    ``device``, and both losses. The ground truth is ones where the CPU's flux
+    exceeds ``spot_share`` of its peak, zeros elsewhere."""
+    rng = np.random.RandomState(SEED)
+    points = 4 * size["surface_points"][0] * size["surface_points"][1]
+    # 7a: wider than the sun's 2.1 mrad so the spot covers much of the small bitmap.
+    distortions = rng.normal(0.0, spread, (2, size["heliostats"], size["rays"], points)).astype(np.float32)
+    flux_cpu, _, _ = small_step(torch.device("cpu"), distortions, None, size, **splat_options)
+    spot = (flux_cpu > spot_share * flux_cpu.amax(dim=(1, 2), keepdim=True)).float().numpy()
+    reset_launch_counts()
+    flux_dev, loss_dev, grad_dev = small_step(device, distortions, spot, size, **splat_options)
+    launches = launch_counts()
+    flux_cpu, loss_cpu, grad_cpu = small_step(torch.device("cpu"), distortions, spot, size, **splat_options)
+    errors = {
+        "flux": (float((flux_dev - flux_cpu).abs().max()), float(flux_cpu.abs().max()), 1e-4),
+        "loss": (abs(loss_dev - loss_cpu), abs(loss_cpu), 1e-4),
+        "control-point gradient": (float((grad_dev - grad_cpu).abs().max()), float(grad_cpu.abs().max()), 1e-3),
+    }
+    return errors, launches, (loss_dev, loss_cpu)
+
+
+def check_small_window_steps_against_cpu(device: torch.device) -> None:
+    """Phase 7c: small steps with SMALL_BLOCK_WINDOW at SMALL_WINDOW_STEP and with
+    SMALL_WINDOW at phase 7a's size, ``device`` vs CPU. The first scene's narrow
+    spot leaves the control-point gradient ill-conditioned (the full splat's
+    differs between the card and the CPU by ~2x phase 7a's limit there), so the
+    full splat's step on it runs first, and the block-window step may differ from
+    the CPU as much as that, plus 1e-5 of each quantity's scale. The windowed step
+    is held to phase 7a's tolerances. On the card the block-window step must
+    launch the dynamic-window pair and not the full splat's, the windowed step
+    the full splat's."""
+    full, _, losses = small_step_errors(device, 3e-3, SMALL_WINDOW_STEP)
+    _log(
+        f"phase 7c full splat on the block-window step's scene, {device} vs cpu: loss {losses[0]} vs {losses[1]}; "
+        + ", ".join(f"{what} max err {err:.3g} ({err / (relative * scale):.3g} of phase 7a's limit)"
+                    for what, (err, scale, relative) in full.items())
+    )
+    block = check_small_step_against_cpu(device, "phase 7c", 3e-3, SMALL_WINDOW_STEP, full, **SMALL_BLOCK_WINDOW)
+    windowed = check_small_step_against_cpu(device, "phase 7c", **SMALL_WINDOW)
+    if device.type == "cuda" and not (
+        block["splat_dynamic_window_forward"] and block["splat_dynamic_window_backward"] and not block["splat_forward"]
+        and windowed["splat_forward"] and windowed["splat_backward"] and not windowed["splat_dynamic_window_forward"]
+    ):
+        raise AssertionError(f"phase 7c: launches {block} with the block window, {windowed} with the window")
 
 
 # The small aim-point step of the agreement phase: 48 heliostats in eight rows
@@ -1475,10 +1840,36 @@ def check_small_aim_point_against_cpu(device: torch.device) -> dict[int | None, 
     return results
 
 
-# The path whose run gives a kernel's "launches": this slice's main path, the flat
-# aim point (phase 8), for every kernel it runs; the compacted aim point (phase
-# 5) for the compacted sigma kernels.
-MAIN_PATH = {"blocking_sigma_forward": "aim_point", "blocking_sigma_backward": "aim_point"}
+# The path whose run gives a kernel's "launches": the flat aim point (phase 8)
+# for every kernel it runs; the compacted aim point (phase 5) for the compacted
+# sigma kernels; this slice's main path, the block-window step (phase 10), for
+# the dynamic-window pair; the formulation tool (phase 11) for its kernels.
+MAIN_PATH = {
+    "blocking_sigma_forward": "aim_point",
+    "blocking_sigma_backward": "aim_point",
+    "splat_dynamic_window_forward": "surface_step_block_window",
+    "splat_dynamic_window_backward": "surface_step_block_window",
+    "splat_window_2d_forward": "formulation_tool",
+    "splat_cluster_forward": "formulation_tool",
+}
+# The formulation tool's errors against the full splat's plain version, relative
+# to the peak: at most the summation bound 2 (n - 1) u of the fullest pixel's
+# ~4,000 deposits (5e-4); phase 3e holds both kernels per pixel.
+TOOL_MAX_REL_ERR = 1e-3
+
+
+def drive_formulation_tool(device: torch.device) -> dict:
+    """Phase 11: the splat-formulation tool at its full shape; its launch counts."""
+    reset_launch_counts()
+    result = splat_formulation_bench.run(device)
+    launches = launch_counts()
+    _log(f"phase 11 formulation tool: {json.dumps(result)}; launches {launches}")
+    for name in ("window_2d_max_rel_err", "cluster_accumulate_max_rel_err"):
+        if not result[name] <= TOOL_MAX_REL_ERR:
+            raise AssertionError(f"phase 11: {name} {result[name]} > {TOOL_MAX_REL_ERR}")
+    if not (launches["splat_window_2d_forward"] and launches["splat_cluster_forward"]):
+        raise AssertionError(f"phase 11: a kernel of the tool did not launch ({launches})")
+    return dict(launches=launches, **result)
 
 
 def main() -> int:
@@ -1506,13 +1897,19 @@ def main() -> int:
     built = build_all()
     build_seconds = time.perf_counter() - start
     report = "; ".join(
-        f"{path.name}: " + " | ".join(line.strip() for line in output.splitlines() if "registers" in line)
+        f"{path.name}: " + " | ".join(
+            line.strip() for line in output.splitlines() if "registers" in line or "spill" in line
+        )
         for path, output in built.values()
     )
-    _log(f"phase 2 build: {len(built)} sources in {build_seconds:.2f} s; ptxas: {report}")
+    _log(f"phase 2 build: {len(built)} sources in {build_seconds:.2f} s; ptxas (registers, spills): {report}")
 
     inputs = flagship_inputs(device)
     timings = check_splat_kernels(inputs)
+    timings.update(check_dynamic_window_kernels(inputs))
+    torch.cuda.empty_cache()
+    timings.update(check_formulation_kernels(device))
+    torch.cuda.empty_cache()
     timings.update(check_blocking_kernels(device))
     torch.cuda.empty_cache()
     timings.update(check_flat_kernels(device))
@@ -1528,6 +1925,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     check_small_step_against_cpu(device)
     check_small_aim_point_against_cpu(device)
+    check_small_window_steps_against_cpu(device)
     torch.cuda.empty_cache()
     paths["aim_point_flat"] = drive_aim_point(device, None, "phase 8 flat aim point")
     torch.cuda.empty_cache()
@@ -1539,8 +1937,17 @@ def main() -> int:
         flagship_inputs(device, blocking=True, candidates=None), LAUNCHES_PER_FLAT_BLOCKING_STEP,
         "phase 9 flat blocking step",
     )
+    torch.cuda.empty_cache()
+    paths["surface_step_block_window"] = drive_surface_step(
+        flagship_inputs(device, **BLOCK_WINDOW), LAUNCHES_PER_BLOCK_WINDOW_STEP, "phase 10 block-window step"
+    )
+    first, windowed = paths["surface_step"]["losses"][0], paths["surface_step_block_window"]["losses"][0]
+    if not abs(windowed - first) <= 1e-5 * abs(first):
+        raise AssertionError(f"phase 10: first loss {windowed}, phase 4's {first}")
+    torch.cuda.empty_cache()
+    paths["formulation_tool"] = drive_formulation_tool(device)
 
-    case_keys = {key for _, key, *_ in SIGMA_CASES[1:] + FLAT_CASES[1:]} | {"kept_primitives"}
+    case_keys = {key for _, key, *_ in SIGMA_CASES[1:] + FLAT_CASES[1:]} | {"kept_primitives", "fit_fraction", "full_splat_ms"}
     kernels = []
     for kernel_name, t in timings.items():
         main_path = MAIN_PATH.get(kernel_name, "aim_point_flat")
@@ -1548,7 +1955,7 @@ def main() -> int:
             {
                 "name": kernel_name,
                 "route": "cuda",
-                "source": f"artist_tpu_torch/kernels/csrc/{kernel_name.split('_')[0]}.cu",
+                "source": f"artist_tpu_torch/kernels/csrc/{SOURCES[kernel_name]}",
                 "replaces": t["replaces"],
                 "main_path": main_path,
                 "launches": paths[main_path]["launches"][kernel_name],

@@ -11,6 +11,9 @@ drives it:
 - ``blocking_step``: the same step with field-wide blocking on (K = 16);
 - ``blocking_step_flat``: the same on the flat blocking route (every
   primitive, with the AABB cull);
+- ``surface_step_block_window``: the surface step with the dynamic-window
+  splat (``splat_block_window=96`` on rays reordered point-major over 10 x 10
+  point tiles);
 - ``aim_point``: one epoch of the aim-point optimizer at ``bench.py``'s size
   (100 heliostats, 8 rays per point, 8 M rays, blocking with K = 16): the
   loss with its three penalty terms, its backward and the Adam update;
@@ -47,12 +50,15 @@ from artist_tpu_torch.kernels.build import build_all
 PORT_KERNELS = (
     "splat_forward_kernel", "splat_backward_kernel", "sigma_forward_kernel", "sigma_backward_kernel",
     "blocking_cull_kernel", "sigma_flat_forward_kernel", "sigma_flat_backward_kernel", "sigma_flat_reduce_kernel",
+    "dynamic_window_forward_kernel", "dynamic_window_backward_kernel", "cluster_accumulate_kernel",
 )
-PATHS = ("surface_step", "blocking_step", "blocking_step_flat", "aim_point", "aim_point_flat")
+PATHS = (
+    "surface_step", "blocking_step", "blocking_step_flat", "surface_step_block_window", "aim_point", "aim_point_flat",
+)
 
 
-def surface_step(device: torch.device, blocking: bool, candidates: int | None):
-    inputs = chip_smoke.flagship_inputs(device, blocking=blocking, candidates=candidates)
+def surface_step(device: torch.device, blocking: bool, candidates: int | None, **splat_options):
+    inputs = chip_smoke.flagship_inputs(device, blocking=blocking, candidates=candidates, **splat_options)
     control_points = inputs.scenario.heliostat_groups[0].nurbs_control_points.clone().requires_grad_(True)
     optimizer = torch.optim.Adam([control_points], lr=chip_smoke.LEARNING_RATE)
 
@@ -130,6 +136,8 @@ def main() -> int:
     candidates = None if args.path.endswith("_flat") else chip_smoke.AIM_CANDIDATES
     if args.path.startswith("aim_point"):
         step = aim_point_epoch(device, candidates)
+    elif args.path == "surface_step_block_window":
+        step = surface_step(device, False, candidates, **chip_smoke.BLOCK_WINDOW)
     else:
         step = surface_step(device, args.path.startswith("blocking_step"), candidates)
     _timed_steps(1, step)  # warm-up

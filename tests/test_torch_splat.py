@@ -154,13 +154,6 @@ def test_bilinear_splat_flattens_rays_and_flips_rows():
     torch.testing.assert_close(flipped, torch.flip(flat, dims=(1,)), rtol=0, atol=0)
 
 
-@pytest.mark.parametrize("option", ["window", "block_window"])
-def test_unported_splat_options_raise(option):
-    rays = torch.zeros(1, 4)
-    with pytest.raises(NotImplementedError):
-        bilinear_splat(rays, rays, rays, (8, 8), **{option: 4})
-
-
 def test_wrapper_rejects_bad_inputs():
     good = torch.zeros(2, 5)
     with pytest.raises(ValueError, match="contiguous"):
