@@ -18,8 +18,10 @@ kernels live in ``csrc/blocking.cu``:
   ``soft_ray_blocking_mask_pallas``:
 
   - ``blocking_cull`` replaces ``_cull_kernel``: the AABB slab test, OR-reduced
-    over every ray into a keep flag per primitive (no gradient); it equals its
-    plain version bit for bit;
+    over every ray into a keep flag per primitive (no gradient); each warp
+    first tests the bounds of its 128 rays against 32 boxes at once and runs
+    the exact test only where some ray may hit, and a box found is published
+    to every block at once; it equals its plain version bit for bit;
   - ``blocking_sigma_flat_forward`` replaces ``_sigma_forward_kernel`` with
     ``gated=False``: one thread per ray over all kept primitives;
   - ``blocking_sigma_flat_backward`` replaces ``_sigma_bwd_rays_kernel`` and
@@ -245,6 +247,8 @@ def cull_cuda(origins, directions, t_target, own, aabb) -> torch.Tensor:
     """Launch ``blocking_cull_kernel``: ``keep [B]``, 1.0 for a primitive some ray may meet."""
     _require_cuda(origins)
     _check_cull_inputs(origins, directions, t_target, own, aabb)
+    if origins.data_ptr() % 16 or directions.data_ptr() % 16:
+        raise ValueError("the cull kernel reads origins and directions as 16-byte vectors: align them to 16 bytes")
     keep = torch.zeros(aabb.shape[0], dtype=torch.float32, device=origins.device)
     if keep.numel() == 0 or t_target.numel() == 0:
         return keep

@@ -1,13 +1,14 @@
-"""Per-ray accumulate of the bilinear splat in a thread-block cluster's shared memory.
+"""Per-ray accumulate of the bilinear splat into a map held on chip, band by band.
 
 Counterpart of ``scatter_forward`` in ``tools/splat_formulation_bench.py``,
 the "literal per-ray VMEM accumulate" prototype. Its kernel lives in
 ``csrc/splat_scatter.cu``: ``splat_cluster_forward`` replaces
-``_scatter_kernel``. A heliostat's whole map is held on chip, split by rows
-over the blocks of a cluster (:func:`cluster_size` of them; two at 256 x 256
-fp32), each ray adds its four taps with shared-memory atomics into the
-owning block's rows, and each block then adds its rows to the map in device
-memory. Forward only, as in the tool.
+``_scatter_kernel`` with ``band_accumulate_kernel``. A heliostat's map is cut
+into bands of rows and its rays into shares (:func:`band_layout`); one thread
+block per (band, share, heliostat) holds its band in shared memory, reads
+every ray of its share and adds with shared-memory atomics only the taps that
+land in its rows, then adds the rows it touched to the map in device memory.
+No tap leaves the block's own SM. Forward only, as in the tool.
 
 :func:`splat_cluster_forward` dispatches on the tensors' device: a CUDA
 tensor launches the kernel or raises; a CPU tensor runs the plain version,
@@ -25,13 +26,15 @@ from artist_tpu_torch.kernels.build import load_library
 from artist_tpu_torch.kernels.splat import _check_bitmap, _check_rays, splat_forward_plain
 
 LAUNCHES = {"splat_cluster_forward": 0}
-# The portable limit of blocks in a cluster.
-MAX_CLUSTER = 8
-# The kernel's blocks are 1024 threads; each cluster takes about this many
-# rays per thread of its blocks, so the zeroing and flushing of its share of
-# the map spreads over enough rays.
-KERNEL_THREADS = 1024
-RAYS_PER_THREAD = 16
+# Two of the kernel's 1024-thread blocks share an SM when each band takes at
+# most half an SM's shared memory (the per-block opt-in limit is the SM's less
+# the 1 KB the card reserves for each block).
+BLOCKS_PER_SM = 2
+RESERVED_BYTES = 1024
+# Rays of one heliostat that a (band, share) block reads: enough that zeroing
+# and flushing its band is small next to its taps, few enough that the grid
+# has several waves of blocks to balance bands of unequal work.
+RAYS_PER_SHARE = 32_000
 
 _library: ctypes.CDLL | None = None
 
@@ -46,7 +49,7 @@ def _load() -> ctypes.CDLL:
     if _library is None:
         library = load_library("splat_scatter")
         pointer, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-        # e, u, w, out; M, N, H, W; cluster size, clusters per map; device, stream.
+        # e, u, w, out; M, N, H, W; rows a band, rays a share; device, stream.
         library.splat_scatter_forward.argtypes = [pointer] * 4 + [i64, i64, i32, i32, i32, i64, i32, pointer]
         library.splat_scatter_shared_limit.argtypes = [i32, ctypes.POINTER(ctypes.c_int)]
         for name in ("splat_scatter_forward", "splat_scatter_shared_limit"):
@@ -63,22 +66,28 @@ def _check_status(library: ctypes.CDLL, name: str, status: int) -> None:
         raise RuntimeError(f"{name} kernel launch failed: {message} ({status})")
 
 
-def cluster_size(height: int, width: int, shared_bytes: int) -> int:
-    """The fewest blocks, at most ``MAX_CLUSTER``, whose ``shared_bytes`` each hold an
-    fp32 ``[height, width]`` map split by rows; raises if no such cluster exists."""
-    for size in range(1, MAX_CLUSTER + 1):
-        if 4 * -(-height // size) * width <= shared_bytes:
-            return size
-    raise ValueError(
-        f"a {height} x {width} fp32 map does not fit the shared memory of {MAX_CLUSTER} blocks "
-        f"({shared_bytes} bytes each)"
-    )
+def band_layout(height: int, width: int, rays: int, shared_bytes: int) -> tuple[int, int]:
+    """The kernel's launch shape for ``[M, rays]`` rays onto ``[M, height, width]`` fp32 maps:
+    ``(rows a band, rays a share)``.
+
+    Bands are as equal as the fewest bands of at most half an SM's shared
+    memory allow (``shared_bytes`` is the per-block opt-in limit), and never
+    less than one row; shares as equal as ``RAYS_PER_SHARE`` rays each allow.
+    Raises if one row does not fit ``shared_bytes``.
+    """
+    row_bytes = 4 * width
+    if row_bytes > shared_bytes:
+        raise ValueError(f"a row of {width} fp32 pixels does not fit {shared_bytes} bytes of shared memory")
+    budget = max(shared_bytes // BLOCKS_PER_SM - RESERVED_BYTES, row_bytes)
+    bands = -(-height // (budget // row_bytes))
+    shares = max(1, -(-rays // RAYS_PER_SHARE))
+    return -(-height // bands), max(1, -(-rays // shares))
 
 
 def splat_cluster_forward_cuda(
     e: torch.Tensor, u: torch.Tensor, w: torch.Tensor, height: int, width: int
 ) -> torch.Tensor:
-    """Launch ``cluster_accumulate_kernel``: ``[M, N]`` rays -> ``[M, H, W]`` bitmaps."""
+    """Launch ``band_accumulate_kernel``: ``[M, N]`` rays -> ``[M, H, W]`` bitmaps."""
     _check_rays(e, u, w)
     _check_bitmap(height, width)
     if not e.is_cuda:
@@ -89,11 +98,10 @@ def splat_cluster_forward_cuda(
     library = _load()
     limit = ctypes.c_int(0)
     _check_status(library, "splat_scatter_shared_limit", library.splat_scatter_shared_limit(e.device.index, limit))
-    cluster = cluster_size(height, width, limit.value)
-    clusters_per_map = max(1, -(-e.shape[1] // (cluster * KERNEL_THREADS * RAYS_PER_THREAD)))
+    band_rows, rays_per_share = band_layout(height, width, e.shape[1], limit.value)
     status = library.splat_scatter_forward(
         e.data_ptr(), u.data_ptr(), w.data_ptr(), out.data_ptr(), e.shape[0], e.shape[1], height, width,
-        cluster, clusters_per_map, e.device.index, torch.cuda.current_stream(e.device).cuda_stream,
+        band_rows, rays_per_share, e.device.index, torch.cuda.current_stream(e.device).cuda_stream,
     )
     _check_status(library, "splat_cluster_forward", status)
     LAUNCHES["splat_cluster_forward"] += 1

@@ -15,9 +15,9 @@ launches after a warm-up:
 3. the 2-D window forward (96 x 128 windows, the same source), with its
    largest error relative to the peak against the full splat's plain version
    and its fit fraction;
-4. the per-ray accumulate into a whole map held in a thread-block cluster's
-   shared memory (``csrc/splat_scatter.cu``), at the full ray count, with its
-   error as in 3;
+4. the per-ray accumulate into a whole map held on chip, one band of rows
+   in each thread block's shared memory (``csrc/splat_scatter.cu``), at the
+   full ray count, with its error as in 3;
 5. ``index_add_`` of the same taps as the full splat, one PyTorch call: the
    yardstick of the forward;
 6. ``torch.sort`` of 32 M int32 pixel keys: the entry cost of any
@@ -172,7 +172,7 @@ def run(device="cuda") -> dict:
     result["window_2d_fit_fraction"] = float(fraction)
     result["window_2d_forward_ms"] = device_ms(lambda: window_2d_forward(e, u, w, RESOLUTION))
 
-    # 4. The per-ray accumulate in a cluster's shared memory, at the full ray count.
+    # 4. The per-ray accumulate in shared memory, band by band, at the full ray count.
     got = splat_cluster_forward_cuda(e, u, w, height, width)
     result["cluster_accumulate_max_rel_err"] = float((got - reference).abs().max()) / peak
     result["cluster_accumulate_forward_ms"] = device_ms(lambda: splat_cluster_forward_cuda(e, u, w, height, width))

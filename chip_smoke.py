@@ -22,9 +22,9 @@ exits non-zero without them. It imports only ``torch``, ``numpy`` and the
       version in float64;
    c. the flat route's kernels on the flat aim-point path's own first-epoch
       inputs (8 M rays against all 100 primitives) and on the same field
-      with its rows 3 m apart: the AABB cull bit for bit against its plain
-      version, there and on a batch of edge cases, and the flat sigma pair
-      against the float64 arbiter;
+      with its rows 3 m apart, timed on both: the AABB cull bit for bit
+      against its plain version, there and on a batch of edge cases, and the
+      flat sigma pair against the float64 arbiter;
 4. surface step: the flagship surface-reconstruction step (100 heliostats,
    50 x 50 points per facet x 4 facets, 32 rays per point = 32 M rays,
    256 x 256 bitmaps, ray chunks of 4) built from the port's public
@@ -56,7 +56,8 @@ Phase 3 also holds the dynamic-window kernels (3d: on the block-window
 step's first chunk, reordered as that step reorders it, on rays that force
 fallback blocks and on the edge cases; the kernel's count of blocks that fit
 their window equal to the plain windows' count) and the formulation tool's
-kernels (3e); phase 7 also checks a small block-window step and a small
+kernels (3e: the band accumulate also on rays that straddle every band
+border); phase 7 also checks a small block-window step and a small
 windowed step (7c).
 
 Each driven path sets every launch count to 0 just before it and reads them
@@ -212,6 +213,19 @@ SIGMA_BACKWARD_OPS_PER_PAIR = 194
 # differences, two products, a minimum, a maximum and the running entry and
 # exit (24), three comparisons, the own-primitive test and two ANDs.
 CULL_OPS_PER_PAIR = 30
+# The 67 TFLOP/s peak counts an FMA as two operations; none of the cull's is
+# an FMA, so its instructions issue at half that rate at best (128 lanes a
+# cycle an SM).
+PEAK_FP32_INSTRUCTIONS_PER_S = PEAK_FP32_FLOP_PER_S / 2
+# The cull kernel rules a box out for a warp's 128 consecutive rays at once
+# (blocking.cu, kCullChunk) with one interval test of the box against the
+# rays' bounds: per axis 4 differences and 16 products rounded outwards, 12
+# minima and maxima of the products and 2 for the axis's bounds (34), the
+# entry and exit bounds 4, three comparisons. A box some ray hits needs one
+# exact test. So per-pair tests are no floor for the cull's operations. None
+# of these is an FMA either: the bound counts them at the instruction rate.
+CULL_BUNDLE_RAYS = 128
+CULL_OPS_PER_BUNDLE = 109
 
 # Kernel-vs-plain tolerances, in units of the fp32 rounding unit u = 2^-24.
 # Forward: kernel and plain version add the same fp32 deposits (the products
@@ -245,8 +259,12 @@ ARBITER_FLOOR_ULPS = 64
 ARBITER_FLOOR_ABSOLUTE = 1e-30
 
 
-def _log(message: str) -> None:
-    print(message, flush=True)
+STARTED = time.perf_counter()
+
+
+def _log(message: str, stamp: bool = True) -> None:
+    """Prints a line; with ``stamp``, ended by the seconds since the script started."""
+    print(f"{message} [{time.perf_counter() - STARTED:.1f} s]" if stamp else message, flush=True)
 
 
 # The synthetic field puts its rows 12 m apart, and there nothing blocks; with
@@ -485,9 +503,9 @@ def _valid_taps(e, u, height, width):
     return valid, taps[valid.repeat(1, 4)]
 
 
-def bound_ms(bytes_moved: float, flops: float) -> tuple[float, str]:
+def bound_ms(bytes_moved: float, flops: float, peak_ops_per_s: float = PEAK_FP32_FLOP_PER_S) -> tuple[float, str]:
     byte_ms = bytes_moved / PEAK_BYTES_PER_S * 1e3
-    flop_ms = flops / PEAK_FP32_FLOP_PER_S * 1e3
+    flop_ms = flops / peak_ops_per_s * 1e3
     return (byte_ms, "bytes") if byte_ms >= flop_ms else (flop_ms, "operations")
 
 
@@ -785,10 +803,25 @@ def check_dynamic_window_kernels(inputs: StepInputs) -> dict[str, dict]:
     return timings
 
 
+def band_border_rays(width: int, height: int, device: torch.device):
+    """Three heliostats of 8 rays on every row: ray j of row r has u = r + (j + 0.5) / 8 and
+    e anywhere in the map, so for any cut of the map into bands of rows, rays on
+    the border rows put their upper taps in one band and their lower taps in
+    the next."""
+    rng = np.random.RandomState(SEED + 3)
+    num, per_row = 3, 8
+    u = np.arange(height - 1)[:, None] + (np.arange(per_row) + 0.5) / per_row
+    u = np.tile(u.reshape(1, -1), (num, 1))
+    e = rng.uniform(0, width - 1, u.shape)
+    w = rng.rand(*u.shape)
+    return tuple(torch.tensor(x.astype(np.float32), device=device) for x in (e, u, w))
+
+
 def check_formulation_kernels(device: torch.device) -> dict[str, dict]:
     """Phase 3e: the formulation tool's kernels, the 2-D window forward and the
-    cluster accumulate, against their plain versions on the tool's own rays
-    (its full shape, 32 M rays) and on the edge cases; the 2-D kernel's count of
+    per-ray band accumulate, against their plain versions on the tool's own rays
+    (its full shape, 32 M rays), on the edge cases and (the band accumulate
+    only) on rays that straddle every band border; the 2-D kernel's count of
     fitting blocks equal to the plain windows' count, some blocks fitting on
     the tool's rays and some falling back on the edge cases. Timed on the
     tool's rays."""
@@ -813,8 +846,12 @@ def check_formulation_kernels(device: torch.device) -> dict[str, dict]:
         err, share = check_forward("splat_cluster_forward", kernel, plain, rays, height, width)
         errors["splat_cluster_forward"], worst_share = max(errors["splat_cluster_forward"], err), max(worst_share, share)
         if not torch.isfinite(kernel).all():
-            raise AssertionError(f"{label}: non-finite bitmap from the cluster accumulate")
+            raise AssertionError(f"{label}: non-finite bitmap from the band accumulate")
         del kernel, plain
+    border = band_border_rays(width, height, device)
+    err, share = check_forward("splat_cluster_forward", splat_scatter.splat_cluster_forward_cuda(*border, height, width),
+                               splat_forward_plain(*border, height, width), border, height, width)
+    errors["splat_cluster_forward"], worst_share = max(errors["splat_cluster_forward"], err), max(worst_share, share)
     torch.cuda.synchronize()
     if not (fitting["tool rays"][0] > 0 and fitting["edge cases"][0] < fitting["edge cases"][2]):
         raise AssertionError(f"2-D window: the check is vacuous (fitting, plain, blocks: {fitting})")
@@ -841,12 +878,14 @@ def check_formulation_kernels(device: torch.device) -> dict[str, dict]:
         t.update(library_ms=library, bound=work["forward_bound"], max_abs_err=errors[name])
     _log(
         f"phase 3e formulation kernels: the tool's [{num}, {rays_per_map}] rays ({work['valid']} valid, "
-        f"{work['touched']} pixels touched) and the edge cases; 2-D blocks fitting (kernel, plain, of): "
+        f"{work['touched']} pixels touched), the edge cases and the band borders; 2-D blocks fitting (kernel, "
+        "plain, of): "
         + ", ".join(f"{label} {f}" for label, f in fitting.items())
         + f"; worst error {worst_share:.3g} of its tolerance: "
         + "; ".join(
-            f"{name} max_abs_err {t['max_abs_err']:.3g}, kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
-            f"library {t['library_ms']:.4f} ms, bound {t['bound'][0]:.4f} ms ({t['bound'][1]})"
+            f"{name} max_abs_err {t['max_abs_err']:.3g}, kernel {t['ms']:.4f} ms against index_add_'s "
+            f"{t['library_ms']:.4f} ms in this run, plain {t['plain_ms']:.4f} ms, bound {t['bound'][0]:.4f} ms "
+            f"({t['bound'][1]})"
             for name, t in timings.items()
         )
     )
@@ -1244,29 +1283,72 @@ def check_blocking_kernels(device: torch.device) -> dict[str, dict]:
 
 
 def cull_edge_cases() -> list[tuple]:
-    """Hand-built cull inputs, one heliostat each, and the keep flags they must give.
+    """Hand-built cull inputs and the keep flags they must give.
 
-    Returns ``(name, origins [1, P, 4], directions [1, N, 4], t_target [1, N],
-    own [1] (int64), aabb [3, 6], expected keep [3])`` numpy tuples. Primitive
+    Returns ``(name, origins [M, P, 4], directions [M, N, 4], t_target [M, N],
+    own [M] (int64), aabb [3, 6], expected keep [3])`` numpy tuples. Primitive
     0 spans y in [1, 2] and primitive 1 y in [3, 4], both x and z in [-1, 1];
-    primitive 2 spans x in [2, 3], y in [1, 2], z in [-1, 1]. The cases: the
-    own primitive; a blocker beyond the target; direction components of
-    exactly 0 and -0; a component of -1e-12, whose inverse is infinite (and
-    NaN where the origin lies on the box's face: 0 x inf); t_target = -1e30;
-    NaN and infinite directions. A minimum or maximum that drops NaN (fmaxf)
-    keeps primitives 0 and 1 in the NaN cases.
+    primitive 2 spans x in [2, 3], y in [1, 2], z in [-1, 1]. The cases, one
+    heliostat each unless named: the own primitive; a blocker beyond the
+    target; direction components of exactly 0 and -0; a component of -1e-12,
+    whose inverse is infinite (and NaN where the origin lies on the box's
+    face: 0 x inf); t_target = -1e30; NaN and infinite directions (a minimum
+    or maximum that drops NaN, fmaxf, keeps primitives 0 and 1 there). Then
+    the kernel's own edges (4 rays a thread, 128 a warp, 1,024 a block): only
+    the last of 3 heliostats' 2,100 rays hits anything, in a ragged last
+    chunk; every primitive kept; 2,049 rays, of which only the 2,049th hits;
+    2 heliostats of 100 rays, so that one lane holds rays of both, each
+    owning the primitive its own rays hit. Last, the warp's interval test at
+    its equalities: one warp's 128 rays, their directions all different and
+    all finite, of which one alone hits, entering primitive 0 at t equal to
+    its target (kept) or one float past it (dropped), or touching primitive 0's
+    and 2's edges, where its entry equals its exit.
     """
     aabb = np.array([[-1, 1, -1, 1, 2, 1], [-1, 3, -1, 1, 4, 1], [2, 1, -1, 3, 2, 1]], np.float32)
-    up = (0.0, 1.0, 0.0)
+    up, down = (0.0, 1.0, 0.0), (0.0, -1.0, 0.0)
 
     def case(name, points, directions, expected, t_target=10.0, own=-1):
-        origins = np.ones((1, len(points), 4), np.float32)
-        origins[0, :, :3] = points
-        rays = np.zeros((1, len(directions), 4), np.float32)
-        rays[0, :, :3] = directions
-        t = np.full((1, len(directions)), t_target, np.float32)
-        return name, origins, rays, t, np.array([own], np.int64), aabb, np.array(expected, np.float32)
+        """``points [P, 3]`` or ``[M, P, 3]``, ``directions [N, 3]`` or ``[M, N, 3]``."""
+        points = np.asarray(points, np.float32).reshape(-1, np.shape(points)[-2], 3)
+        directions = np.asarray(directions, np.float32).reshape(points.shape[0], -1, 3)
+        origins = np.ones(points.shape[:2] + (4,), np.float32)
+        origins[..., :3] = points
+        rays = np.zeros(directions.shape[:2] + (4,), np.float32)
+        rays[..., :3] = directions
+        t = np.full(rays.shape[:2], t_target, np.float32)
+        own = np.broadcast_to(np.asarray(own, np.int64), (points.shape[0],)).copy()
+        return name, origins, rays, t, own, aabb, np.array(expected, np.float32)
 
+    # 3 heliostats x 350 points x 2 rays, all aimed away from the boxes but the very last.
+    last_points = np.zeros((3, 350, 3))
+    last_points[2, 349] = (2.5, 0, 0)
+    last_directions = np.tile(down, (3, 700, 1))
+    last_directions[2, 699] = up
+    # 2,049 points, one ray each: the last one starts between primitives 0 and 1.
+    ragged_points = np.zeros((2049, 3))
+    ragged_points[2048] = (0, 2.5, 0)
+    ragged_directions = np.tile(down, (2049, 1))
+    ragged_directions[2048] = up
+    # Heliostat 0 rises through primitives 0 and 1 and owns 0; heliostat 1 through 2, its own.
+    mixed_points = np.stack([np.zeros((100, 3)), np.tile((2.5, 0, 0), (100, 1))])
+    # One warp's 128 rays, every component of every direction in (0.5, 2], each
+    # ray its own point. Ray 77 from the origin enters primitive 0 through its
+    # y = 1 face at t = 1; the others start at x = 5 and move away from every
+    # box. Over the bundle the bound of the entry is exactly 1.
+    k = np.arange(128) / 127
+    entry_points = np.stack([np.full(128, 5.0), -0.5 * k, np.zeros(128)], axis=1)
+    entry_points[77] = 0
+    entry_directions = np.stack([0.5 + 0.5 * k, 1 - 0.5 * k, 0.5 + 0.5 * (np.arange(128) * 37 % 128) / 127], axis=1)
+    entry_directions[77] = (0.5, 1, 0.5)
+    below_one = float(np.nextafter(np.float32(1), np.float32(0)))
+    # Ray 127 from the origin touches primitive 0 on its edge x = y = 1 at t = 1
+    # (entry equal to exit) and primitive 2 on its edge x = y = 2; the others
+    # start at z = 5 and rise. Over the bundle the bounds of primitive 0's entry
+    # and exit are both exactly 1.
+    graze_points = np.tile((0.0, 0.0, 5.0), (128, 1))
+    graze_points[127] = 0
+    graze_directions = np.stack([1 + k, 1 - 0.5 * k, 0.5 + 0.5 * (np.arange(128) * 37 % 128) / 127], axis=1)
+    graze_directions[127] = (1, 1, 0.5)
     return [
         case("own", [(0, 0, 0)], [up], [0, 1, 0], own=0),
         case("beyond_target", [(0, 0, 0)], [up], [1, 0, 0], t_target=2.5),
@@ -1276,6 +1358,13 @@ def cull_edge_cases() -> list[tuple]:
         case("t_target_-1e30", [(0, 0, 0)], [up], [0, 0, 0], t_target=-1e30),
         case("nan_inf_directions", [(0, 0, 0)],
              [(np.nan, 1, 0), (np.inf, 1, 0), (-np.inf, 1, 0), (0, np.inf, 0)], [0, 0, 0]),
+        case("last_ray_only", last_points, last_directions, [0, 0, 1]),
+        case("all_kept", [(0, 0, 0), (2.5, 0, 0)], [up, up], [1, 1, 1]),
+        case("ragged_rays", ragged_points, ragged_directions, [0, 1, 0]),
+        case("mixed_owners", mixed_points, np.tile(up, (2, 100, 1)), [0, 1, 0], own=[0, 2]),
+        case("bundle_entry_at_target", entry_points, entry_directions, [1, 0, 0], t_target=1.0),
+        case("bundle_entry_past_target", entry_points, entry_directions, [0, 0, 0], t_target=below_one),
+        case("bundle_edge_graze", graze_points, graze_directions, [1, 0, 1]),
     ]
 
 
@@ -1365,10 +1454,13 @@ def time_flat_kernels(cull_inputs, sigma_inputs, parameters, gbar) -> dict[str, 
     kept = keep.double()
     kept_count = float(kept.sum())
     needed = 1.0 if kept_count > 0 else 0.0
-    # The cull needs, for a primitive it drops, every ray that another heliostat
-    # owns, and for one it keeps a single hit.
+    # A cull that tests (ray, primitive) pairs needs, for a primitive it drops,
+    # every ray that another heliostat owns, and for one it keeps a single hit;
+    # with bundle tests, every primitive it drops against every bundle.
     owned_rays = torch.bincount(own[own >= 0], minlength=primitives)[:primitives].double() * directions.shape[1]
     cull_pairs = float(((total - owned_rays) * (1.0 - kept)).sum() + kept.sum())
+    bundles = -(-total // CULL_BUNDLE_RAYS)
+    cull_ops = CULL_OPS_PER_BUNDLE * bundles * (primitives - kept_count) + CULL_OPS_PER_PAIR * kept_count
     pairs = total * kept_count  # the sigma kernels skip keep = 0 primitives
     # Cull: per ray, direction 16 and t_target 4 read; per point, origin 16;
     # per heliostat, own 8; per primitive, its box 24 read and keep 4 written.
@@ -1389,8 +1481,9 @@ def time_flat_kernels(cull_inputs, sigma_inputs, parameters, gbar) -> dict[str, 
         "blocking_cull": dict(
             ms=event_ms(lambda: blocking_kernels.cull_cuda(*cull_inputs)),
             plain_ms=event_ms(lambda: blocking_kernels.cull_plain(*cull_inputs), 3, 1),
-            bound=bound_ms(cull_bytes, CULL_OPS_PER_PAIR * cull_pairs),
+            bound=bound_ms(cull_bytes, cull_ops, PEAK_FP32_INSTRUCTIONS_PER_S),
             pairs=cull_pairs,
+            issue_ms=CULL_OPS_PER_PAIR * cull_pairs / PEAK_FP32_INSTRUCTIONS_PER_S * 1e3,
         ),
         "blocking_sigma_flat_forward": dict(
             ms=event_ms(lambda: blocking_kernels.sigma_flat_forward_cuda(*sigma_inputs, *parameters)),
@@ -1514,6 +1607,8 @@ def check_flat_kernels(device: torch.device) -> dict[str, dict]:
             + ", ".join(
                 f"{name} kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, bound {t['bound'][0]:.4f} ms "
                 f"({t['bound'][1]}, {t['pairs']:.0f} pairs)"
+                + (f", its pairs tested one by one ({CULL_OPS_PER_PAIR} instructions each) at the issue rate "
+                   f"{t['issue_ms']:.4f} ms" if "issue_ms" in t else "")
                 for name, t in r["timings"].items()
             )
             for label, r in results.items()
@@ -1891,7 +1986,7 @@ def main() -> int:
     name = torch.cuda.get_device_name(0)
     _log(f"phase 1 device: {name}, {torch.cuda.device_count()} visible, torch {torch.__version__}, "
          f"CUDA {torch.version.cuda}, TF32 off")
-    _log(smi)
+    _log(smi, stamp=False)
 
     start = time.perf_counter()
     built = build_all()
@@ -1969,8 +2064,9 @@ def main() -> int:
                 **{key: t[key] for key in sorted(case_keys) if key in t},
             }
         )
-    _log(json.dumps({"kernels": kernels}))
-    _log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
+    _log(json.dumps({"kernels": kernels}), stamp=False)
+    _log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}),
+         stamp=False)
     return 0
 
 

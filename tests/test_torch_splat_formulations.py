@@ -129,15 +129,33 @@ def test_cluster_accumulate_plain_version_matches_jax(jax_tool):
 
 
 @pytest.mark.parametrize(
-    "shape, size", [((256, 256), 2), ((64, 64), 1), ((512, 512), 5), ((1024, 1024), None)],
-    ids=["flagship", "small", "512", "too_large"],
+    "height, width, rays, layout",
+    [
+        (256, 256, 320_000, (86, 32_000)),  # the tool's maps: 3 bands of 86 KB, 10 shares
+        (64, 64, 25_600, (64, 25_600)),  # the whole map in one band, one share
+        (1, 256, 1_000, (1, 1_000)),
+        (4096, 256, 64_000, (111, 32_000)),  # taller than 8 blocks' shared memory: 37 bands
+        (256, 256, 100_001, (86, 25_001)),  # 4 shares that do not divide N: the last takes 24,998
+        (256, 40_000, 10, (1, 10)),  # one row is more than half an SM: one row a band
+        (256, 60_000, 10, None),  # one row does not fit a block
+    ],
+    ids=["tool", "small", "one_row", "tall", "ragged_shares", "wide", "too_wide"],
 )
-def test_cluster_size(shape, size):
-    if size is None:
+def test_band_layout(height, width, rays, layout):
+    if layout is None:
         with pytest.raises(ValueError, match="does not fit"):
-            splat_scatter.cluster_size(*shape, H100_SHARED_BYTES)
-    else:
-        assert splat_scatter.cluster_size(*shape, H100_SHARED_BYTES) == size
+            splat_scatter.band_layout(height, width, rays, H100_SHARED_BYTES)
+        return
+    band_rows, rays_per_share = splat_scatter.band_layout(height, width, rays, H100_SHARED_BYTES)
+    assert (band_rows, rays_per_share) == layout
+    bands, shares = -(-height // band_rows), -(-rays // rays_per_share)
+    # Every row and every ray has exactly one band and one share, none of them empty.
+    assert (bands - 1) * band_rows < height <= bands * band_rows
+    assert (shares - 1) * rays_per_share < rays <= shares * rays_per_share
+    # Two blocks share an SM (its shared memory is the opt-in limit plus one block's reserve),
+    # unless one row alone is more than half of it.
+    reserve = splat_scatter.RESERVED_BYTES
+    assert 2 * (4 * band_rows * width + reserve) <= H100_SHARED_BYTES + reserve or band_rows == 1
 
 
 def test_plain_paths_launch_no_kernel():
