@@ -23,11 +23,14 @@ kernels live in ``csrc/blocking.cu``:
     the exact test only where some ray may hit, and a box found is published
     to every block at once; it equals its plain version bit for bit;
   - ``blocking_sigma_flat_forward`` replaces ``_sigma_forward_kernel`` with
-    ``gated=False``: one thread per ray over all kept primitives;
+    ``gated=False``: each block first gathers the kept primitives in
+    ascending order, then one thread per ray loops over them alone; with
+    none kept it writes zeros without reading a ray;
   - ``blocking_sigma_flat_backward`` replaces ``_sigma_bwd_rays_kernel`` and
-    ``_sigma_bwd_prims_kernel`` with ``gated=False``, fused: per-ray
-    cotangents, and per-primitive cotangents summed over the whole field by a
-    persistent grid and a second, fixed-order reduction.
+    ``_sigma_bwd_prims_kernel`` with ``gated=False``, fused: the same gather,
+    4 rays a thread, per-ray cotangents, and per-primitive cotangents summed
+    over the whole field by a persistent grid and a second, fixed-order
+    reduction.
 
 What bounds them on the H100 depends on how many primitives a ray meets:
 operations on the flat route and with every candidate slot kept, the ray
@@ -81,6 +84,10 @@ MAX_BLOCKS_PER_SM = 8
 CULL_DIRECTION_OFFSET = 1e-12
 # Exponents of the soft gates are clamped here: e^80 stays finite in fp32.
 EXP_CLAMP = 80.0
+# A gate exponent of at least this makes its denominator at least e^45 > 2^64;
+# two such denominators overflow their product, so sigma = 1 / inf = 0 and the
+# flat kernels skip the pair's gates (csrc/blocking.cu, gates_overflow).
+GATE_OVERFLOW_EXPONENT = 45.0
 
 _library: ctypes.CDLL | None = None
 
@@ -269,9 +276,9 @@ def sigma_flat_forward_cuda(origins, directions, columns, keep,
     """Launch ``sigma_flat_forward_kernel``: ``sigma [M, N]`` over every primitive."""
     _require_cuda(origins)
     _check_flat_inputs(origins, directions, columns, keep)
-    sigma = torch.zeros(directions.shape[:2], dtype=torch.float32, device=origins.device)
-    if sigma.numel() == 0 or columns.shape[0] == 0:
-        return sigma
+    if directions.shape[0] * directions.shape[1] == 0 or columns.shape[0] == 0:
+        return torch.zeros(directions.shape[:2], dtype=torch.float32, device=origins.device)
+    sigma = torch.empty(directions.shape[:2], dtype=torch.float32, device=origins.device)  # the kernel writes every ray
     library = _load()
     status = library.blocking_sigma_flat_forward(
         origins.data_ptr(), directions.data_ptr(), columns.data_ptr(), keep.data_ptr(), sigma.data_ptr(),
@@ -506,6 +513,17 @@ def sigma_flat_backward_plain(origins, directions, columns, keep, gbar,
         column_grads.append(torch.stack([x.sum() for x in column_parts]))
     grad_columns = torch.stack(column_grads) if column_grads else torch.zeros_like(columns)
     return (*_ray_cotangents(ray_grads, origins.shape[1]), grad_columns)
+
+
+def gates_overflow(pair: dict, softness: float, offset: float) -> torch.Tensor:
+    """Where the flat kernels skip a pair's gates, from ``_pair_terms``' terms: two of
+    its three gate exponents are at least ``GATE_OVERFLOW_EXPONENT``, so the product of
+    the gate denominators overflows and the pair's sigma is exactly 0."""
+    k = softness
+    far_u = torch.maximum(-k * pair["u"], -k * (1.0 - pair["u"])) >= GATE_OVERFLOW_EXPONENT
+    far_v = torch.maximum(-k * pair["v"], -k * (1.0 - pair["v"])) >= GATE_OVERFLOW_EXPONENT
+    far_t = -k * (pair["t"] - offset) >= GATE_OVERFLOW_EXPONENT
+    return (far_u & far_v) | (far_t & (far_u | far_v))
 
 
 @torch.library.custom_op("artist_tpu_torch::blocking_sigma", mutates_args=())

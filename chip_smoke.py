@@ -88,7 +88,7 @@ from artist_tpu_torch.field import heliostat_group as hg  # noqa: E402
 from artist_tpu_torch.field.solar_tower import get_centers_of_target_areas  # noqa: E402
 from artist_tpu_torch.flux.bitmap import trapezoid_distribution  # noqa: E402
 from artist_tpu_torch.kernels import blocking as blocking_kernels  # noqa: E402
-from artist_tpu_torch.kernels.build import build_all  # noqa: E402
+from artist_tpu_torch.kernels.build import build_all, build_library  # noqa: E402
 from artist_tpu_torch.kernels.splat import LAUNCHES as SPLAT_LAUNCHES  # noqa: E402
 from artist_tpu_torch.kernels.splat import reset_launch_counts as reset_splat_launch_counts  # noqa: E402
 from artist_tpu_torch.kernels.splat import (  # noqa: E402
@@ -105,7 +105,7 @@ from artist_tpu_torch.raytracing.blocking import create_blocking_primitives_rect
 from artist_tpu_torch.raytracing.render import RenderConfig, point_permutation, ray_splat_inputs, trace_rays  # noqa: E402
 from artist_tpu_torch.raytracing.render import point_major as render_point_major  # noqa: E402
 from artist_tpu_torch.scenario.synthetic import make_synthetic_scenario  # noqa: E402
-from artist_tpu_torch.tools import splat_formulation_bench  # noqa: E402
+from artist_tpu_torch.tools import sass_counts, splat_formulation_bench  # noqa: E402
 from artist_tpu_torch.util import constants  # noqa: E402
 
 # The flagship configuration of bench.py's differentiable step.
@@ -209,6 +209,10 @@ BACKWARD_FLOPS_PER_RAY = 29
 # ray cotangents 36, the 16 candidate cotangents 41, their sum over rays 16.
 SIGMA_FORWARD_OPS_PER_PAIR = 72
 SIGMA_BACKWARD_OPS_PER_PAIR = 194
+# A flat pair whose gates overflow (sigma exactly 0; kernels.blocking.gates_overflow)
+# needs, forward and backward, only the forward's 47 up to the local coordinates,
+# the five exponents' arguments 8, two maxima and three comparisons 5.
+SIGMA_ZERO_PAIR_OPS = 60
 # fp32 operations per (ray, primitive) pair the cull tests: per axis two
 # differences, two products, a minimum, a maximum and the running entry and
 # exit (24), three comparisons, the own-primitive test and two ANDs.
@@ -488,6 +492,28 @@ def event_ms(fn, iterations: int = 20, warmup: int = 3) -> float:
     start.record()
     for _ in range(iterations):
         fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iterations
+
+
+def graph_ms(fn, iterations: int = 20) -> float:
+    """Mean device time of ``fn`` over ``iterations`` calls captured in one CUDA graph and
+    replayed: the launches run back to back with no host work between them. Where a
+    wrapper's host time is longer than its kernels, event_ms measures the host; this
+    measures the device."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iterations):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iterations
@@ -1404,19 +1430,28 @@ def _flat_per_heliostat(fn, rays, primitives, parameters, dtype, chunk: int = 10
     return torch.cat(grad_origins), torch.cat(grad_directions), torch.stack(grad_columns).sum(dim=0)
 
 
-def check_flat_sigma_pair(label: str, inputs, parameters, gbar, alpha: float = 100.0) -> dict:
+def check_flat_sigma_pair(label: str, inputs, parameters, gbar, alpha: float = 100.0, chunk: int = 10) -> dict:
     """The flat sigma kernels against the plain version, fp32 and float64, on ``inputs``
-    (origins, directions, columns, keep), held to the arbiter as in phase 3b."""
+    (origins, directions, columns, keep), held to the arbiter as in phase 3b; the plain
+    versions take ``chunk`` heliostats at a time."""
     origins, directions, columns, keep = inputs
     sigma = blocking_kernels.sigma_flat_forward_cuda(*inputs, *parameters)
     grads = blocking_kernels.sigma_flat_backward_cuda(*inputs, gbar, *parameters)
+    # sigma and the direction and column cotangents are sums in a fixed order.
+    sigma_again = blocking_kernels.sigma_flat_forward_cuda(*inputs, *parameters)
+    grads_again = blocking_kernels.sigma_flat_backward_cuda(*inputs, gbar, *parameters)
     torch.cuda.synchronize()
+    for what, first, second in (("sigma", sigma, sigma_again), ("directions", grads[1], grads_again[1]),
+                                ("columns", grads[2], grads_again[2])):
+        if not torch.equal(first, second):
+            raise AssertionError(f"{label}: two launches differ in {what}")
+    del sigma_again, grads_again
     rays, primitives = (origins, directions), (columns, keep)
     forward, backward = blocking_kernels.sigma_flat_forward_plain, blocking_kernels.sigma_flat_backward_plain
-    plain = _flat_per_heliostat(forward, rays, primitives, parameters, torch.float32)
-    reference = _flat_per_heliostat(forward, rays, primitives, parameters, torch.float64)
-    plain_grads = _flat_per_heliostat(backward, rays + (gbar,), primitives, parameters, torch.float32)
-    reference_grads = _flat_per_heliostat(backward, rays + (gbar,), primitives, parameters, torch.float64)
+    plain = _flat_per_heliostat(forward, rays, primitives, parameters, torch.float32, chunk)
+    reference = _flat_per_heliostat(forward, rays, primitives, parameters, torch.float64, chunk)
+    plain_grads = _flat_per_heliostat(backward, rays + (gbar,), primitives, parameters, torch.float32, chunk)
+    reference_grads = _flat_per_heliostat(backward, rays + (gbar,), primitives, parameters, torch.float64, chunk)
     worst = {
         "sigma": _arbitrate(f"{label} flat sigma", sigma, plain, reference),
         "mask": _arbitrate(
@@ -1441,6 +1476,20 @@ def check_flat_sigma_pair(label: str, inputs, parameters, gbar, alpha: float = 1
     )
 
 
+def flat_zero_pairs(origins, directions, columns, keep,
+                    softness: float, ray_origin_offset: float, epsilon: float) -> int:
+    """How many (ray, kept primitive) pairs the flat sigma kernels leave after their
+    geometry (``kernels.blocking.gates_overflow``), for their bounds' operation counts."""
+    num = origins.shape[0]
+    rays = blocking_kernels._rays(origins, directions)
+    count = 0
+    for b in torch.nonzero(keep).flatten().tolist():
+        column = columns[b].expand(num, blocking_kernels.NUM_COLUMNS)
+        _, pair = blocking_kernels._pair_terms(rays, column, None, softness, ray_origin_offset, epsilon)
+        count += int(blocking_kernels.gates_overflow(pair, softness, ray_origin_offset).sum())
+    return count
+
+
 def time_flat_kernels(cull_inputs, sigma_inputs, parameters, gbar) -> dict[str, dict]:
     """The flat route's kernels' and plain versions' times on the path's inputs, and
     the card's bound for the same work (as :func:`time_sigma_pair`). With no
@@ -1462,6 +1511,9 @@ def time_flat_kernels(cull_inputs, sigma_inputs, parameters, gbar) -> dict[str, 
     bundles = -(-total // CULL_BUNDLE_RAYS)
     cull_ops = CULL_OPS_PER_BUNDLE * bundles * (primitives - kept_count) + CULL_OPS_PER_PAIR * kept_count
     pairs = total * kept_count  # the sigma kernels skip keep = 0 primitives
+    zero_pairs = flat_zero_pairs(*sigma_inputs, *parameters) if kept_count else 0
+    forward_ops = SIGMA_FORWARD_OPS_PER_PAIR * (pairs - zero_pairs) + SIGMA_ZERO_PAIR_OPS * zero_pairs
+    backward_ops = SIGMA_BACKWARD_OPS_PER_PAIR * (pairs - zero_pairs) + SIGMA_ZERO_PAIR_OPS * zero_pairs
     # Cull: per ray, direction 16 and t_target 4 read; per point, origin 16;
     # per heliostat, own 8; per primitive, its box 24 read and keep 4 written.
     cull_bytes = 20 * total + 16 * num * points + 8 * num + 28 * primitives
@@ -1487,17 +1539,21 @@ def time_flat_kernels(cull_inputs, sigma_inputs, parameters, gbar) -> dict[str, 
         ),
         "blocking_sigma_flat_forward": dict(
             ms=event_ms(lambda: blocking_kernels.sigma_flat_forward_cuda(*sigma_inputs, *parameters)),
+            graph_ms=graph_ms(lambda: blocking_kernels.sigma_flat_forward_cuda(*sigma_inputs, *parameters)),
             plain_ms=event_ms(lambda: blocking_kernels.sigma_flat_forward_plain(*sigma_inputs, *parameters), 3, 1),
-            bound=bound_ms(forward_bytes, SIGMA_FORWARD_OPS_PER_PAIR * pairs),
+            bound=bound_ms(forward_bytes, forward_ops),
             pairs=pairs,
+            zero_pairs=zero_pairs,
         ),
         "blocking_sigma_flat_backward": dict(
             ms=event_ms(lambda: blocking_kernels.sigma_flat_backward_cuda(*sigma_inputs, gbar, *parameters)),
+            graph_ms=graph_ms(lambda: blocking_kernels.sigma_flat_backward_cuda(*sigma_inputs, gbar, *parameters)),
             plain_ms=event_ms(
                 lambda: blocking_kernels.sigma_flat_backward_plain(*sigma_inputs, gbar, *parameters), 3, 1
             ),
-            bound=bound_ms(backward_bytes, SIGMA_BACKWARD_OPS_PER_PAIR * pairs),
+            bound=bound_ms(backward_bytes, backward_ops),
             pairs=pairs,
+            zero_pairs=zero_pairs,
         ),
     }
 
@@ -1506,16 +1562,21 @@ def time_flat_kernels(cull_inputs, sigma_inputs, parameters, gbar) -> dict[str, 
 # the flat aim-point path's own; on the dense rows the check must not be vacuous.
 FLAT_CASES = (("aim-point field", None, None), ("dense rows", "dense_rows", DENSE_ROW_SPACING))
 # The dense rows' primitives repeated three times (B = 300) against the rays of
-# their last 25 heliostats (2 M rays, not a whole number of 256-ray tiles; the
-# back rows, whose own boxes and front neighbours are the primitives kept, so
-# that some are kept past 128 and past 256): past one primitive tile of the
-# cull and the forward (256) and two passes of the backward (128), and a
-# ragged last ray tile.
-MANY_PRIMITIVES = dict(copies=3, heliostats=25)
+# their last heliostats, twice. First with the cull's keep flags on the last 25
+# heliostats' rays: the back rows, whose own boxes and front neighbours are the
+# primitives kept, so that some are kept past 128 and past 256 and the
+# kernels' gather must pick them out of every 256 flags (95 kept). Then with
+# every primitive kept, as the flat route keeps them without target distances,
+# on the last 9 heliostats' rays: past the forward's 256-primitive tile and
+# through the backward's second and third 128-primitive passes. Neither ray
+# count (2 M, 720 K) is a whole number of ray tiles (256 rays forward, 256 to
+# 1,024 backward).
+MANY_PRIMITIVES = dict(copies=3, heliostats=25, all_kept_heliostats=9)
 
 
-def check_many_primitives(cull_inputs, sigma_inputs, parameters) -> dict:
-    """The flat kernels on MANY_PRIMITIVES: the cull bit for bit, the sigma pair to the arbiter."""
+def check_many_primitives(cull_inputs, sigma_inputs, parameters) -> dict[str, dict]:
+    """The flat kernels on MANY_PRIMITIVES: the cull bit for bit, the sigma pair to the
+    arbiter with the cull's keep flags ("culled") and with every primitive kept ("all kept")."""
     copies, heliostats = MANY_PRIMITIVES["copies"], MANY_PRIMITIVES["heliostats"]
     origins, directions, t_target, own = (x[-heliostats:] for x in cull_inputs[:4])
     aabb = cull_inputs[4].repeat(copies, 1)
@@ -1525,22 +1586,53 @@ def check_many_primitives(cull_inputs, sigma_inputs, parameters) -> dict:
         raise AssertionError("many primitives: the cull kernel differs from its plain version")
     if not (keep[128:256].sum() > 0 and keep[256:].sum() > 0):
         raise AssertionError(f"many primitives: no primitive kept past 128 or past 256 ({keep.tolist()})")
-    inputs = (origins, directions, sigma_inputs[2].repeat(copies, 1), keep)
+    columns = sigma_inputs[2].repeat(copies, 1)
     gbar = torch.randn(
         directions.shape[:2], device=origins.device, generator=torch.Generator(device=origins.device).manual_seed(SEED + 6)
     )
-    result = check_flat_sigma_pair("many primitives", inputs, parameters, gbar)
-    result["kept_primitives"] = int(keep.sum())
-    result["shape"] = (directions.shape[0], directions.shape[1], keep.numel())
-    return result
+    results = {}
+    for label, flags, last in (("culled", keep, heliostats),
+                               ("all kept", torch.ones_like(keep), MANY_PRIMITIVES["all_kept_heliostats"])):
+        inputs = (origins[-last:], directions[-last:], columns, flags)
+        # All their heliostats at once: the plain versions' cost is per primitive and slice.
+        result = check_flat_sigma_pair(f"many primitives, {label}", inputs, parameters, gbar[-last:], chunk=last)
+        result["kept_primitives"] = int(flags.sum())
+        result["shape"] = (last, directions.shape[1], flags.numel())
+        results[label] = result
+    return results
+
+
+def flat_sigma_floors(pairs: float, zero_pairs: float) -> dict[str, dict | None] | None:
+    """The flat sigma kernels' pair loops as compiled (``sass_counts``: instructions
+    per pair by class) and their floors at ``pairs`` pairs, ``zero_pairs`` of them
+    left after their geometry: the instructions at the card's issue rate and the
+    MUFU operations at the MUFU pipe's rate. The floors are a reading, not a check:
+    None for a kernel whose pair loop the tool does not find, and None for all
+    where ``cuobjdump`` is missing or fails."""
+    try:
+        loops = sass_counts.loop_counts(build_library("blocking")[0])
+    except (OSError, subprocess.CalledProcessError):
+        return None
+    names = {
+        "blocking_sigma_flat_forward": "sigma_flat_forward_kernel",
+        "blocking_sigma_flat_backward": "sigma_flat_backward_kernel",
+    }
+    floors = {}
+    for name, kernel in names.items():
+        loop = loops.get(kernel)
+        floors[name] = loop and dict(per_pair=loop["per_pair"], **sass_counts.floors_ms(loop, pairs, zero_pairs))
+    return floors
 
 
 def check_flat_kernels(device: torch.device) -> dict[str, dict]:
     """Phase 3c: the flat route's kernels on the flat aim-point path's first-epoch
     inputs, on the same field with rows 3 m apart, and there with its primitives
     repeated (MANY_PRIMITIVES). The cull equals its plain version bit for bit (and
-    the keep flags the path used); the sigma pair is held to the float64 arbiter;
-    each is timed on the first two. The kernel table reports the first."""
+    the keep flags the path used); the sigma pair is held to the float64 arbiter
+    and gives the same sigma and direction and column cotangents at every launch;
+    each is timed on the first two. The phase line also gives the sigma
+    pair's pair-loop instructions (``sass_counts``) and the floors they set on the
+    dense rows. The kernel table reports the first field."""
     results = {}
     for label, _, spacing in FLAT_CASES:
         cull_inputs, (sigma_inputs, parameters) = flat_inputs(device, spacing)
@@ -1570,6 +1662,8 @@ def check_flat_kernels(device: torch.device) -> dict[str, dict]:
             f"dense rows, flat: the check is vacuous ({dense['kept_primitives']} kept primitives, max sigma "
             f"{dense['sigma_max']}, blocked share {dense['blocked_share']})"
         )
+    dense_forward = dense["timings"]["blocking_sigma_flat_forward"]
+    floors = flat_sigma_floors(dense_forward["pairs"], dense_forward["zero_pairs"])
     replaces = {
         "blocking_cull": "artist_tpu/kernels/blocking_pallas.py:414 (_cull_kernel, pallas_call :506)",
         "blocking_sigma_flat_forward":
@@ -1591,7 +1685,7 @@ def check_flat_kernels(device: torch.device) -> dict[str, dict]:
             kept_primitives={key or "aim_point": results[label]["kept_primitives"] for label, key, _ in FLAT_CASES},
             **{
                 key: {"ms": x["ms"], "plain_ms": x["plain_ms"], "bound_ms": x["bound"][0],
-                      "bound_by": x["bound"][1], "pairs": x["pairs"]}
+                      "bound_by": x["bound"][1], "pairs": x["pairs"], "zero_pairs": x.get("zero_pairs")}
                 for label, key, _ in FLAT_CASES[1:]
                 for x in (results[label]["timings"][name],)
             },
@@ -1605,17 +1699,30 @@ def check_flat_kernels(device: torch.device) -> dict[str, dict]:
             + json.dumps({k: round(v, 4) for k, v in r["worst_share"].items()})
             + ", "
             + ", ".join(
-                f"{name} kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, bound {t['bound'][0]:.4f} ms "
-                f"({t['bound'][1]}, {t['pairs']:.0f} pairs)"
+                f"{name} kernel {t['ms']:.4f} ms"
+                + (f" ({t['graph_ms']:.4f} ms replayed from a CUDA graph)" if "graph_ms" in t else "")
+                + f", plain {t['plain_ms']:.4f} ms, bound {t['bound'][0]:.4f} ms ({t['bound'][1]}, {t['pairs']:.0f} pairs"
+                + (f", {t['zero_pairs']} of them with sigma 0)" if "zero_pairs" in t else ")")
                 + (f", its pairs tested one by one ({CULL_OPS_PER_PAIR} instructions each) at the issue rate "
                    f"{t['issue_ms']:.4f} ms" if "issue_ms" in t else "")
                 for name, t in r["timings"].items()
             )
             for label, r in results.items()
         )
-        + f"; many primitives ([{many['shape'][0]}, {many['shape'][1]}] rays x B = {many['shape'][2]}): kept "
-        f"primitives {many['kept_primitives']}, max sigma {many['sigma_max']:.4g}, worst share of the arbiter's limit "
-        + json.dumps({k: round(v, 4) for k, v in many["worst_share"].items()})
+        + "".join(
+            f"; many primitives, {label} ([{r['shape'][0]}, {r['shape'][1]}] rays x B = {r['shape'][2]}): kept "
+            f"primitives {r['kept_primitives']}, max sigma {r['sigma_max']:.4g}, worst share of the arbiter's limit "
+            + json.dumps({k: round(v, 4) for k, v in r["worst_share"].items()})
+            for label, r in many.items()
+        )
+        + "; "
+        + ("flat sigma pair-loop floors not available (cuobjdump missing or failed)" if floors is None else "; ".join(
+            f"{name} pair loop "
+            + (f"{json.dumps({k: v if v is None else round(v, 2) for k, v in f['per_pair'].items()})} instructions a "
+               f"pair, floors on the dense rows: issue {f['issue_ms']:.4f} ms, MUFU {f['mufu_ms']:.4f} ms"
+               if f else "not found in the SASS")
+            for name, f in floors.items()
+        ))
         + "; max |kernel - fp32 plain|: "
         + ", ".join(f"{name} {t['max_abs_err']:.3g}" for name, t in timings.items())
     )

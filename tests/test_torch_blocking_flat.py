@@ -22,9 +22,15 @@ Tolerances, each with its reason:
 - the plain backward against autograd through the plain forward, in float64:
   ``1e-10`` relative to each cotangent's largest entry (they differ by
   float64 rounding only);
+- the plain flat sigma and its cotangents against JAX's
+  ``blocking_sigma_pallas`` under explicit keep patterns (softness 6):
+  ``2e-6`` of each output's largest entry (the same fp32 formulas; they
+  differ by ~3e-7); and against the plain versions over the kept primitives
+  alone: exactly;
 - ``primitive_chunk`` changes nothing: identical results.
 """
 
+import pathlib
 import sys
 
 import numpy as np
@@ -220,6 +226,132 @@ def test_plain_flat_backward_matches_autograd_in_float64():
     grad_origins, grad_directions, grad_columns = derived
     assert (grad_columns[::4] == 0).all()  # the culled primitives
     assert (grad_directions[..., 3] == 0).all() and (grad_origins[..., 3] == 0).all()
+
+
+def _keep_pattern(pattern: str, primitives: int) -> np.ndarray:
+    keep = np.zeros(primitives, np.float32)
+    if pattern == "first":
+        keep[0] = 1.0
+    elif pattern == "last":
+        keep[-1] = 1.0
+    elif pattern == "scattered":
+        keep[[1, 4, 5, 9, 12]] = 1.0
+    elif pattern == "all":
+        keep[:] = 1.0
+    return keep
+
+
+def _jax_flat_sigma(origins, directions, table, keep, gbar, parameters):
+    """JAX's ``blocking_sigma_pallas`` (interpret mode) and its VJP on the port's layout,
+    padded as ``soft_ray_blocking_mask_pallas`` pads: sigma ``[M, N]``, the origin
+    cotangents summed over each point's rays ``[M, P, 3]``, the direction cotangents
+    ``[M, N, 3]`` and the column cotangents ``[B, 16]``."""
+    heliostats, rays = directions.shape[:2]
+    points = origins.shape[1]
+    total = heliostats * rays
+    block = max(jax_pallas.RAY_BLOCK, jax_pallas.BWD_RAY_BLOCK)
+    padded = -(-total // block) * block
+    primitives = table.shape[0]
+    padded_primitives = -(-primitives // jax_pallas.PRIM_TILE) * jax_pallas.PRIM_TILE
+
+    def flat(x):
+        return jnp.pad(jnp.asarray(x, jnp.float32).reshape(-1), (0, padded - total))
+
+    origins3 = np.broadcast_to(origins[:, None, :, :3], (heliostats, rays // points, points, 3)).reshape(total, 3)
+    ray_components = tuple(flat(origins3[:, a]) for a in range(3)) + tuple(
+        flat(directions[..., a]) for a in range(3)
+    )
+    valid = flat(np.ones(total))
+    columns = tuple(
+        jnp.pad(jnp.asarray(table[:, j]), (0, padded_primitives - primitives))[:, None] for j in range(16)
+    )
+    keep_column = jnp.pad(jnp.asarray(keep), (0, padded_primitives - primitives))[:, None]
+    sigma, vjp = jax.vjp(
+        lambda r, c: jax_pallas.blocking_sigma_pallas(r, valid, c, keep_column, *parameters), ray_components, columns
+    )
+    ray_grads, column_grads = vjp(flat(gbar))
+    per_ray = np.stack([np.asarray(g)[:total] for g in ray_grads], axis=-1).reshape(heliostats, rays, 6)
+    grad_origins = per_ray[..., :3].reshape(heliostats, rays // points, points, 3).sum(axis=1)
+    grad_columns = np.concatenate([np.asarray(g) for g in column_grads], axis=1)[:primitives]
+    return np.asarray(sigma)[:total].reshape(heliostats, rays), grad_origins, per_ray[..., 3:], grad_columns
+
+
+@pytest.mark.parametrize("pattern", ["none", "first", "last", "scattered", "all"])
+def test_flat_sigma_keep_patterns(pattern):
+    """What the flat kernels' compaction of kept primitives relies on, for each keep pattern.
+
+    The plain flat sigma and its cotangents equal JAX's ``blocking_sigma_pallas`` with the
+    same explicit keep (fp32 on both sides, the same formulas in the same order: 2e-6 of
+    each output's largest entry, for XLA's other contractions and summation order). And
+    with keep = mask they equal, exactly, the plain versions over ``columns[mask]`` with
+    every primitive kept: a dropped primitive adds an exact zero to every sum, its column
+    cotangents are exactly 0, and the kept ones are summed in the same ascending order.
+    """
+    inputs, gbar = _random_sigma_inputs(torch.float32)
+    origins, directions, _, columns, _ = inputs
+    table = columns.reshape(-1, kernels.NUM_COLUMNS).contiguous()
+    keep = torch.tensor(_keep_pattern(pattern, table.shape[0]))
+    parameters = (6.0, 0.05, 1e-12)
+    sigma = kernels.sigma_flat_forward_plain(origins, directions, table, keep, *parameters)
+    grads = kernels.sigma_flat_backward_plain(origins, directions, table, keep, gbar, *parameters)
+
+    theirs = _jax_flat_sigma(*(x.numpy() for x in (origins, directions, table, keep, gbar)), parameters)
+    ours = (sigma, grads[0][..., :3], grads[1][..., :3], grads[2])
+    for name, mine, other in zip(("sigma", "origins", "directions", "columns"), ours, theirs):
+        scale = float(np.abs(other).max())
+        np.testing.assert_allclose(mine.numpy(), other, rtol=0, atol=2e-6 * scale, err_msg=name)
+    if pattern == "none":
+        assert float(sigma.abs().max()) == 0.0 and all(float(g.abs().max()) == 0.0 for g in grads)
+    else:
+        assert float(sigma.max()) > 0.1  # the kept primitives block
+
+    mask = keep != 0
+    compact = table[mask].contiguous()
+    ones = torch.ones(compact.shape[0])
+    torch.testing.assert_close(
+        kernels.sigma_flat_forward_plain(origins, directions, compact, ones, *parameters), sigma, rtol=0, atol=0
+    )
+    compact_grads = kernels.sigma_flat_backward_plain(origins, directions, compact, ones, gbar, *parameters)
+    for name, mine, other in zip(("origins", "directions"), grads[:2], compact_grads[:2]):
+        torch.testing.assert_close(mine, other, rtol=0, atol=0, msg=name)
+    torch.testing.assert_close(grads[2][mask], compact_grads[2], rtol=0, atol=0)
+    assert (grads[2][~mask] == 0).all()
+
+
+@pytest.mark.parametrize("softness", [60.0, 1000.0])
+def test_pairs_whose_gates_overflow_add_exact_zeros(softness):
+    """What the flat kernels' skip relies on: where ``gates_overflow`` holds, the fp32
+    pair's sigma and each of its 22 cotangents are exactly 0, so leaving the pair
+    after its geometry changes no sum. The skip must also be real: some pairs
+    overflow and some do not."""
+    inputs, gbar = _random_sigma_inputs(torch.float32)
+    origins, directions, _, columns, _ = inputs
+    table = columns.reshape(-1, kernels.NUM_COLUMNS)
+    rays = kernels._rays(origins, directions)
+    parameters = (softness, 0.05, 1e-12)
+    skipped = kept = 0
+    for b in range(table.shape[0]):
+        column = table[b].expand(origins.shape[0], kernels.NUM_COLUMNS)
+        sigma, pair = kernels._pair_terms(rays, column, None, *parameters)
+        far = kernels.gates_overflow(pair, softness, parameters[1])
+        ray_parts, column_parts = kernels._pair_cotangents(rays, column, 1.0, None, gbar, *parameters)
+        assert (sigma[far] == 0).all()
+        for part in ray_parts + column_parts:
+            assert (part[far] == 0).all()
+        skipped += int(far.sum())
+        kept += int((~far).sum())
+    assert skipped > 0 and kept > 0
+
+
+def test_gate_constants_match_the_kernel_source():
+    """The plain side's clamp and skip threshold are the kernels' own, and two
+    denominators of at least e^GATE_OVERFLOW_EXPONENT overflow fp32."""
+    source = (pathlib.Path(kernels.__file__).parent / "csrc" / "blocking.cu").read_text()
+    assert f"kExpClamp = {kernels.EXP_CLAMP}f;" in source
+    assert f"kOverflowExponent = {kernels.GATE_OVERFLOW_EXPONENT}f;" in source
+    assert kernels.GATE_OVERFLOW_EXPONENT < kernels.EXP_CLAMP
+    big = torch.exp(torch.tensor(kernels.GATE_OVERFLOW_EXPONENT, dtype=torch.float32))
+    assert torch.isinf(big * big) and float(1.0 / (big * big)) == 0.0
 
 
 def test_flat_operators_dispatch_and_check_their_inputs():
