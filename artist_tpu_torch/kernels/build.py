@@ -2,10 +2,10 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and builds with ``nvcc``
 into its own library, ``artist_tpu_torch/_build/lib<name>_<hash>.so``, at
-first use. The hash covers the source and the flags, so an edited source is
-rebuilt. The wrappers load a library with ``ctypes``
-(:func:`load_library`); :func:`build_all` builds every source at once, one
-``nvcc`` process each, all started together.
+first use. The hash covers the source, the headers of ``csrc/`` (``*.cuh``)
+and the flags, so an edited source or header is rebuilt. The wrappers load a
+library with ``ctypes`` (:func:`load_library`); :func:`build_all` builds every
+source at once, one ``nvcc`` process each, all started together.
 
 Flags: ``sm_90a`` (Hopper), ``-O3``, IEEE division and square root, no
 ``--use_fast_math``; ``-Xptxas -v`` reports registers and spills.
@@ -42,7 +42,8 @@ def _nvcc() -> str:
 
 
 def _library_path(source: pathlib.Path) -> pathlib.Path:
-    digest = hashlib.sha256(source.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    headers = b"".join(header.read_bytes() for header in sorted(CSRC_DIR.glob("*.cuh")))
+    digest = hashlib.sha256(source.read_bytes() + headers + " ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{source.stem}_{digest.hexdigest()[:16]}.so"
 
 

@@ -1,9 +1,12 @@
 // Bilinear splat of ray intensities onto per-heliostat flux bitmaps, and its
 // vector-Jacobian product: hand-written CUDA for Hopper (sm_90a).
 //
-// Replaces the Pallas TPU kernels of artist_tpu/kernels/splat_pallas.py:
-//   splat_forward_kernel  <- _splat_fwd_kernel (via _splat_forward, bilinear_splat_pallas)
-//   splat_backward_kernel <- _splat_bwd_kernel (via _splat_bwd)
+// Replaces the Pallas TPU kernels
+//   band_accumulate_kernel<false> <- _splat_fwd_kernel (artist_tpu/kernels/splat_pallas.py,
+//       via _splat_forward, bilinear_splat_pallas) and _scatter_kernel
+//       (tools/splat_formulation_bench.py, via scatter_forward); the kernel is in
+//       splat_band.cuh, shared with splat_window.cu
+//   splat_backward_kernel         <- _splat_bwd_kernel (via _splat_bwd)
 //
 // Semantics (the reference's 4-neighbour scatter with strict bounds, fp32):
 //   a ray (e, u, w) of heliostat m is valid when le = floor(e) lies in
@@ -14,35 +17,45 @@
 //   and huge coordinates are simply invalid and deposit nothing. No flip.
 //
 // The TPU kernel is a one-hot matmul only because Mosaic cannot express a
-// per-ray scatter; here each ray is one thread doing four atomicAdds.
+// per-ray scatter; what it keeps out of device memory is the heliostat's map,
+// resident in VMEM across all its rays. The forward does the same in shared
+// memory: the map does not fit one block (256 x 256 fp32 = 256 KB against
+// 227 KB), so it is cut into as few bands of rows as fit (2 of 128 rows at
+// 256 x 256), one thread block each. The block reads every ray of its
+// heliostat, adds the taps that land in its rows with shared-memory atomics
+// and stores its band whole. A block owns its pixels: the output needs no
+// zeroing, and no global atomic is sent. Each pixel is a sum of its deposits
+// in run-dependent order, within the tolerance that chip_smoke.check_forward
+// gives any two summation orders, 2.01 u (n - 1) sum|deposit|.
 //
 // Bound on the H100: bytes. A ray costs 14 (forward) or 29 (backward) fp32
 // operations against 12 bytes read (forward) or 24 bytes moved (backward),
-// far below the card's ~20 flop/byte ridge for fp32. The design: one
-// coalesced pass over the ray streams, no staging; the bitmaps
-// (100 x 256 x 256 fp32 = 26 MB at the flagship shape) fit in the 50 MB L2,
-// so the forward's atomics and the backward's gathers resolve in L2 and
-// device memory sees the ray streams and one bitmap pass.
-// Measured by chip_smoke.py on an H100 SXM 80 GB (700 W limit) at the
-// flagship chunk ([100, 40000] rays -> [100, 256, 256]): forward 0.21 ms
-// against a 0.022 ms byte bound, backward 0.049 ms against 0.030 ms. The
-// forward's gap is same-address atomics: the 32 rays of a warp are
-// neighbouring surface points aimed at one spot, so their deposits collide
-// on the same pixels and serialise in L2. Accumulating each ray block's
-// deposits in a shared-memory tile (splat_window.cu) did not beat it at this
-// layout (0.205 against 0.207 ms on the same rays), only where more of a
-// block's deposits pile onto each pixel (the formulation tool's 32 rays a
-// point); aggregating equal addresses within a warp is untried.
-// The forward's atomics make its summation order run-dependent (fp32
-// rounding differs between runs); the backward is a pure gather and is
-// deterministic.
+// far below the card's ~20 flop/byte ridge for fp32. What costs the forward
+// is the taps: a shared-memory fp32 atomicAdd is a compare-and-swap loop on
+// Hopper (ATOMS.CAST.SPIN). Step 0's counts at the flagship chunk ([100,
+// 40000] rays -> [100, 256, 256], all valid): 12.2 deposits a touched pixel,
+// but a warp's 32 rays fall on 31 distinct cells, so the previous design (a
+// ray a thread, four global atomics) was bound by the 16 M atomics' L2 lines,
+// not by collisions: 0.2005 ms, 0.1168 with the same taps sent to each ray's
+// own 16 bytes. Measured by chip_smoke.py on an H100 80GB HBM3 (700 W limit)
+// at the flagship chunk: forward 0.0975-0.0981 ms (that design 0.2008-0.2014
+// in the same runs; index_add_ 0.209-0.211; bound 0.022), at the formulation
+// tool's 32 M rays 0.578-0.584 ms (the PR 5 band kernel, a flush of global
+// atomics after two shares of 86-row bands, 0.639-0.644); backward 0.049 ms
+// against 0.030. Tried and dropped (PERF.md): 86-row bands in shares with a
+// bulk-reduce, float4-atomic or scalar flush (0.121-0.127 ms), fewer rays a
+// thread, 64-bit CAS pairs (0.43-0.54 ms), smaller bands with more blocks an
+// SM. The backward is a pure gather and is deterministic.
 //
 // Interface: plain C, loaded with ctypes. The caller allocates every buffer
-// (the forward's output already zeroed) and passes PyTorch's current stream;
-// each function returns cudaGetLastError() after its launch.
+// and passes PyTorch's current stream; each function returns
+// cudaGetLastError() after its launch, or cudaErrorInvalidValue when a band
+// does not fit shared memory.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "splat_band.cuh"
 
 namespace {
 
@@ -68,28 +81,6 @@ __device__ __forceinline__ Cell locate(float e, float u, int height, int width) 
         ? static_cast<int64_t>(static_cast<int>(lu)) * width + static_cast<int>(le)
         : 0;
     return cell;
-}
-
-__global__ void splat_forward_kernel(const float* __restrict__ e,
-                                     const float* __restrict__ u,
-                                     const float* __restrict__ w,
-                                     float* __restrict__ out,
-                                     int64_t num_maps, int64_t rays_per_map,
-                                     int height, int width) {
-    const int64_t ray = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-    if (ray >= rays_per_map) return;
-    const int64_t map_size = static_cast<int64_t>(height) * width;
-    for (int64_t m = blockIdx.y; m < num_maps; m += gridDim.y) {
-        const int64_t i = m * rays_per_map + ray;
-        const Cell cell = locate(e[i], u[i], height, width);
-        if (!cell.valid) continue;
-        const float weight = w[i];
-        float* base = out + m * map_size + cell.offset;
-        atomicAdd(base, weight * (1.0f - cell.fu) * (1.0f - cell.fe));
-        atomicAdd(base + 1, weight * (1.0f - cell.fu) * cell.fe);
-        atomicAdd(base + width, weight * cell.fu * (1.0f - cell.fe));
-        atomicAdd(base + width + 1, weight * cell.fu * cell.fe);
-    }
 }
 
 // VJP of the forward for cotangent g [M, H, W]. The derivative factors are
@@ -140,15 +131,18 @@ dim3 grid_for(int64_t num_maps, int64_t rays_per_map) {
 
 }  // namespace
 
+extern "C" int splat_shared_limit(int device, int* bytes) {
+    return static_cast<int>(cudaDeviceGetAttribute(bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, device));
+}
+
 extern "C" int splat_forward(const float* e, const float* u, const float* w, float* out,
                              int64_t num_maps, int64_t rays_per_map, int height, int width,
-                             int device, void* stream) {
+                             int band_rows, int device, void* stream) {
     cudaError_t status = cudaSetDevice(device);
     if (status != cudaSuccess) return static_cast<int>(status);
-    splat_forward_kernel<<<grid_for(num_maps, rays_per_map), kThreads, 0,
-                           static_cast<cudaStream_t>(stream)>>>(
-        e, u, w, out, num_maps, rays_per_map, height, width);
-    return static_cast<int>(cudaGetLastError());
+    return static_cast<int>(launch_band_accumulate<false>(e, u, w, out, nullptr, num_maps, rays_per_map, height,
+                                                          width, band_rows, 1, 0, device,
+                                                          static_cast<cudaStream_t>(stream)));
 }
 
 extern "C" int splat_backward(const float* e, const float* u, const float* w, const float* g,

@@ -3,11 +3,11 @@
 // Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernels
-//   dynamic_window_forward_kernel<false> <- _dyn_fwd_kernel
+//   band_accumulate_kernel<true>        <- _dyn_fwd_kernel
 //       (artist_tpu/kernels/splat_pallas.py, via _dyn_forward,
-//        bilinear_splat_dynamic_window)
-//   dynamic_window_backward_kernel       <- _dyn_bwd_kernel (via _dyn_bwd)
-//   dynamic_window_forward_kernel<true>  <- _dyn2d_fwd_kernel
+//        bilinear_splat_dynamic_window); the kernel is in splat_band.cuh
+//   dynamic_window_backward_kernel      <- _dyn_bwd_kernel (via _dyn_bwd)
+//   dynamic_window_forward_kernel<true> <- _dyn2d_fwd_kernel
 //       (tools/splat_formulation_bench.py, via dyn2d_forward)
 //
 // Semantics: the 4-tap splat of splat.cu (strict bounds tested in float
@@ -24,51 +24,53 @@
 // still gets dw and so must lie inside its window. These are the TPU
 // kernels' offsets (_dyn_offsets, and the tool's dyn2d_forward) exactly.
 //
-// Design. One thread block per ray block. It reduces its valid rays' u and e
-// extents in shared memory, so the window costs no separate launch, and
-// derives the window and the touched rectangle (rows floor(min u) to
-// floor(max u) + 1, columns likewise) from the same reduction.
-//   Forward, fitting block: its rays accumulate with shared-memory atomics
-//   into a [window_u, tile width] fp32 tile in dynamic shared memory (96 x 256
-//   = 96 KB for the row window, 96 x 128 = 48 KB for the 2-D one; above 48 KB
-//   only after cudaFuncSetAttribute), and only the touched rectangle is
-//   zeroed first and then flushed to the heliostat's map, one global
-//   atomicAdd per non-zero pixel. A block that does not fit is the TPU
-//   kernel's full-height fallback: its rays atomicAdd straight into device
-//   memory, as splat.cu's forward does. The count of fitting blocks goes to a
-//   device counter, so a check can show that the shared-memory path ran.
-//   Backward, fitting block: the touched rectangle of the cotangent is copied
-//   into shared memory with cp.async and the rays gather their four taps
-//   there; a fallback block gathers from device memory. Deterministic.
-// What the TPU kernels did with the window (a [window, B] @ [B, W] one-hot
-// matmul instead of [H, B] @ [B, W]) matters on a TPU, where the matmul's
-// contraction binds. Here the forward's cost is same-address atomics: a
-// warp's rays are neighbouring points aimed at one spot and collide on the
-// same pixels, which serialise in L2 (splat.cu's forward runs at ~9.5x its
-// byte bound for that reason). The tile moves those collisions into shared
-// memory and sends the map each distinct pixel once per block.
+// The row-window forward (row 3). On the TPU the heliostat's whole map stays
+// in VMEM across its ray blocks, and the window cuts each block's one-hot
+// matmul to the window's rows; a block that does not fit takes all rows.
+// band_accumulate_kernel<true> keeps the map on chip the same way (in bands
+// of rows, one thread block each; see splat.cu), so every deposit lands in its
+// rows there, those of its block's window when the block fits and the map's
+// when it falls back: with a per-tap scatter there is no matmul for the window
+// to cut. The kernel still derives every block's window from its valid rays,
+// as plan_block does, and counts the fitting blocks on the device: the block
+// of band b plans the b-th of equal runs of ray blocks, each warp reducing
+// its 128 rays a step (4 rays 32 apart a thread, so that a step stays in one
+// ray block). Step 0 at the block-window step's first chunk: 3,892 of 4,000
+// blocks fit, but a heliostat's fitting blocks change origin 23-36 times
+// (runs of 1.33 blocks on average), so a 96-row tile kept across blocks of
+// one origin saved little; such walkers measured 0.14-0.29 ms (PERF.md).
+//   2-D forward (row 13, the tool's), one thread block a ray block: it
+//   reduces its valid rays' extents (plan_block), adds a fitting block's rays
+//   into a [window_u, window_e] tile (96 x 128 = 48 KB) with shared-memory
+//   atomics, zeroing and then flushing only the touched rectangle, one
+//   global atomicAdd a non-zero pixel; a block that does not fit adds
+//   straight into the map. It counts fitting blocks on the device.
+//   Backward (row 4), fitting block: the touched rectangle of the cotangent
+//   is copied into shared memory with cp.async and the rays gather their four
+//   taps there; a fallback block gathers from device memory. Deterministic.
 //
 // Bound on the H100: bytes, as splat.cu's kernels: per ray 12 bytes read
 // (forward) or 24 moved (backward) against 14 or 29 fp32 operations.
-// Measured by chip_smoke.py on an H100 SXM 80 GB (700 W limit). At the
-// flagship chunk reordered point-major ([100, 40000] rays, 4 rays a point,
-// 97% of blocks fitting): forward 0.205 ms, as splat.cu's forward on the same
-// rays (0.207 ms; bound 0.022 ms), so the collisions were not what bound that
-// one: a 1024-ray block of 256 points x 4 rays still flushes a few thousand
-// distinct pixels to L2. Backward 0.101 ms against splat.cu's 0.048 ms: two
-// 96 KB blocks an SM leave it 16 warps to hide its gathers' latency. At the
-// formulation tool's layout (32 rays a point, 32 M rays) the row forward took
-// 1.31 ms against splat.cu's 1.66 ms and the 2-D one 0.72 ms against
-// index_add_'s 1.55 ms: more deposits per flushed pixel.
+// Measured by chip_smoke.py on an H100 80GB HBM3 (700 W limit) at the
+// flagship chunk reordered point-major ([100, 40000] rays, 4 rays a point):
+// row-window forward 0.1069-0.1071 ms (the previous design, one block a ray
+// block with a scalar flush, 0.2038-0.2063 in the same runs; splat.cu's
+// forward 0.103 on the same rays; index_add_ 0.200-0.206; bound 0.022).
+// Backward 0.101 ms against splat.cu's 0.048 ms: two 96 KB blocks an SM
+// leave it 16 warps to hide its gathers' latency. At the formulation tool's
+// 32 M rays the 2-D forward takes 0.72 ms against index_add_'s 1.55 ms.
 //
 // Interface: plain C, loaded with ctypes. The caller allocates every buffer
-// (the forward's output and counter already zeroed) and passes PyTorch's
-// current stream; each launch function returns cudaGetLastError() after its
-// launch, or cudaErrorInvalidValue when the tile does not fit shared memory.
+// (the 2-D forward's output and every counter already zeroed) and passes
+// PyTorch's current stream; each launch function returns cudaGetLastError()
+// after its launch, or cudaErrorInvalidValue when the tile or the band does
+// not fit shared memory.
 
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "splat_band.cuh"
 
 namespace {
 
@@ -176,8 +178,8 @@ __device__ void plan_block(const float* __restrict__ e, const float* __restrict_
     __syncthreads();
 }
 
-// Rows 3 (ColumnWindow = false: the window spans the full width) and 13
-// (ColumnWindow = true). Grid: (ray blocks per heliostat, heliostats).
+// Row 13 (ColumnWindow = true; row 3 took ColumnWindow = false until
+// window_walk_kernel replaced it). Grid: (ray blocks per heliostat, heliostats).
 template <bool ColumnWindow>
 __global__ void __launch_bounds__(kThreads) dynamic_window_forward_kernel(
     const float* __restrict__ e, const float* __restrict__ u, const float* __restrict__ w,
@@ -332,26 +334,27 @@ extern "C" int splat_window_shared_limit(int device, int* bytes) {
     return static_cast<int>(cudaDeviceGetAttribute(bytes, cudaDevAttrMaxSharedMemoryPerBlockOptin, device));
 }
 
-extern "C" int splat_window_forward(const float* e, const float* u, const float* w, float* out,
-                                    int* fitting, int64_t num_maps, int64_t rays_per_map, int height,
-                                    int width, int block, int window_u, int window_e, int column_window,
-                                    int device, void* stream) {
+extern "C" int splat_window_band_forward(const float* e, const float* u, const float* w, float* out, int* fitting,
+                                         int64_t num_maps, int64_t rays_per_map, int height, int width,
+                                         int band_rows, int block, int window, int device, void* stream) {
     cudaError_t status = cudaSetDevice(device);
     if (status != cudaSuccess) return static_cast<int>(status);
-    const size_t bytes = sizeof(float) * static_cast<size_t>(window_u) * (column_window ? window_e : width);
-    const dim3 grid = grid_for(num_maps, rays_per_map, block);
-    cudaStream_t s = static_cast<cudaStream_t>(stream);
-    if (column_window) {
-        status = allow_shared(dynamic_window_forward_kernel<true>, bytes, device);
-        if (status != cudaSuccess) return static_cast<int>(status);
-        dynamic_window_forward_kernel<true><<<grid, kThreads, bytes, s>>>(
-            e, u, w, out, fitting, num_maps, rays_per_map, height, width, block, window_u, window_e);
-    } else {
-        status = allow_shared(dynamic_window_forward_kernel<false>, bytes, device);
-        if (status != cudaSuccess) return static_cast<int>(status);
-        dynamic_window_forward_kernel<false><<<grid, kThreads, bytes, s>>>(
-            e, u, w, out, fitting, num_maps, rays_per_map, height, width, block, window_u, width);
-    }
+    return static_cast<int>(launch_band_accumulate<true>(e, u, w, out, fitting, num_maps, rays_per_map, height,
+                                                         width, band_rows, block, window, device,
+                                                         static_cast<cudaStream_t>(stream)));
+}
+
+extern "C" int splat_window_forward(const float* e, const float* u, const float* w, float* out,
+                                    int* fitting, int64_t num_maps, int64_t rays_per_map, int height,
+                                    int width, int block, int window_u, int window_e, int device, void* stream) {
+    cudaError_t status = cudaSetDevice(device);
+    if (status != cudaSuccess) return static_cast<int>(status);
+    const size_t bytes = sizeof(float) * static_cast<size_t>(window_u) * window_e;
+    status = allow_shared(dynamic_window_forward_kernel<true>, bytes, device);
+    if (status != cudaSuccess) return static_cast<int>(status);
+    dynamic_window_forward_kernel<true><<<grid_for(num_maps, rays_per_map, block), kThreads, bytes,
+                                          static_cast<cudaStream_t>(stream)>>>(
+        e, u, w, out, fitting, num_maps, rays_per_map, height, width, block, window_u, window_e);
     return static_cast<int>(cudaGetLastError());
 }
 

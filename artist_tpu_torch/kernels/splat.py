@@ -3,8 +3,14 @@
 Counterpart of ``artist_tpu/kernels/splat_pallas.py`` (``bilinear_splat_pallas``
 with ``compute_dtype=float32``). The kernels live in ``csrc/splat.cu``:
 
-- ``splat_forward`` replaces ``_splat_fwd_kernel``: one thread per ray, four
-  ``atomicAdd``s into the heliostat's bitmap.
+- ``splat_forward`` replaces ``_splat_fwd_kernel`` with ``band_accumulate_kernel``,
+  which also serves the formulation tool's per-ray accumulate
+  (:mod:`artist_tpu_torch.kernels.splat_scatter`): a heliostat's map is cut
+  into as few bands of rows as fit one thread block's shared memory
+  (:func:`band_layout`); one block per (band, heliostat) reads all the
+  heliostat's rays, adds the taps that land in its rows into its band with
+  shared-memory atomics, and stores the band whole: no other block writes
+  those pixels.
 - ``splat_backward`` replaces ``_splat_bwd_kernel``: one thread per ray, a
   four-tap gather of the cotangent; deterministic.
 
@@ -36,6 +42,9 @@ import torch
 from artist_tpu_torch.kernels.build import load_library
 
 LAUNCHES = {"splat_forward": 0, "splat_backward": 0}
+# The forward's shared memory beyond its band: 4 floats, so that the band can
+# start at the map's offset modulo 16 bytes.
+BAND_PAD_BYTES = 16
 
 _library: ctypes.CDLL | None = None
 
@@ -50,11 +59,13 @@ def _load() -> ctypes.CDLL:
     if _library is None:
         library = load_library("splat")
         pointer, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-        sizes = [i64, i64, i32, i32, i32, pointer]  # M, N, H, W, device, stream
-        library.splat_forward.argtypes = [pointer] * 4 + sizes
-        library.splat_forward.restype = ctypes.c_int
-        library.splat_backward.argtypes = [pointer] * 7 + sizes
-        library.splat_backward.restype = ctypes.c_int
+        sizes = [i64, i64, i32, i32]  # M, N, H, W
+        # The forward takes the rows a band between the sizes and the device and stream.
+        library.splat_forward.argtypes = [pointer] * 4 + sizes + [i32, i32, pointer]
+        library.splat_backward.argtypes = [pointer] * 7 + sizes + [i32, pointer]
+        library.splat_shared_limit.argtypes = [i32, ctypes.POINTER(ctypes.c_int)]
+        for name in ("splat_forward", "splat_backward", "splat_shared_limit"):
+            getattr(library, name).restype = ctypes.c_int
         library.splat_error_string.argtypes = [ctypes.c_int]
         library.splat_error_string.restype = ctypes.c_char_p
         _library = library
@@ -99,20 +110,49 @@ def _launch_args(e: torch.Tensor, height: int, width: int) -> list:
     return [num_maps, rays_per_map, height, width, e.device.index, stream]
 
 
+def band_layout(height: int, width: int, shared_bytes: int) -> int:
+    """The forward kernel's rows a band for ``[M, height, width]`` fp32 maps: the fewest
+    bands whose rows fit one block's shared memory (``shared_bytes``, the per-block
+    opt-in limit), as equal as they can be. Raises if one row does not fit."""
+    rows = (shared_bytes - BAND_PAD_BYTES) // (4 * width)
+    if rows < 1:
+        raise ValueError(f"a row of {width} fp32 pixels does not fit {shared_bytes} bytes of shared memory")
+    bands = -(-height // rows)
+    return -(-height // bands)
+
+
+def shared_limit(device: torch.device) -> int:
+    """The card's per-block opt-in limit of shared memory, in bytes."""
+    library = _load()
+    limit = ctypes.c_int(0)
+    _check_status(library, "splat_shared_limit", library.splat_shared_limit(device.index, limit))
+    return limit.value
+
+
+def band_forward(e: torch.Tensor, u: torch.Tensor, w: torch.Tensor, height: int, width: int) -> torch.Tensor:
+    """Launch ``band_accumulate_kernel``: ``[M, N]`` rays -> ``[M, H, W]`` bitmaps. Every
+    pixel is written by its band's block, so the output is not zeroed first. The
+    callers count the launch under their own names."""
+    if e.numel() == 0:
+        return torch.zeros((e.shape[0], height, width), dtype=torch.float32, device=e.device)
+    out = torch.empty((e.shape[0], height, width), dtype=torch.float32, device=e.device)
+    library = _load()
+    status = library.splat_forward(
+        e.data_ptr(), u.data_ptr(), w.data_ptr(), out.data_ptr(), e.shape[0], e.shape[1], height, width,
+        band_layout(height, width, shared_limit(e.device)), e.device.index,
+        torch.cuda.current_stream(e.device).cuda_stream,
+    )
+    _check_status(library, "band_accumulate", status)
+    return out
+
+
 def splat_forward_cuda(
     e: torch.Tensor, u: torch.Tensor, w: torch.Tensor, height: int, width: int
 ) -> torch.Tensor:
-    """Launch ``splat_forward_kernel``: ``[M, N]`` rays -> ``[M, H, W]`` bitmaps."""
-    out = torch.zeros((e.shape[0], height, width), dtype=torch.float32, device=e.device)
-    if e.numel() == 0:
-        return out
-    library = _load()
-    status = library.splat_forward(
-        e.data_ptr(), u.data_ptr(), w.data_ptr(), out.data_ptr(),
-        *_launch_args(e, height, width),
-    )
-    _check_status(library, "splat_forward", status)
-    LAUNCHES["splat_forward"] += 1
+    """Launch the forward kernel: ``[M, N]`` rays -> ``[M, H, W]`` bitmaps."""
+    out = band_forward(e, u, w, height, width)
+    if e.numel():
+        LAUNCHES["splat_forward"] += 1
     return out
 
 

@@ -5,17 +5,22 @@ Counterpart of ``bilinear_splat_dynamic_window`` in
 the 2-D window forward ``dyn2d_forward`` of ``tools/splat_formulation_bench.py``.
 The kernels live in ``csrc/splat_window.cu``:
 
-- ``splat_dynamic_window_forward`` replaces ``_dyn_fwd_kernel``: one thread
-  block per block of ``block`` rays, which finds its own row window, adds a
-  fitting block's deposits into a ``[window, W]`` tile in shared memory and
-  flushes the touched rectangle to the map; a block that does not fit adds
-  straight into the map;
+- ``splat_dynamic_window_forward`` replaces ``_dyn_fwd_kernel`` with
+  ``band_accumulate_kernel<true>`` (``csrc/splat_band.cuh``), the full
+  splat's forward kernel that also plans each block of ``block`` rays: as on
+  the TPU, each heliostat's map is held on chip across all its ray blocks
+  (here in bands of rows, one thread block each), every deposit lands in its
+  rows there, whether its block fits its window or falls back to the whole
+  map, and the kernel derives every block's window and counts the fitting
+  ones;
 - ``splat_dynamic_window_backward`` replaces ``_dyn_bwd_kernel``: a fitting
   block copies the touched rectangle of the cotangent into shared memory and
   gathers its rays' four taps there; deterministic;
-- ``splat_window_2d_forward`` replaces ``_dyn2d_fwd_kernel``: the same forward
-  body with a 128-column window as well (96 x 128 tiles); forward only, as in
-  the tool.
+- ``splat_window_2d_forward`` replaces ``_dyn2d_fwd_kernel``: one thread block
+  per block of ``block`` rays finds its 96 x 128 window, adds a fitting
+  block's deposits into a tile of that size in shared memory and flushes the
+  touched rectangle to the map; a block that does not fit adds straight into
+  the map; forward only, as in the tool.
 
 The window of a block (:func:`dyn_offsets`, :func:`window_2d_offsets`) is the
 TPU kernels' exactly: rows from the 8-aligned floor of the block's least
@@ -39,7 +44,7 @@ import ctypes
 import torch
 
 from artist_tpu_torch.kernels.build import load_library
-from artist_tpu_torch.kernels.splat import _check_bitmap, _check_rays
+from artist_tpu_torch.kernels.splat import _check_bitmap, _check_rays, band_layout, shared_limit
 
 LAUNCHES = {
     "splat_dynamic_window_forward": 0,
@@ -68,12 +73,15 @@ def _load() -> ctypes.CDLL:
     if _library is None:
         library = load_library("splat_window")
         pointer, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-        # M, N, H, W, block, then the window and the device and stream.
+        # M, N, H, W, then the rows a band or the block, the window and the device and stream.
         sizes = [i64, i64, i32, i32, i32]
-        library.splat_window_forward.argtypes = [pointer] * 5 + sizes + [i32, i32, i32, i32, pointer]
+        library.splat_window_band_forward.argtypes = [pointer] * 5 + sizes + [i32, i32, i32, pointer]
+        library.splat_window_forward.argtypes = [pointer] * 5 + sizes + [i32, i32, i32, pointer]
         library.splat_window_backward.argtypes = [pointer] * 7 + sizes + [i32, i32, pointer]
         library.splat_window_shared_limit.argtypes = [i32, ctypes.POINTER(ctypes.c_int)]
-        for name in ("splat_window_forward", "splat_window_backward", "splat_window_shared_limit"):
+        names = ("splat_window_band_forward", "splat_window_forward", "splat_window_backward",
+                 "splat_window_shared_limit")
+        for name in names:
             getattr(library, name).restype = ctypes.c_int
         library.splat_window_error_string.argtypes = [ctypes.c_int]
         library.splat_window_error_string.restype = ctypes.c_char_p
@@ -326,31 +334,36 @@ def _check_launch(e, u, w, height: int, width: int, window_u: int, window_e: int
         _check_window_2d(window_u, window_e, height, width)
 
 
-def _forward_cuda(e, u, w, height, width, block, window_u, window_e, column_window, name):
-    _check_launch(e, u, w, height, width, window_u, window_e if column_window else None)
-    out = torch.zeros((e.shape[0], height, width), dtype=torch.float32, device=e.device)
-    fitting = torch.zeros(1, dtype=torch.int32, device=e.device)
-    if e.numel() == 0:
-        return out, fitting
-    library = _load()
-    _check_shared(library, e.device, 4 * window_u * (window_e if column_window else width))
-    status = library.splat_window_forward(
-        e.data_ptr(), u.data_ptr(), w.data_ptr(), out.data_ptr(), fitting.data_ptr(),
-        e.shape[0], e.shape[1], height, width, block, window_u, window_e, int(column_window),
-        e.device.index, torch.cuda.current_stream(e.device).cuda_stream,
-    )
-    _check_status(library, name, status)
-    LAUNCHES[name] += 1
-    return out, fitting
+def window_band_rows(rays_per_map: int, height: int, width: int, shared_bytes: int, block: int | None = None) -> int:
+    """The row-window forward kernel's rows a band for ``[M, rays_per_map]`` rays onto
+    ``[M, height, width]`` maps: :func:`artist_tpu_torch.kernels.splat.band_layout` of the
+    per-block limit ``shared_bytes`` less two ints for each ray block of a heliostat (a
+    band's block keeps them for the ray blocks it plans). Raises if one row does not fit."""
+    return band_layout(height, width, shared_bytes - 8 * -(-rays_per_map // _ray_block(block)))
 
 
 def splat_dynamic_window_forward_cuda(
     e: torch.Tensor, u: torch.Tensor, w: torch.Tensor, height: int, width: int, window: int,
     block: int | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Launch ``dynamic_window_forward_kernel<false>``: ``[M, N]`` rays -> ``[M, H, W]``
-    bitmaps, and the number of blocks that fit their window (``[1]`` int32)."""
-    return _forward_cuda(e, u, w, height, width, _ray_block(block), window, width, False, "splat_dynamic_window_forward")
+    """Launch ``band_accumulate_kernel<true>``: ``[M, N]`` rays -> ``[M, H, W]`` bitmaps, and
+    the number of blocks that fit their window (``[1]`` int32)."""
+    _check_launch(e, u, w, height, width, window, None)
+    block = _ray_block(block)
+    fitting = torch.zeros(1, dtype=torch.int32, device=e.device)
+    if e.numel() == 0:
+        return torch.zeros((e.shape[0], height, width), dtype=torch.float32, device=e.device), fitting
+    out = torch.empty((e.shape[0], height, width), dtype=torch.float32, device=e.device)
+    library = _load()
+    band_rows = window_band_rows(e.shape[1], height, width, shared_limit(e.device), block)
+    status = library.splat_window_band_forward(
+        e.data_ptr(), u.data_ptr(), w.data_ptr(), out.data_ptr(), fitting.data_ptr(),
+        e.shape[0], e.shape[1], height, width, band_rows, block, window,
+        e.device.index, torch.cuda.current_stream(e.device).cuda_stream,
+    )
+    _check_status(library, "splat_dynamic_window_forward", status)
+    LAUNCHES["splat_dynamic_window_forward"] += 1
+    return out, fitting
 
 
 def splat_window_2d_forward_cuda(
@@ -358,7 +371,21 @@ def splat_window_2d_forward_cuda(
     window_u: int = WINDOW_2D[0], window_e: int = WINDOW_2D[1], block: int | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Launch ``dynamic_window_forward_kernel<true>``: bitmaps and the number of fitting blocks."""
-    return _forward_cuda(e, u, w, height, width, _ray_block(block), window_u, window_e, True, "splat_window_2d_forward")
+    _check_launch(e, u, w, height, width, window_u, window_e)
+    out = torch.zeros((e.shape[0], height, width), dtype=torch.float32, device=e.device)
+    fitting = torch.zeros(1, dtype=torch.int32, device=e.device)
+    if e.numel() == 0:
+        return out, fitting
+    library = _load()
+    _check_shared(library, e.device, 4 * window_u * window_e)
+    status = library.splat_window_forward(
+        e.data_ptr(), u.data_ptr(), w.data_ptr(), out.data_ptr(), fitting.data_ptr(),
+        e.shape[0], e.shape[1], height, width, _ray_block(block), window_u, window_e,
+        e.device.index, torch.cuda.current_stream(e.device).cuda_stream,
+    )
+    _check_status(library, "splat_window_2d_forward", status)
+    LAUNCHES["splat_window_2d_forward"] += 1
+    return out, fitting
 
 
 def splat_dynamic_window_backward_cuda(

@@ -16,8 +16,8 @@ launches after a warm-up:
    largest error relative to the peak against the full splat's plain version
    and its fit fraction;
 4. the per-ray accumulate into a whole map held on chip, one band of rows
-   in each thread block's shared memory (``csrc/splat_scatter.cu``), at the
-   full ray count, with its error as in 3;
+   in each thread block's shared memory (the kernel of 1's forward, launched
+   as ``splat_band_forward``), at the full ray count, with its error as in 3;
 5. ``index_add_`` of the same taps as the full splat, one PyTorch call: the
    yardstick of the forward;
 6. ``torch.sort`` of 32 M int32 pixel keys: the entry cost of any
@@ -41,7 +41,7 @@ from artist_tpu_torch.kernels.splat import (
     splat_forward_cuda,
     splat_forward_plain,
 )
-from artist_tpu_torch.kernels.splat_scatter import splat_cluster_forward_cuda
+from artist_tpu_torch.kernels.splat_scatter import splat_band_forward_cuda
 from artist_tpu_torch.kernels.splat_window import (
     RAY_BLOCK,
     splat_dynamic_window_backward_cuda,
@@ -151,9 +151,9 @@ def run(device="cuda") -> dict:
     )
 
     # 2. The dynamic row window.
-    _, fitting = splat_dynamic_window_forward_cuda(e, u, w, height, width, WINDOW)
+    _, counts = splat_dynamic_window_forward_cuda(e, u, w, height, width, WINDOW)
     blocks = num * -(-rays_per_map // RAY_BLOCK)
-    result["dynamic_window_fit_fraction"] = int(fitting) / blocks
+    result["dynamic_window_fit_fraction"] = int(counts[0]) / blocks
     result["dynamic_window_forward_ms"] = device_ms(
         lambda: splat_dynamic_window_forward_cuda(e, u, w, height, width, WINDOW)
     )
@@ -173,9 +173,9 @@ def run(device="cuda") -> dict:
     result["window_2d_forward_ms"] = device_ms(lambda: window_2d_forward(e, u, w, RESOLUTION))
 
     # 4. The per-ray accumulate in shared memory, band by band, at the full ray count.
-    got = splat_cluster_forward_cuda(e, u, w, height, width)
-    result["cluster_accumulate_max_rel_err"] = float((got - reference).abs().max()) / peak
-    result["cluster_accumulate_forward_ms"] = device_ms(lambda: splat_cluster_forward_cuda(e, u, w, height, width))
+    got = splat_band_forward_cuda(e, u, w, height, width)
+    result["band_accumulate_max_rel_err"] = float((got - reference).abs().max()) / peak
+    result["band_accumulate_forward_ms"] = device_ms(lambda: splat_band_forward_cuda(e, u, w, height, width))
     del got, reference
 
     # 5. The yardstick: one index_add_ of the same taps.

@@ -7,14 +7,16 @@ exits non-zero without them. It imports only ``torch``, ``numpy`` and the
 ``artist_tpu_torch`` package beside it, and runs in phases, one line each:
 
 1. device: the card's name and power limit (``nvidia-smi``); TF32 off;
-2. build: every ``artist_tpu_torch/kernels/csrc/*.cu``, one ``nvcc`` each,
-   all started together;
+2. build: every ``artist_tpu_torch/kernels/csrc/*.cu`` (with the headers
+   beside them), one ``nvcc`` each, all started together;
 3. kernels, each against its plain PyTorch version on the card with the
    tolerances stated below, and timed with CUDA events beside its plain
    version, the one-call PyTorch yardstick (where there is one) and the
    card's bound for the same work:
    a. the splat pair at the surface step's chunk inputs (``[100, 40000]``
-      rays onto ``[100, 256, 256]``) and on a batch of edge cases;
+      rays onto ``[100, 256, 256]``) and on a batch of edge cases, the
+      forward also on rays that straddle every band border and on rays piled
+      onto a few pixels (``piled_rays``);
    b. the blocking sigma pair on the aim-point path's own first-epoch inputs
       (8 M rays, K = 16 candidates), on the same field with its rows 3 m
       apart, where the check must not be vacuous, and there with every
@@ -54,11 +56,12 @@ exits non-zero without them. It imports only ``torch``, ``numpy`` and the
 
 Phase 3 also holds the dynamic-window kernels (3d: on the block-window
 step's first chunk, reordered as that step reorders it, on rays that force
-fallback blocks and on the edge cases; the kernel's count of blocks that fit
-their window equal to the plain windows' count) and the formulation tool's
-kernels (3e: the band accumulate also on rays that straddle every band
-border); phase 7 also checks a small block-window step and a small
-windowed step (7c).
+fallback blocks, on the edge cases, on the piled rays and on rays whose
+window origin changes at nearly every block; the kernel's count of blocks
+that fit their window equal to the plain windows' count) and the
+formulation tool's kernels (3e: the band accumulate also on rays that
+straddle every band border); phase 7 also checks a small block-window step
+and a small windowed step (7c).
 
 Each driven path sets every launch count to 0 just before it and reads them
 just after. Then one JSON line of per-kernel numbers and, last, the
@@ -92,6 +95,8 @@ from artist_tpu_torch.kernels.build import build_all, build_library  # noqa: E40
 from artist_tpu_torch.kernels.splat import LAUNCHES as SPLAT_LAUNCHES  # noqa: E402
 from artist_tpu_torch.kernels.splat import reset_launch_counts as reset_splat_launch_counts  # noqa: E402
 from artist_tpu_torch.kernels.splat import (  # noqa: E402
+    band_layout,
+    shared_limit,
     splat_backward_cuda,
     splat_backward_plain,
     splat_forward_cuda,
@@ -122,14 +127,13 @@ KERNELS = (
     "splat_forward", "splat_backward", "blocking_sigma_forward", "blocking_sigma_backward",
     "blocking_cull", "blocking_sigma_flat_forward", "blocking_sigma_flat_backward",
     "splat_dynamic_window_forward", "splat_dynamic_window_backward", "splat_window_2d_forward",
-    "splat_cluster_forward",
+    "splat_band_forward",
 )
 # The source of each kernel, under artist_tpu_torch/kernels/csrc/.
 SOURCES = {
-    **dict.fromkeys(("splat_forward", "splat_backward"), "splat.cu"),
+    **dict.fromkeys(("splat_forward", "splat_backward", "splat_band_forward"), "splat.cu"),
     **dict.fromkeys(KERNELS[2:7], "blocking.cu"),
     **dict.fromkeys(KERNELS[7:10], "splat_window.cu"),
-    "splat_cluster_forward": "splat_scatter.cu",
 }
 # The block-window step: bench.py's flagship step with BENCH_SPLAT_BLOCK_WINDOW=96,
 # whose rays are reordered point-major over 10 x 10 tiles of each facet's points.
@@ -616,8 +620,25 @@ def index_add_ms(work: dict, num: int, height: int, width: int) -> float:
     return event_ms(lambda: out.index_add_(0, work["taps"], work["values"]))
 
 
+def piled_rays(width: int, height: int, device: torch.device):
+    """Three heliostats of 40,000 rays piled onto a few pixels, so that the kernels'
+    shared-memory atomics collide on every tap: half of each heliostat's rays in one
+    2 x 2 cell, the rest within 3 px of it; the first heliostat's cell mid-map, the
+    second's on the rows 85-87 (a border of 86-row bands), the third's the last valid one."""
+    rng = np.random.RandomState(SEED + 4)
+    num, n = 3, 40_000
+    corner = np.array([[100.0, 60.0], [30.0, 85.0], [width - 2.0, height - 2.0]])
+    spread = np.where(np.arange(n) % 2 == 0, 3.0, 1.0)
+    e = corner[:, :1] + np.minimum(spread * rng.rand(num, n), width - 1.0 - corner[:, :1] - 1e-3)
+    u = corner[:, 1:] + np.minimum(spread * rng.rand(num, n), height - 1.0 - corner[:, 1:] - 1e-3)
+    w = rng.rand(num, n)
+    return tuple(torch.tensor(x.astype(np.float32), device=device) for x in (e, u, w))
+
+
 def check_splat_kernels(inputs: StepInputs) -> dict[str, dict]:
-    """Phase 3a: each splat kernel against its plain version, then timed."""
+    """Phase 3a: each splat kernel against its plain version, then timed. The forward on
+    the flagship chunk, the edge cases, the band borders and the piled rays; the backward
+    on the first two."""
     width, height = BITMAP
     device = inputs.ground_truth.device
     e, u, w = first_chunk_rays(inputs)
@@ -630,23 +651,29 @@ def check_splat_kernels(inputs: StepInputs) -> dict[str, dict]:
         (edge[0].shape[0], height, width), device=device,
         generator=torch.Generator(device=device).manual_seed(SEED + 2),
     )
-
+    cases = {
+        "flagship chunk": ((e, u, w), g),
+        "edge cases": (edge, edge_g),
+        "band borders": (band_border_rays(width, height, device), None),
+        "piled rays": (piled_rays(width, height, device), None),
+    }
     forward_err, backward_errs, worst_share = 0.0, [], 0.0
-    for rays, cotangent in ((e, u, w), g), (edge, edge_g):
+    for label, (rays, cotangent) in cases.items():
         kernel = splat_forward_cuda(*rays, height, width)
         plain = splat_forward_plain(*rays, height, width)
         err, share = check_forward("splat_forward", kernel, plain, rays, height, width)
         forward_err, worst_share = max(forward_err, err), max(worst_share, share)
+        if not torch.isfinite(kernel).all():
+            raise AssertionError(f"splat_forward: non-finite bitmap on the {label}")
+        if cotangent is None:
+            continue
         kernel_grads = splat_backward_cuda(*rays, cotangent, height, width)
         plain_grads = splat_backward_plain(*rays, cotangent, height, width)
         errors, share = check_backward("splat_backward", kernel_grads, plain_grads, rays[2], cotangent)
         backward_errs += errors
         worst_share = max(worst_share, share)
     torch.cuda.synchronize()
-    # The edge cases: nothing from invalid rays, dw for zero-weight in-bounds rays.
-    edge_flux = splat_forward_cuda(*edge, height, width)
-    if not torch.isfinite(edge_flux).all():
-        raise AssertionError("splat_forward: non-finite bitmap from NaN/inf rays")
+    # The edge cases: dw for zero-weight in-bounds rays, nothing from invalid rays.
     check_edge_gradients("splat_backward", splat_backward_cuda(*edge, edge_g, height, width), list(range(4, 13)), [13])
 
     num, rays_per_map = e.shape
@@ -671,8 +698,11 @@ def check_splat_kernels(inputs: StepInputs) -> dict[str, dict]:
     }
     _log(
         f"phase 3a splat kernels: [{num}, {rays_per_map}] rays ({work['valid']} valid, {work['touched']} pixels "
-        f"touched) -> [{num}, {height}, {width}] and {edge[0].shape[1]} edge-case rays x {edge[0].shape[0]}, "
-        f"worst error {worst_share:.3g} of its tolerance: "
+        f"touched, {4 * work['valid'] / max(work['touched'], 1):.2f} deposits a touched pixel) -> "
+        f"[{num}, {height}, {width}], {edge[0].shape[1]} edge-case rays x {edge[0].shape[0]}, the band borders and "
+        f"the piled rays; the forward's {-(-height // band_layout(height, width, shared_limit(device)))} bands a "
+        f"map send no global atomic and store {4 * num * height * width} bytes, against the 4 x valid = "
+        f"{4 * work['valid']} scalar atomics of a ray a thread; worst error {worst_share:.3g} of its tolerance: "
         + "; ".join(
             f"{name} max_abs_err {t['max_abs_err']:.3g}, kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
             f"library {t['library_ms'] if t['library_ms'] is None else round(t['library_ms'], 4)} ms, "
@@ -731,13 +761,32 @@ def window_edge_rays(width: int, height: int, device: torch.device):
     return e, u, w
 
 
+def origin_change_rays(width: int, height: int, device: torch.device):
+    """Sixteen heliostats of 40 blocks of 1,024 rays whose 96-row windows change origin from
+    one fitting block to the next (rows ~10-40 and ~130-160 by turns), with four
+    blocks at one origin (~50-80), a block that falls back between two with the same
+    origin and a block without a valid ray between two others."""
+    rng = np.random.RandomState(SEED + 5)
+    num, blocks, block = 16, 40, 1024
+    base = np.where(np.arange(blocks) % 2 == 0, 10.0, 130.0)
+    base[10:14] = 50.0
+    u = base[None, :, None] + 30 * rng.rand(num, blocks, block)
+    e = 5 + (width - 10) * rng.rand(num, blocks, block)
+    u[:, 21] = 5 + (height - 10) * rng.rand(num, block)  # falls back between blocks 20 and 22 (rows ~10-40)
+    u[:, 31] = -3.0  # no valid ray, between blocks 30 and 32
+    w = rng.rand(num, blocks, block)
+    return tuple(torch.tensor(x.reshape(num, -1).astype(np.float32), device=device) for x in (e, u, w))
+
+
 def check_dynamic_window_kernels(inputs: StepInputs) -> dict[str, dict]:
     """Phase 3d: the dynamic-window pair on the block-window step's first chunk (rays
     point-major over tiles, as that step splats them), on rays that force
-    fallback blocks and on the edge cases, each against its plain version; the
-    kernel's count of fitting blocks equal to the plain windows' count, above
-    half the blocks on the chunk, fallbacks present on the forced input. Timed
-    on the chunk beside the full splat's kernels on the same rays."""
+    fallback blocks, on the edge cases, on the piled rays and on rays whose window
+    origin changes at nearly every block, each against its plain version; the
+    forward kernel's count of fitting blocks equal to the plain windows'
+    (:func:`splat_window.dyn_offsets`), above half the blocks on the chunk,
+    fallbacks present on the forced input, the edge cases and the origin changes.
+    Timed on the chunk beside the full splat's kernels on the same rays."""
     width, height = BITMAP
     window = BLOCK_WINDOW["splat_block_window"]
     device = inputs.ground_truth.device
@@ -748,6 +797,8 @@ def check_dynamic_window_kernels(inputs: StepInputs) -> dict[str, dict]:
         "flagship chunk": chunk,
         "forced fallbacks": mixed_window_rays(width, height, device),
         "edge cases": window_edge_rays(width, height, device),
+        "piled rays": piled_rays(width, height, device),
+        "origin changes": origin_change_rays(width, height, device),
     }
     forward_err, backward_errs, worst_share, fitting = 0.0, [], 0.0, {}
     for seed, (label, rays) in enumerate(cases.items()):
@@ -779,6 +830,7 @@ def check_dynamic_window_kernels(inputs: StepInputs) -> dict[str, dict]:
         fitting["flagship chunk"][0] > fitting["flagship chunk"][2] / 2
         and 0 < fitting["forced fallbacks"][0] < fitting["forced fallbacks"][2]
         and 0 < fitting["edge cases"][0] < fitting["edge cases"][2]
+        and 0 < fitting["origin changes"][0] < fitting["origin changes"][2]
     )
     if not ok:
         raise AssertionError(f"dynamic window: the check is vacuous (fitting, plain, blocks: {fitting})")
@@ -814,9 +866,12 @@ def check_dynamic_window_kernels(inputs: StepInputs) -> dict[str, dict]:
     }
     _log(
         f"phase 3d dynamic-window kernels (window {window}): [{num}, {rays_per_map}] rays of the block-window "
-        f"step's first chunk ({work['valid']} valid, {work['touched']} pixels touched), the forced fallbacks "
-        f"and the edge cases; blocks fitting (kernel, plain, of): "
+        f"step's first chunk ({work['valid']} valid, {work['touched']} pixels touched), the forced fallbacks, "
+        f"the edge cases, the piled rays and the origin changes; blocks fitting (kernel, plain, of): "
         + ", ".join(f"{label} {f}" for label, f in fitting.items())
+        + f"; the forward's {-(-height // splat_window.window_band_rows(rays_per_map, height, width, shared_limit(device)))} "
+        f"bands a map send no global atomic and store {4 * num * height * width} bytes on the chunk, against the "
+        f"4 x valid = {4 * work['valid']} scalar atomics of a ray a thread"
         + f"; worst error {worst_share:.3g} of its tolerance: "
         + "; ".join(
             f"{name} max_abs_err {t['max_abs_err']:.3g}, kernel {t['ms']:.4f} ms, full splat's kernel "
@@ -856,7 +911,7 @@ def check_formulation_kernels(device: torch.device) -> dict[str, dict]:
         "tool rays": splat_formulation_bench.flagship_rays(device=device),
         "edge cases": window_edge_rays(width, height, device),
     }
-    errors, worst_share, fitting = {"splat_window_2d_forward": 0.0, "splat_cluster_forward": 0.0}, 0.0, {}
+    errors, worst_share, fitting = {"splat_window_2d_forward": 0.0, "splat_band_forward": 0.0}, 0.0, {}
     for label, rays in cases.items():
         kernel, count = splat_window.splat_window_2d_forward_cuda(*rays, height, width)
         plain = splat_window.splat_window_2d_forward_plain(*rays, height, width)
@@ -867,17 +922,17 @@ def check_formulation_kernels(device: torch.device) -> dict[str, dict]:
         err, share = check_forward("splat_window_2d_forward", kernel, plain, rays, height, width)
         errors["splat_window_2d_forward"], worst_share = max(errors["splat_window_2d_forward"], err), max(worst_share, share)
         del kernel, plain
-        kernel = splat_scatter.splat_cluster_forward_cuda(*rays, height, width)
+        kernel = splat_scatter.splat_band_forward_cuda(*rays, height, width)
         plain = splat_forward_plain(*rays, height, width)
-        err, share = check_forward("splat_cluster_forward", kernel, plain, rays, height, width)
-        errors["splat_cluster_forward"], worst_share = max(errors["splat_cluster_forward"], err), max(worst_share, share)
+        err, share = check_forward("splat_band_forward", kernel, plain, rays, height, width)
+        errors["splat_band_forward"], worst_share = max(errors["splat_band_forward"], err), max(worst_share, share)
         if not torch.isfinite(kernel).all():
             raise AssertionError(f"{label}: non-finite bitmap from the band accumulate")
         del kernel, plain
     border = band_border_rays(width, height, device)
-    err, share = check_forward("splat_cluster_forward", splat_scatter.splat_cluster_forward_cuda(*border, height, width),
+    err, share = check_forward("splat_band_forward", splat_scatter.splat_band_forward_cuda(*border, height, width),
                                splat_forward_plain(*border, height, width), border, height, width)
-    errors["splat_cluster_forward"], worst_share = max(errors["splat_cluster_forward"], err), max(worst_share, share)
+    errors["splat_band_forward"], worst_share = max(errors["splat_band_forward"], err), max(worst_share, share)
     torch.cuda.synchronize()
     if not (fitting["tool rays"][0] > 0 and fitting["edge cases"][0] < fitting["edge cases"][2]):
         raise AssertionError(f"2-D window: the check is vacuous (fitting, plain, blocks: {fitting})")
@@ -894,8 +949,8 @@ def check_formulation_kernels(device: torch.device) -> dict[str, dict]:
             fit_fraction=fitting["tool rays"][0] / fitting["tool rays"][2],
             replaces="tools/splat_formulation_bench.py:174 (_dyn2d_fwd_kernel, pallas_call :307)",
         ),
-        "splat_cluster_forward": dict(
-            ms=event_ms(lambda: splat_scatter.splat_cluster_forward_cuda(e, u, w, height, width)),
+        "splat_band_forward": dict(
+            ms=event_ms(lambda: splat_scatter.splat_band_forward_cuda(e, u, w, height, width)),
             plain_ms=event_ms(lambda: splat_forward_plain(e, u, w, height, width), 3, 1),
             replaces="tools/splat_formulation_bench.py:321 (_scatter_kernel, pallas_call :360)",
         ),
@@ -2052,7 +2107,7 @@ MAIN_PATH = {
     "splat_dynamic_window_forward": "surface_step_block_window",
     "splat_dynamic_window_backward": "surface_step_block_window",
     "splat_window_2d_forward": "formulation_tool",
-    "splat_cluster_forward": "formulation_tool",
+    "splat_band_forward": "formulation_tool",
 }
 # The formulation tool's errors against the full splat's plain version, relative
 # to the peak: at most the summation bound 2 (n - 1) u of the fullest pixel's
@@ -2066,10 +2121,10 @@ def drive_formulation_tool(device: torch.device) -> dict:
     result = splat_formulation_bench.run(device)
     launches = launch_counts()
     _log(f"phase 11 formulation tool: {json.dumps(result)}; launches {launches}")
-    for name in ("window_2d_max_rel_err", "cluster_accumulate_max_rel_err"):
+    for name in ("window_2d_max_rel_err", "band_accumulate_max_rel_err"):
         if not result[name] <= TOOL_MAX_REL_ERR:
             raise AssertionError(f"phase 11: {name} {result[name]} > {TOOL_MAX_REL_ERR}")
-    if not (launches["splat_window_2d_forward"] and launches["splat_cluster_forward"]):
+    if not (launches["splat_window_2d_forward"] and launches["splat_band_forward"]):
         raise AssertionError(f"phase 11: a kernel of the tool did not launch ({launches})")
     return dict(launches=launches, **result)
 

@@ -48,9 +48,9 @@ import chip_smoke
 from artist_tpu_torch.kernels.build import build_all
 
 PORT_KERNELS = (
-    "splat_forward_kernel", "splat_backward_kernel", "sigma_forward_kernel", "sigma_backward_kernel",
+    "band_accumulate_kernel", "splat_backward_kernel", "sigma_forward_kernel", "sigma_backward_kernel",
     "blocking_cull_kernel", "sigma_flat_forward_kernel", "sigma_flat_backward_kernel", "sigma_flat_reduce_kernel",
-    "dynamic_window_forward_kernel", "dynamic_window_backward_kernel", "band_accumulate_kernel",
+    "dynamic_window_forward_kernel", "dynamic_window_backward_kernel",
 )
 PATHS = (
     "surface_step", "blocking_step", "blocking_step_flat", "surface_step_block_window", "aim_point", "aim_point_flat",

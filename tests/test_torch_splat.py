@@ -16,6 +16,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+import chip_smoke
 from artist_tpu.kernels.splat_pallas import bilinear_splat_pallas
 from artist_tpu_torch.kernels.splat import LAUNCHES, BilinearSplat, splat
 from artist_tpu_torch.raytracing.splatting import bilinear_splat
@@ -107,6 +108,26 @@ def test_edge_cases_match_pallas():
     # Exact integer coordinates take the one-hot factors: de = w (g[lu, le+1] - g[lu, le]).
     np.testing.assert_allclose(de[:, 0], w[:, 0] * (g[:, 5, 4] - g[:, 5, 3]), rtol=1e-6)
     np.testing.assert_allclose(du[:, 0], w[:, 0] * (g[:, 6, 3] - g[:, 5, 3]), rtol=1e-6)
+
+
+@pytest.mark.parametrize("rays", ["piled_rays", "band_border_rays"])
+def test_chip_smoke_forward_inputs_match_pallas(rays):
+    """The rays that ``chip_smoke.py`` phase 3a adds for the band kernel (thousands of
+    deposits on a few pixels; taps straddling every band border) through both forwards at
+    the flagship resolution. Per pixel of n deposits d: two summation orders differ by at
+    most 2.01 (n - 1) u sum|d|, and the two packages round each deposit's three-factor
+    product in another order, at most 3 u |d| on each side."""
+    e, u, w = (x[:, :4096].contiguous() for x in getattr(chip_smoke, rays)(256, 256, torch.device("cpu")))
+    out_jax = torch.tensor(np.asarray(
+        bilinear_splat_pallas(*(jnp.asarray(x.numpy()) for x in (e, u, w)), (256, 256), jnp.float32)
+    ))
+    out_torch = splat(e, u, w, (256, 256))
+    _, taps = chip_smoke._valid_taps(e, u, 256, 256)
+    deposits = torch.bincount(taps, minlength=out_torch.numel()).reshape(out_torch.shape)
+    magnitude = splat(e, u, w.abs(), (256, 256))
+    limit = (2.01 * (deposits - 1).clamp(min=0) + 6) * chip_smoke.UNIT_ROUNDOFF * magnitude
+    assert float(out_torch.sum()) > 0 and int(deposits.max()) > (1000 if rays == "piled_rays" else 1)
+    assert bool(((out_torch - out_jax).abs() <= limit).all())
 
 
 def test_nonfinite_and_huge_coordinates_deposit_nothing():

@@ -120,49 +120,47 @@ def test_bad_2d_windows_raise(window):
         splat_window.window_2d_forward(e, u, w, RESOLUTION, *window)
 
 
-def test_cluster_accumulate_plain_version_matches_jax(jax_tool):
+def test_band_accumulate_plain_version_matches_jax(jax_tool):
     e, u, w = (x[:1, :768] for x in _small_rays())
-    out = splat_scatter.splat_cluster_forward(*(torch.tensor(x) for x in (e, u, w)), RESOLUTION)
+    out = splat_scatter.splat_band_forward(*(torch.tensor(x) for x in (e, u, w)), RESOLUTION)
     out_jax = np.asarray(jax_tool.scatter_forward(*(jnp.asarray(x) for x in (e, u, w)), RESOLUTION))
     assert out.sum() > 0
     np.testing.assert_allclose(out.numpy(), out_jax, rtol=0, atol=1e-6 * float(out_jax.max()))
 
 
 @pytest.mark.parametrize(
-    "height, width, rays, layout",
+    "height, width, band_rows",
     [
-        (256, 256, 320_000, (86, 32_000)),  # the tool's maps: 3 bands of 86 KB, 10 shares
-        (64, 64, 25_600, (64, 25_600)),  # the whole map in one band, one share
-        (1, 256, 1_000, (1, 1_000)),
-        (4096, 256, 64_000, (111, 32_000)),  # taller than 8 blocks' shared memory: 37 bands
-        (256, 256, 100_001, (86, 25_001)),  # 4 shares that do not divide N: the last takes 24,998
-        (256, 40_000, 10, (1, 10)),  # one row is more than half an SM: one row a band
-        (256, 60_000, 10, None),  # one row does not fit a block
+        (256, 256, 128),  # the flagship and tool maps: 2 bands of 128 KB
+        (64, 64, 64),  # the whole map in one band
+        (1, 256, 1),
+        (4096, 256, 216),  # taller than 18 blocks' shared memory: 19 bands
+        (255, 256, 128),  # an odd height: bands of 128 and 127 rows
+        (256, 40_000, 1),  # one row is more than half a block's shared memory: one row a band
+        (256, 60_000, None),  # one row does not fit a block
     ],
-    ids=["tool", "small", "one_row", "tall", "ragged_shares", "wide", "too_wide"],
+    ids=["flagship", "small", "one_row", "tall", "odd_height", "wide", "too_wide"],
 )
-def test_band_layout(height, width, rays, layout):
-    if layout is None:
+def test_band_layout(height, width, band_rows):
+    if band_rows is None:
         with pytest.raises(ValueError, match="does not fit"):
-            splat_scatter.band_layout(height, width, rays, H100_SHARED_BYTES)
+            splat_kernels.band_layout(height, width, H100_SHARED_BYTES)
         return
-    band_rows, rays_per_share = splat_scatter.band_layout(height, width, rays, H100_SHARED_BYTES)
-    assert (band_rows, rays_per_share) == layout
-    bands, shares = -(-height // band_rows), -(-rays // rays_per_share)
-    # Every row and every ray has exactly one band and one share, none of them empty.
+    assert splat_kernels.band_layout(height, width, H100_SHARED_BYTES) == band_rows
+    bands = -(-height // band_rows)
+    # Every row has exactly one band, none of them empty; each band fits a block's shared
+    # memory with its padding; one band fewer would not fit.
     assert (bands - 1) * band_rows < height <= bands * band_rows
-    assert (shares - 1) * rays_per_share < rays <= shares * rays_per_share
-    # Two blocks share an SM (its shared memory is the opt-in limit plus one block's reserve),
-    # unless one row alone is more than half of it.
-    reserve = splat_scatter.RESERVED_BYTES
-    assert 2 * (4 * band_rows * width + reserve) <= H100_SHARED_BYTES + reserve or band_rows == 1
+    assert 4 * band_rows * width + splat_kernels.BAND_PAD_BYTES <= H100_SHARED_BYTES
+    fewer = -(-height // (bands - 1)) if bands > 1 else None
+    assert fewer is None or 4 * fewer * width + splat_kernels.BAND_PAD_BYTES > H100_SHARED_BYTES
 
 
 def test_plain_paths_launch_no_kernel():
     before = {**splat_window.LAUNCHES, **splat_scatter.LAUNCHES}
     e, u, w = (torch.tensor(x) for x in _small_rays())
     splat_window.window_2d_forward(e, u, w, RESOLUTION)
-    splat_scatter.splat_cluster_forward(e, u, w, RESOLUTION)
+    splat_scatter.splat_band_forward(e, u, w, RESOLUTION)
     assert {**splat_window.LAUNCHES, **splat_scatter.LAUNCHES} == before
 
 

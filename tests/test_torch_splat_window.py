@@ -127,6 +127,47 @@ def test_dyn_offsets_equal_jax(rays):
     np.testing.assert_array_equal(fits.numpy(), np.asarray(fits_jax))
 
 
+@pytest.mark.parametrize("rays", ["piled_rays", "origin_change_rays"])
+@pytest.mark.parametrize("block", [BLOCK, 1024])
+def test_chip_smoke_window_inputs_offsets_equal_jax(rays, block):
+    """The rays that ``chip_smoke.py`` phase 3d adds (thousands of deposits on a few pixels;
+    a window origin that changes at nearly every block, with a fallback and an empty
+    block between equal origins) get the TPU's windows, at the test's blocks and at the
+    card's 1,024-ray blocks; at the latter the checks they feed are not vacuous."""
+    e, u, _ = getattr(chip_smoke, rays)(*RESOLUTION, torch.device("cpu"))
+    padded = [splat_pallas._pad_rays(jnp.asarray(x.numpy()), -10.0, block) for x in (e, u)]
+    ou_jax, fits_jax = splat_pallas._dyn_offsets(*padded, RESOLUTION[1], RESOLUTION[0], WINDOW, block)
+    ou, fits = splat_window.dyn_offsets(e, u, RESOLUTION[1], RESOLUTION[0], WINDOW, block)
+    np.testing.assert_array_equal(ou.numpy(), np.asarray(ou_jax))
+    np.testing.assert_array_equal(fits.numpy(), np.asarray(fits_jax))
+    if block == 1024:
+        assert 0 < int(fits.sum()) < fits.numel()
+        if rays == "origin_change_rays":
+            fitting_origins = ou[fits.bool()]
+            assert int((fitting_origins[1:] != fitting_origins[:-1]).sum()) > fits.numel() // 2
+
+
+@pytest.mark.parametrize(
+    "rays, band_rows",
+    [
+        (40_000, 128),  # the block-window step's chunk: 40 ray blocks, 2 bands of 128 rows
+        (15_000_000, 86),  # 14,649 ray blocks take 117 KB: 3 bands of 86 rows
+        (40_000_000, None),  # 39,063 ray blocks leave no room for a row
+    ],
+    ids=["flagship", "many_blocks", "too_many_blocks"],
+)
+def test_window_band_rows(rays, band_rows):
+    """The row-window forward's bands: ``splat.band_layout`` of what the ray blocks' extents
+    leave of the H100's per-block shared memory (232,448 bytes)."""
+    if band_rows is None:
+        with pytest.raises(ValueError, match="does not fit"):
+            splat_window.window_band_rows(rays, *RESOLUTION, 232_448, 1024)
+        return
+    assert splat_window.window_band_rows(rays, *RESOLUTION, 232_448, 1024) == band_rows
+    blocks = -(-rays // 1024)
+    assert 4 * band_rows * RESOLUTION[0] + splat_kernels.BAND_PAD_BYTES + 8 * blocks <= 232_448
+
+
 def test_mixed_rays_fit_and_fall_back():
     """The check below is not vacuous: some blocks take the window, some the full map."""
     e, u, _ = _mixed_rays()
