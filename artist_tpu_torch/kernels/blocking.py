@@ -7,12 +7,18 @@ kernels live in ``csrc/blocking.cu``:
   ``blocking_sigma_pallas_grouped``:
 
   - ``blocking_sigma_forward`` replaces ``_sigma_forward_kernel`` with
-    ``gated=True``: one thread per ray, a loop over the owner's K candidates
-    held in shared memory;
+    ``gated=True``: a block takes 256 surface points of one heliostat and
+    first gathers the heliostat's kept candidates in ascending slot order;
+    with none kept it writes zeros without reading a ray; otherwise a thread
+    takes one point and its rays, four at a time, and loops over the kept
+    candidates alone, leaving a pair whose sigma is exactly 0 after its
+    geometry (:func:`gated_pair_exits`);
   - ``blocking_sigma_backward`` replaces ``_sigma_bwd_fused_kernel`` (and, for
     K > 16, the split ``_sigma_bwd_rays_kernel`` / ``_sigma_bwd_prims_kernel``):
-    the same layout; per-ray cotangents written directly, per-candidate
-    cotangents reduced in the block and added atomically;
+    the same layout and gather; each point's origin cotangent and each ray's
+    direction cotangent stored once by the thread that owns them, the
+    per-candidate cotangents summed over four rays in registers, reduced in
+    the block and added atomically;
 
 - the flat route over every primitive of the field,
   ``soft_ray_blocking_mask_pallas``:
@@ -73,7 +79,8 @@ LAUNCHES = {
     "blocking_sigma_flat_backward": 0,
 }
 NUM_COLUMNS = 16
-# Shared memory bounds K: (17 + 8 x 16) floats per candidate in the backward.
+# Shared memory bounds K: 147 floats per candidate slot in the backward (its
+# columns, keep, index, det and 8 warps' 16 column sums: 226 KB at K = 384).
 # The flat route takes any number of primitives, in tiles.
 MAX_CANDIDATES = 384
 # The kernels' blocks are 256 threads; an SM of sm_90 holds at most 2048
@@ -198,6 +205,12 @@ def _require_cuda(origins) -> None:
         raise ValueError(f"the CUDA blocking kernels take CUDA tensors, got {origins.device}")
 
 
+def _require_aligned(name: str, origins, directions) -> None:
+    """The kernel ``name`` reads origins and directions as 16-byte vectors."""
+    if origins.data_ptr() % 16 or directions.data_ptr() % 16:
+        raise ValueError(f"the {name} kernel reads origins and directions as 16-byte vectors: align them to 16 bytes")
+
+
 def _launch_args(origins, directions, count, softness, offset, epsilon) -> list:
     """M, N, P, K or B, the gate parameters, e^-softness, device and stream."""
     num, points = origins.shape[:2]
@@ -214,6 +227,7 @@ def sigma_forward_cuda(origins, directions, t_target, columns, keep,
     """Launch ``sigma_forward_kernel``: ``sigma [M, N]``."""
     _require_cuda(origins)
     _check_inputs(origins, directions, t_target, columns, keep)
+    _require_aligned("sigma forward", origins, directions)
     sigma = torch.empty(t_target.shape, dtype=torch.float32, device=origins.device)
     if sigma.numel() == 0:
         return sigma
@@ -233,6 +247,7 @@ def sigma_backward_cuda(origins, directions, t_target, columns, keep, gbar,
     """Launch ``sigma_backward_kernel``: cotangents of origins, directions and columns."""
     _require_cuda(origins)
     _check_inputs(origins, directions, t_target, columns, keep, gbar)
+    _require_aligned("sigma backward", origins, directions)
     grad_origins = torch.zeros_like(origins)
     grad_directions = torch.empty_like(directions)
     grad_columns = torch.zeros_like(columns)
@@ -254,8 +269,7 @@ def cull_cuda(origins, directions, t_target, own, aabb) -> torch.Tensor:
     """Launch ``blocking_cull_kernel``: ``keep [B]``, 1.0 for a primitive some ray may meet."""
     _require_cuda(origins)
     _check_cull_inputs(origins, directions, t_target, own, aabb)
-    if origins.data_ptr() % 16 or directions.data_ptr() % 16:
-        raise ValueError("the cull kernel reads origins and directions as 16-byte vectors: align them to 16 bytes")
+    _require_aligned("cull", origins, directions)
     keep = torch.zeros(aabb.shape[0], dtype=torch.float32, device=origins.device)
     if keep.numel() == 0 or t_target.numel() == 0:
         return keep
@@ -524,6 +538,16 @@ def gates_overflow(pair: dict, softness: float, offset: float) -> torch.Tensor:
     far_v = torch.maximum(-k * pair["v"], -k * (1.0 - pair["v"])) >= GATE_OVERFLOW_EXPONENT
     far_t = -k * (pair["t"] - offset) >= GATE_OVERFLOW_EXPONENT
     return (far_u & far_v) | (far_t & (far_u | far_v))
+
+
+def gated_pair_exits(pair: dict, t_target, weight, det, softness: float, offset: float) -> torch.Tensor:
+    """Where the compacted kernels leave a (ray, kept candidate) pair after its geometry, from
+    ``_pair_terms``' terms: the pair lies beyond the ray's target hit (``t > t_target``), its
+    gates overflow (:func:`gates_overflow`) or its weight ``gbar x keep`` is 0, and ``t``,
+    ``u``, ``v``, the weight and ``det = 1 / inv_det`` are finite. Then sigma and every
+    cotangent of the pair are exactly 0. The forward passes ``keep`` and ``det = 1``."""
+    zero = (pair["t"] > t_target) | gates_overflow(pair, softness, offset) | (weight == 0)
+    return zero & torch.isfinite(pair["t"] + pair["u"] + pair["v"] + weight * det)
 
 
 @torch.library.custom_op("artist_tpu_torch::blocking_sigma", mutates_args=())

@@ -19,9 +19,11 @@ exits non-zero without them. It imports only ``torch``, ``numpy`` and the
       onto a few pixels (``piled_rays``);
    b. the blocking sigma pair on the aim-point path's own first-epoch inputs
       (8 M rays, K = 16 candidates), on the same field with its rows 3 m
-      apart, where the check must not be vacuous, and there with every
-      candidate slot kept, at K = 16 and at K = 32; the arbiter is the plain
-      version in float64;
+      apart, where the check must not be vacuous, there with every
+      candidate slot kept, at K = 16 and at K = 32, and on edge cases at its
+      gates (``gated_edge_cases``); the arbiter is the plain version in
+      float64; the four fields are also timed replayed from a CUDA graph, and
+      their pairs counted by what makes their sigma exactly 0;
    c. the flat route's kernels on the flat aim-point path's own first-epoch
       inputs (8 M rays against all 100 primitives) and on the same field
       with its rows 3 m apart, timed on both: the AABB cull bit for bit
@@ -1175,7 +1177,17 @@ def _per_heliostat(fn, tensors, parameters, dtype, chunk: int = 10):
 
 def _arbitrate(what: str, kernel: torch.Tensor, plain: torch.Tensor, reference: torch.Tensor) -> float:
     """Hold the kernel to ARBITER_FACTOR x the fp32 plain version's error against
-    float64, in max and in mean, plus the floor; returns the worst share of a limit."""
+    float64, in max and in mean, plus the floor; returns the worst share of a limit.
+    Where the float64 reference is NaN (a NaN or infinite input), the kernel must be
+    NaN too, and nowhere else; the other entries are held to the limits."""
+    nan = reference.isnan()
+    if not torch.equal(kernel.isnan(), nan):
+        raise AssertionError(f"{what}: NaN in {int((kernel.isnan() != nan).sum())} entries where the float64 "
+                             "reference is not, or a number where it is NaN")
+    if nan.any():
+        kernel, plain, reference = kernel[~nan], plain[~nan], reference[~nan]
+        if reference.numel() == 0:
+            return 0.0
     kernel, plain = kernel.double(), plain.double()
     floor = ARBITER_FLOOR_ULPS * UNIT_ROUNDOFF * float(reference.abs().max()) + ARBITER_FLOOR_ABSOLUTE
     error_kernel, error_plain = (kernel - reference).abs(), (plain - reference).abs()
@@ -1219,26 +1231,84 @@ def check_sigma_pair(label: str, inputs, parameters, gbar, alpha: float = 100.0)
     blocked_share = float((1.0 - torch.exp(-alpha * reference) >= 1e-3).double().mean())
     return dict(
         worst_share=worst,
-        forward_err=float((sigma - plain).abs().max()),
-        backward_err=max(float((k - p).abs().max()) for k, p in zip(grads, plain_grads)),
-        cotangent_scale=max(float(r.abs().max()) for r in reference_grads),
-        sigma_max=float(reference.max()),
+        forward_err=_largest((sigma - plain).abs()),
+        backward_err=max(_largest((k - p).abs()) for k, p in zip(grads, plain_grads)),
+        cotangent_scale=max(_largest(r.abs()) for r in reference_grads),
+        sigma_max=_largest(reference),
         blocked_share=blocked_share,
         kept_candidates=int(inputs[4].sum()),
     )
 
 
-def time_sigma_pair(inputs, parameters, gbar) -> dict[str, dict]:
-    """The sigma kernels' and plain versions' times on ``inputs``, and the card's
-    bound for the same work: the kept pairs' operations or the bytes of every
-    input the function needs read once and every output written once,
-    whichever takes longer. A heliostat with no kept candidate has sigma 0 and
-    zero cotangents whatever its rays are, so only its outputs count."""
+def _largest(x: torch.Tensor) -> float:
+    """The largest entry of ``x`` that is not NaN (0 for none): the edge cases' NaN
+    inputs give NaN outputs, which the arbiter has matched already."""
+    x = x[~x.isnan()]
+    return float(x.max()) if x.numel() else 0.0
+
+
+def sigma_pair_counts(inputs, parameters, gbar) -> dict[str, int]:
+    """What the sigma pair's work is on ``inputs``: the heliostats that meet no kept
+    candidate (and the 256-ray blocks of theirs); the kept (ray, candidate) pairs;
+    of those, the pairs whose sigma is exactly 0, by cause: beyond the ray's target
+    hit (``t > t_target``) alone, overflowing gates alone (``gates_overflow``), both,
+    or neither (gates whose product overflows though no two of them reach the
+    test's threshold); and the pairs the kernels leave after their geometry
+    (``kernels.blocking.gated_pair_exits``), forward and backward. Counted from the
+    fp32 plain version's terms, a candidate slot at a time, so a pair at a gate's
+    edge may count otherwise than the kernel's own rounding decides."""
+    origins, directions, t_target, columns, keep = inputs
+    softness, offset, epsilon = parameters
+    rays = directions.shape[1]
+    ray_terms = blocking_kernels._rays(origins, directions)
+    none_kept = int((keep == 0).all(dim=1).sum())
+    counts = dict(
+        heliostats_none_kept=none_kept, ray_blocks_none_kept=none_kept * -(-rays // 256), kept_pairs=0,
+        zero_sigma=0, zero_beyond_target=0, zero_overflow=0, zero_both=0, zero_otherwise=0,
+        left_early_forward=0, left_early_backward=0,
+    )
+    for k in range(columns.shape[1]):
+        rows = torch.nonzero(keep[:, k]).flatten()
+        if rows.numel() == 0:
+            continue
+        weight, gated = keep[rows, k, None], t_target[rows]
+        sigma, pair = blocking_kernels._pair_terms(
+            tuple(x[rows] for x in ray_terms), columns[rows, k], gated, softness, offset, epsilon
+        )
+        beyond = pair["t"] > gated
+        overflow = blocking_kernels.gates_overflow(pair, softness, offset)
+        det = 1.0 / columns[rows, k, 15, None]
+        zero = sigma == 0
+        counts["kept_pairs"] += sigma.numel()
+        counts["zero_sigma"] += int(zero.sum())
+        counts["zero_beyond_target"] += int((zero & beyond & ~overflow).sum())
+        counts["zero_overflow"] += int((zero & overflow & ~beyond).sum())
+        counts["zero_both"] += int((zero & beyond & overflow).sum())
+        counts["zero_otherwise"] += int((zero & ~beyond & ~overflow).sum())
+        counts["left_early_forward"] += int(
+            blocking_kernels.gated_pair_exits(pair, gated, weight, torch.ones_like(det), softness, offset).sum()
+        )
+        counts["left_early_backward"] += int(
+            blocking_kernels.gated_pair_exits(pair, gated, gbar[rows] * weight, det, softness, offset).sum()
+        )
+    return counts
+
+
+def time_sigma_pair(inputs, parameters, gbar, counts: dict) -> dict[str, dict]:
+    """The sigma kernels' times on ``inputs`` with CUDA events and replayed from a CUDA
+    graph (the device alone, without the wrappers' host work), the plain versions'
+    times, and the card's bound for the same work: the kept pairs' operations or the
+    bytes of every input the function needs read once and every output written
+    once, whichever takes longer. A heliostat with no kept candidate has sigma 0
+    and zero cotangents whatever its rays are, so only its outputs count; a pair
+    whose sigma and cotangents are exactly 0 (``counts``, :func:`sigma_pair_counts`)
+    needs only its geometry and the test, SIGMA_ZERO_PAIR_OPS."""
     origins, directions, t_target, columns, keep = inputs
     num, points = origins.shape[:2]
     rays, candidates = directions.shape[1], columns.shape[1]
     kept = float(keep.sum())
     pairs = rays * kept  # the kernels skip keep = 0 slots
+    zero_forward, zero_backward = counts["left_early_forward"], counts["left_early_backward"]
     needed = float((keep.sum(dim=1) > 0).sum())  # heliostats with a kept candidate
     # Forward: per ray, sigma 4 written, and where needed direction 16 and
     # t_target 4 read; per needed point, origin 16 read; per slot, keep 4 read,
@@ -1252,18 +1322,26 @@ def time_sigma_pair(inputs, parameters, gbar) -> dict[str, dict]:
         16 * num * rays + 16 * num * points + 68 * num * candidates
         + needed * (24 * rays + 16 * points) + 64 * kept
     )
+    forward_ops = SIGMA_FORWARD_OPS_PER_PAIR * (pairs - zero_forward) + SIGMA_ZERO_PAIR_OPS * zero_forward
+    backward_ops = SIGMA_BACKWARD_OPS_PER_PAIR * (pairs - zero_backward) + SIGMA_ZERO_PAIR_OPS * zero_backward
+    forward = lambda: blocking_kernels.sigma_forward_cuda(*inputs, *parameters)  # noqa: E731
+    backward = lambda: blocking_kernels.sigma_backward_cuda(*inputs, gbar, *parameters)  # noqa: E731
     return {
         "blocking_sigma_forward": dict(
-            ms=event_ms(lambda: blocking_kernels.sigma_forward_cuda(*inputs, *parameters)),
+            ms=event_ms(forward),
+            graph_ms=graph_ms(forward),
             plain_ms=event_ms(lambda: blocking_kernels.sigma_forward_plain(*inputs, *parameters), 3, 1),
-            bound=bound_ms(forward_bytes, SIGMA_FORWARD_OPS_PER_PAIR * pairs),
+            bound=bound_ms(forward_bytes, forward_ops),
             pairs=pairs,
+            zero_pairs=zero_forward,
         ),
         "blocking_sigma_backward": dict(
-            ms=event_ms(lambda: blocking_kernels.sigma_backward_cuda(*inputs, gbar, *parameters)),
+            ms=event_ms(backward),
+            graph_ms=graph_ms(backward),
             plain_ms=event_ms(lambda: blocking_kernels.sigma_backward_plain(*inputs, gbar, *parameters), 3, 1),
-            bound=bound_ms(backward_bytes, SIGMA_BACKWARD_OPS_PER_PAIR * pairs),
+            bound=bound_ms(backward_bytes, backward_ops),
             pairs=pairs,
+            zero_pairs=zero_backward,
         ),
     }
 
@@ -1291,26 +1369,152 @@ SIGMA_CASES = (
 )
 
 
+# The path's blocking parameters: softness, ray origin offset, epsilon.
+GATED_EDGE_PARAMETERS = (1000.0, 0.05, 1e-12)
+GATED_EDGE_POINTS = 261  # two tiles of 256 points, the second ragged; N = 522 rays, no multiple of 4
+GATED_EDGE_RAYS = 2
+
+
+def gated_edge_cases(candidates: int, seed: int = SEED) -> tuple[np.ndarray, ...]:
+    """Hand-built compacted sigma inputs at the gates' edges, as float32 numpy arrays:
+    ``origins [6, P, 4]``, ``directions [6, N, 4]``, ``t_target [6, N]``, ``columns [6,
+    K, 16]``, ``keep [6, K]`` and ``gbar [6, N]`` (N = 2 P, ray i = r P + p; K =
+    ``candidates``, 16 or 32; the parameters are GATED_EDGE_PARAMETERS).
+
+    Candidate slot k is the unit square x in [2k, 2k + 1], z in [2k, 2k + 1] in the
+    plane y = 2 with normal -y (columns of exact values), unless a heliostat moves
+    it. A ray from (2k + a, 0, 2k + b) along +y meets it at t = 2 exactly, at local
+    coordinates (a, b), and every other slot far outside (its gates overflow).
+    Heliostat 0: slots 0, 2 and 5 kept with keep = 0 slots between them; rays at
+    t = t_target exactly and one fp32 step either side of it, and one with
+    t_target = -1e30. Heliostat 1: slot 1 moved to y = -1, behind the rays
+    (t = -1); rays whose u, v or t gate alone saturates (sigma ~1e-35, not 0) and
+    whose gates overflow in u and v, u and t, v and t, all three, and at the
+    overflow test's threshold. Heliostat 2: slot 3 moved behind slot 0 (y = 3), so
+    that rays cross both. Heliostat 3: nothing kept. Heliostat 4: every slot kept, a
+    NaN origin, an infinite direction, and a ray with gbar = 0 (a keep = 0 slot adds
+    exact zeros in the kernels, which skip it, where the plain version's 0 x NaN is
+    NaN, so no slot of this heliostat is dropped). Heliostat 5: slots 14 and 15 (K =
+    16) or 16, 19 and 31 (K = 32) kept. Every other point aims at a kept slot of its
+    heliostat near the square's edges (|a| or |b| or |1 - a| or |1 - b| < 0.005,
+    where the gates are soft), with directions tilted by ~2e-3 and t_target
+    uniform in [1, 4], from ``seed``.
+    """
+    rng = np.random.RandomState(seed)
+    heliostats, points, rays = 6, GATED_EDGE_POINTS, GATED_EDGE_RAYS
+    late = [14, 15] if candidates <= 16 else [16, 19, 31]
+    kept = [[0, 2, 5], [0, 1], [0, 1, 3], [], list(range(candidates)), late]
+    moved = {(1, 1): (2.0, -1.0, 2.0), (2, 3): (0.0, 3.0, 0.0)}  # (heliostat, slot): corner
+    columns = np.zeros((heliostats, candidates, 16), np.float32)
+    keep = np.zeros((heliostats, candidates), np.float32)
+    corners = np.zeros((heliostats, candidates, 3), np.float32)
+    for m in range(heliostats):
+        for k in range(candidates):
+            x0, y0, z0 = moved.get((m, k), (2.0 * k, 2.0, 2.0 * k))
+            corners[m, k] = x0, y0, z0
+            # n = -y, u = x, v = z: c0.n, c0.u, c0.v, u.u, v.v, u.v, 1 / det.
+            columns[m, k] = [0, -1, 0, 1, 0, 0, 0, 0, 1, -y0, x0, z0, 1, 1, 0, 1]
+        keep[m, kept[m]] = 1.0
+    up = np.array([0.0, 1.0, 0.0], np.float32)
+    origins = np.zeros((heliostats, points, 4), np.float32)
+    origins[..., 3] = 1.0
+    directions = np.zeros((heliostats, rays, points, 4), np.float32)
+    t_target = np.zeros((heliostats, rays, points), np.float32)
+
+    def aim(m, p, k, a, b, targets, tilts=(None, None)):
+        """Point p of heliostat m at local (a, b) of slot k; its rays' t_target and directions."""
+        x0, _, z0 = corners[m, k]
+        origins[m, p, :3] = x0 + a, 0.0, z0 + b
+        for r in range(rays):
+            directions[m, r, p, :3] = up if tilts[r] is None else tilts[r]
+            t_target[m, r, p] = targets[r]
+
+    below, above = np.nextafter(np.float32(2), np.float32(0)), np.nextafter(np.float32(2), np.float32(4))
+    fixed = {
+        0: [(0, 0.5, 0.5, (2.0, below)), (2, 0.5, 0.25, (above, -1e30)), (5, 0.25, 0.75, (2.0, 10.0)),
+            (1, 0.5, 0.5, (10.0, 10.0))],  # slot 1 is not kept
+        1: [(0, -0.1, 0.5, (10.0, 10.0)), (0, 0.5, 1.1, (10.0, 10.0)), (1, 0.5, 0.5, (10.0, 10.0)),
+            (0, -0.1, 1.2, (10.0, 10.0)), (1, -0.1, 0.5, (10.0, 10.0)), (1, 0.5, 1.2, (10.0, 10.0)),
+            (1, -0.1, 1.2, (10.0, 10.0)), (0, -0.045, -0.045, (10.0, 10.0))],
+        4: [(0, 0.5, 0.5, (10.0, 10.0)), (0, 0.25, 0.5, (10.0, 10.0)), (0, 0.75, 0.5, (10.0, 10.0))],
+    }
+    for m in range(heliostats):
+        rows = fixed.get(m, [])
+        for p, (k, a, b, targets) in enumerate(rows):
+            aim(m, p, k, a, b, targets)
+        for p in range(len(rows), points):
+            k = rng.choice(kept[m]) if kept[m] else rng.randint(candidates)
+            edge = rng.choice([0.0, 1.0], 2) + rng.uniform(-0.005, 0.005, 2)
+            a, b = np.where(rng.rand(2) < 0.5, edge, rng.uniform(-0.02, 1.02, 2))
+            tilts = [up + rng.normal(0.0, 2e-3, 3).astype(np.float32) for _ in range(rays)]
+            aim(m, p, k, a, b, rng.uniform(1.0, 4.0, rays), [t / np.linalg.norm(t) for t in tilts])
+    origins[4, 0, 0] = np.nan
+    directions[4, 0, 1, 0] = np.inf  # ray 1 (r = 0, p = 1)
+    gbar = rng.standard_normal((heliostats, rays, points)).astype(np.float32)
+    gbar[4, 0, 2] = 0.0
+    n = rays * points
+    return origins, directions.reshape(heliostats, n, 4), t_target.reshape(heliostats, n), columns, keep, \
+        gbar.reshape(heliostats, n)
+
+
+def check_gated_edge_cases(device: torch.device) -> dict[int, dict]:
+    """Phase 3b's edge cases (:func:`gated_edge_cases`) at K = 16 and K = 32: the sigma
+    kernels held to the float64 arbiter (NaN exactly where it is NaN), and the kept
+    pairs the kernels leave after their geometry. Returns, by K, check_sigma_pair's
+    result and sigma_pair_counts'."""
+    results = {}
+    for candidates in (AIM_CANDIDATES, 2 * AIM_CANDIDATES):
+        *arrays, gbar = (torch.tensor(x, device=device) for x in gated_edge_cases(candidates))
+        inputs = tuple(arrays)
+        result = check_sigma_pair(f"edge cases, K = {candidates}", inputs, GATED_EDGE_PARAMETERS, gbar)
+        result["counts"] = sigma_pair_counts(inputs, GATED_EDGE_PARAMETERS, gbar)
+        results[candidates] = result
+    return results
+
+
+def sigma_case(device: torch.device, label: str, spacing: float | None, candidates: int, all_kept: bool,
+               check: bool = True) -> dict:
+    """One of SIGMA_CASES: its inputs from the aim-point path, the sigma kernels held to
+    the float64 arbiter (with ``check``), its counts (:func:`sigma_pair_counts`) and
+    its timings (:func:`time_sigma_pair`)."""
+    inputs, parameters = sigma_inputs(device, spacing, candidates)
+    if inputs[3].shape[1] != candidates:
+        raise AssertionError(f"{label}: K = {inputs[3].shape[1]}, asked {candidates}")
+    if all_kept:
+        columns = inputs[3].flip(1).contiguous() if candidates > AIM_CANDIDATES else inputs[3]
+        inputs = inputs[:3] + (columns, torch.ones_like(inputs[4]))
+    gbar = torch.randn(
+        inputs[2].shape, device=device, generator=torch.Generator(device=device).manual_seed(SEED + 3)
+    )
+    result = check_sigma_pair(label, inputs, parameters, gbar) if check else {}
+    result["counts"] = sigma_pair_counts(inputs, parameters, gbar)
+    result["timings"] = time_sigma_pair(inputs, parameters, gbar, result["counts"])
+    result["shape"] = (inputs[1].shape[0], inputs[1].shape[1], inputs[3].shape[1])
+    return result
+
+
+def describe_counts(counts: dict) -> str:
+    """A phase line's account of :func:`sigma_pair_counts`."""
+    return (
+        f"heliostats with nothing kept {counts['heliostats_none_kept']} ({counts['ray_blocks_none_kept']} "
+        f"256-ray blocks), kept pairs {counts['kept_pairs']}, of them sigma exactly 0 {counts['zero_sigma']} "
+        f"(beyond the target hit {counts['zero_beyond_target']}, gates overflowing {counts['zero_overflow']}, "
+        f"both {counts['zero_both']}, otherwise {counts['zero_otherwise']}), left early forward "
+        f"{counts['left_early_forward']}, backward {counts['left_early_backward']}"
+    )
+
+
 def check_blocking_kernels(device: torch.device) -> dict[str, dict]:
     """Phase 3b: the sigma kernels on the aim-point path's first-epoch inputs, on
     the same field with rows 3 m apart, and there with every candidate slot kept
-    at K = 16 and K = 32; each held to the float64 arbiter and timed. The kernel
-    table reports the first, the path's own."""
+    at K = 16 and K = 32, and on the edge cases (:func:`gated_edge_cases`); each held
+    to the float64 arbiter, the first four timed with events and replayed from a
+    CUDA graph, with their counts (:func:`sigma_pair_counts`). The phase line also
+    gives the pair loops' instructions (``sass_counts``) and the floors they set
+    with every slot kept at K = 16. The kernel table reports the first, the path's own."""
     results = {}
     for label, _, spacing, candidates, all_kept in SIGMA_CASES:
-        inputs, parameters = sigma_inputs(device, spacing, candidates)
-        if inputs[3].shape[1] != candidates:
-            raise AssertionError(f"{label}: K = {inputs[3].shape[1]}, asked {candidates}")
-        if all_kept:
-            columns = inputs[3].flip(1).contiguous() if candidates > AIM_CANDIDATES else inputs[3]
-            inputs = inputs[:3] + (columns, torch.ones_like(inputs[4]))
-        gbar = torch.randn(
-            inputs[2].shape, device=device, generator=torch.Generator(device=device).manual_seed(SEED + 3)
-        )
-        results[label] = check_sigma_pair(label, inputs, parameters, gbar)
-        results[label]["timings"] = time_sigma_pair(inputs, parameters, gbar)
-        results[label]["shape"] = (inputs[1].shape[0], inputs[1].shape[1], inputs[3].shape[1])
-        del inputs, gbar
+        results[label] = sigma_case(device, label, spacing, candidates, all_kept)
         torch.cuda.empty_cache()
     dense = results["dense rows"]
     if not (dense["sigma_max"] > 0.1 and dense["blocked_share"] > 0.05):
@@ -1318,6 +1522,10 @@ def check_blocking_kernels(device: torch.device) -> dict[str, dict]:
             f"dense rows: the check is vacuous (max sigma {dense['sigma_max']}, "
             f"blocked share {dense['blocked_share']})"
         )
+    edges = check_gated_edge_cases(device)
+    names = ("blocking_sigma_forward", "blocking_sigma_backward")
+    all_kept = results[SIGMA_CASES[2][0]]["timings"]
+    floors = sigma_floors(names, {n: all_kept[n]["pairs"] for n in names}, {n: all_kept[n]["zero_pairs"] for n in names})
     replaces = {
         "blocking_sigma_forward": "artist_tpu/kernels/blocking_pallas.py:240 (_sigma_forward_kernel, gated=True, pallas_call :883)",
         "blocking_sigma_backward": "artist_tpu/kernels/blocking_pallas.py:348 (_sigma_bwd_fused_kernel, pallas_call :930)",
@@ -1328,11 +1536,12 @@ def check_blocking_kernels(device: torch.device) -> dict[str, dict]:
         timings[name] = dict(
             t,
             library_ms=None,
-            max_abs_err=max(r[errors[name]] for r in results.values()),
+            max_abs_err=max(r[errors[name]] for r in [*results.values(), *edges.values()]),
             replaces=replaces[name],
             **{
-                key: {"ms": x["ms"], "plain_ms": x["plain_ms"], "bound_ms": x["bound"][0],
-                      "bound_by": x["bound"][1], "pairs": x["pairs"], "candidates": candidates}
+                key: {"ms": x["ms"], "graph_ms": x["graph_ms"], "plain_ms": x["plain_ms"], "bound_ms": x["bound"][0],
+                      "bound_by": x["bound"][1], "pairs": x["pairs"], "zero_pairs": x["zero_pairs"],
+                      "candidates": candidates}
                 for label, key, _, candidates, _ in SIGMA_CASES[1:]
                 for x in (results[label]["timings"][name],)
             },
@@ -1342,16 +1551,25 @@ def check_blocking_kernels(device: torch.device) -> dict[str, dict]:
         + "; ".join(
             f"{label} ([{r['shape'][0]}, {r['shape'][1]}] rays x K = {r['shape'][2]}): max sigma "
             f"{r['sigma_max']:.4g}, blocked share {r['blocked_share']:.4g}, kept candidates "
-            f"{r['kept_candidates']}, largest cotangent {r['cotangent_scale']:.4g}, worst share of the arbiter's limit "
+            f"{r['kept_candidates']}, {describe_counts(r['counts'])}, largest cotangent {r['cotangent_scale']:.4g}, "
+            "worst share of the arbiter's limit "
             + json.dumps({k: round(v, 4) for k, v in r["worst_share"].items()})
             + ", "
             + ", ".join(
-                f"{name} kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, bound {t['bound'][0]:.4f} ms "
-                f"({t['bound'][1]}, {t['pairs']:.0f} kept pairs)"
+                f"{name} kernel {t['ms']:.4f} ms ({t['graph_ms']:.4f} ms replayed from a CUDA graph), plain "
+                f"{t['plain_ms']:.4f} ms, bound {t['bound'][0]:.4f} ms ({t['bound'][1]}, {t['pairs']:.0f} kept pairs, "
+                f"{t['zero_pairs']} of them with sigma 0)"
                 for name, t in r["timings"].items()
             )
             for label, r in results.items()
         )
+        + "".join(
+            f"; edge cases, K = {k}: {describe_counts(r['counts'])}, largest cotangent {r['cotangent_scale']:.4g}, "
+            "worst share of the arbiter's limit " + json.dumps({k: round(v, 4) for k, v in r["worst_share"].items()})
+            for k, r in edges.items()
+        )
+        + "; "
+        + describe_floors(floors, "with all 16 slots kept")
         + "; max |kernel - fp32 plain|: "
         + ", ".join(f"{name} {t['max_abs_err']:.3g}" for name, t in timings.items())
     )
@@ -1657,26 +1875,46 @@ def check_many_primitives(cull_inputs, sigma_inputs, parameters) -> dict[str, di
     return results
 
 
-def flat_sigma_floors(pairs: float, zero_pairs: float) -> dict[str, dict | None] | None:
-    """The flat sigma kernels' pair loops as compiled (``sass_counts``: instructions
-    per pair by class) and their floors at ``pairs`` pairs, ``zero_pairs`` of them
-    left after their geometry: the instructions at the card's issue rate and the
-    MUFU operations at the MUFU pipe's rate. The floors are a reading, not a check:
-    None for a kernel whose pair loop the tool does not find, and None for all
-    where ``cuobjdump`` is missing or fails."""
+# The sigma kernels whose pair loops sigma_floors reads, by the name in the kernel line.
+SIGMA_LOOP_KERNELS = {
+    "blocking_sigma_forward": "sigma_forward_kernel",
+    "blocking_sigma_backward": "sigma_backward_kernel",
+    "blocking_sigma_flat_forward": "sigma_flat_forward_kernel",
+    "blocking_sigma_flat_backward": "sigma_flat_backward_kernel",
+}
+
+
+def sigma_floors(names, pairs: dict[str, float], zero_pairs: dict[str, float]) -> dict[str, dict | None] | None:
+    """The sigma kernels ``names`` (keys of SIGMA_LOOP_KERNELS) and their pair loops as
+    compiled (``sass_counts``: instructions per pair by class) and their floors at
+    ``pairs[name]`` pairs, ``zero_pairs[name]`` of them left after their geometry: the
+    instructions at the card's issue rate and the MUFU operations at the MUFU pipe's
+    rate. The floors are a reading, not a check: None for a kernel whose pair loop
+    the tool does not find, and None for all where ``cuobjdump`` is missing or fails."""
     try:
         loops = sass_counts.loop_counts(build_library("blocking")[0])
     except (OSError, subprocess.CalledProcessError):
         return None
-    names = {
-        "blocking_sigma_flat_forward": "sigma_flat_forward_kernel",
-        "blocking_sigma_flat_backward": "sigma_flat_backward_kernel",
-    }
     floors = {}
-    for name, kernel in names.items():
-        loop = loops.get(kernel)
-        floors[name] = loop and dict(per_pair=loop["per_pair"], **sass_counts.floors_ms(loop, pairs, zero_pairs))
+    for name in names:
+        loop = loops.get(SIGMA_LOOP_KERNELS[name])
+        floors[name] = loop and dict(
+            per_pair=loop["per_pair"], **sass_counts.floors_ms(loop, pairs[name], zero_pairs[name])
+        )
     return floors
+
+
+def describe_floors(floors: dict[str, dict | None] | None, where: str) -> str:
+    """A phase line's account of :func:`sigma_floors`."""
+    if floors is None:
+        return "sigma pair-loop floors not available (cuobjdump missing or failed)"
+    return "; ".join(
+        f"{name} pair loop "
+        + (f"{json.dumps({k: v if v is None else round(v, 2) for k, v in f['per_pair'].items()})} instructions a "
+           f"pair, floors {where}: issue {f['issue_ms']:.4f} ms, MUFU {f['mufu_ms']:.4f} ms"
+           if f else "not found in the SASS")
+        for name, f in floors.items()
+    )
 
 
 def check_flat_kernels(device: torch.device) -> dict[str, dict]:
@@ -1717,8 +1955,12 @@ def check_flat_kernels(device: torch.device) -> dict[str, dict]:
             f"dense rows, flat: the check is vacuous ({dense['kept_primitives']} kept primitives, max sigma "
             f"{dense['sigma_max']}, blocked share {dense['blocked_share']})"
         )
-    dense_forward = dense["timings"]["blocking_sigma_flat_forward"]
-    floors = flat_sigma_floors(dense_forward["pairs"], dense_forward["zero_pairs"])
+    dense_timings = dense["timings"]
+    flat_names = ("blocking_sigma_flat_forward", "blocking_sigma_flat_backward")
+    floors = sigma_floors(
+        flat_names, {n: dense_timings[n]["pairs"] for n in flat_names},
+        {n: dense_timings[n]["zero_pairs"] for n in flat_names},
+    )
     replaces = {
         "blocking_cull": "artist_tpu/kernels/blocking_pallas.py:414 (_cull_kernel, pallas_call :506)",
         "blocking_sigma_flat_forward":
@@ -1771,13 +2013,7 @@ def check_flat_kernels(device: torch.device) -> dict[str, dict]:
             for label, r in many.items()
         )
         + "; "
-        + ("flat sigma pair-loop floors not available (cuobjdump missing or failed)" if floors is None else "; ".join(
-            f"{name} pair loop "
-            + (f"{json.dumps({k: v if v is None else round(v, 2) for k, v in f['per_pair'].items()})} instructions a "
-               f"pair, floors on the dense rows: issue {f['issue_ms']:.4f} ms, MUFU {f['mufu_ms']:.4f} ms"
-               if f else "not found in the SASS")
-            for name, f in floors.items()
-        ))
+        + describe_floors(floors, "on the dense rows")
         + "; max |kernel - fp32 plain|: "
         + ", ".join(f"{name} {t['max_abs_err']:.3g}" for name, t in timings.items())
     )
@@ -2204,7 +2440,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     paths["formulation_tool"] = drive_formulation_tool(device)
 
-    case_keys = {key for _, key, *_ in SIGMA_CASES[1:] + FLAT_CASES[1:]} | {"kept_primitives", "fit_fraction", "full_splat_ms"}
+    case_keys = {key for _, key, *_ in SIGMA_CASES[1:] + FLAT_CASES[1:]} | {
+        "kept_primitives", "fit_fraction", "full_splat_ms", "graph_ms", "zero_pairs",
+    }
     kernels = []
     for kernel_name, t in timings.items():
         main_path = MAIN_PATH.get(kernel_name, "aim_point_flat")
