@@ -2,11 +2,13 @@
 // vector-Jacobian product: hand-written CUDA for Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernels
-//   band_accumulate_kernel<false> <- _splat_fwd_kernel (artist_tpu/kernels/splat_pallas.py,
+//   band_accumulate_kernel<kNoWindows> <- _splat_fwd_kernel (artist_tpu/kernels/splat_pallas.py,
 //       via _splat_forward, bilinear_splat_pallas) and _scatter_kernel
 //       (tools/splat_formulation_bench.py, via scatter_forward); the kernel is in
 //       splat_band.cuh, shared with splat_window.cu
-//   splat_backward_kernel         <- _splat_bwd_kernel (via _splat_bwd)
+//   splat_backward_kernel              <- _splat_bwd_kernel (via _splat_bwd), and
+//       _dyn_bwd_kernel (via _dyn_bwd): splat_window.cu's head note says why the
+//       dynamic window's VJP is this gather
 //
 // Semantics (the reference's 4-neighbour scatter with strict bounds, fp32):
 //   a ray (e, u, w) of heliostat m is valid when le = floor(e) lies in
@@ -140,9 +142,9 @@ extern "C" int splat_forward(const float* e, const float* u, const float* w, flo
                              int band_rows, int device, void* stream) {
     cudaError_t status = cudaSetDevice(device);
     if (status != cudaSuccess) return static_cast<int>(status);
-    return static_cast<int>(launch_band_accumulate<false>(e, u, w, out, nullptr, num_maps, rays_per_map, height,
-                                                          width, band_rows, 1, 0, device,
-                                                          static_cast<cudaStream_t>(stream)));
+    return static_cast<int>(launch_band_accumulate<kNoWindows>(e, u, w, out, nullptr, num_maps, rays_per_map,
+                                                               height, width, band_rows, 1, 0, nullptr, 1, 0,
+                                                               device, static_cast<cudaStream_t>(stream)));
 }
 
 extern "C" int splat_backward(const float* e, const float* u, const float* w, const float* g,

@@ -12,7 +12,9 @@ with ``compute_dtype=float32``). The kernels live in ``csrc/splat.cu``:
   shared-memory atomics, and stores the band whole: no other block writes
   those pixels.
 - ``splat_backward`` replaces ``_splat_bwd_kernel``: one thread per ray, a
-  four-tap gather of the cotangent; deterministic.
+  four-tap gather of the cotangent; deterministic. The dynamic-window splat's
+  backward (:mod:`artist_tpu_torch.kernels.splat_window`) launches the same
+  kernel (:func:`backward_gather`), counted under its own name.
 
 Both are bound by bytes on the H100; the source's head note gives the bound
 and what the design does about it. They are built with ``nvcc`` at first use
@@ -78,25 +80,27 @@ def _check_status(library: ctypes.CDLL, name: str, status: int) -> None:
         raise RuntimeError(f"{name} kernel launch failed: {message} ({status})")
 
 
-def _check_rays(e: torch.Tensor, u: torch.Tensor, w: torch.Tensor) -> None:
-    """Validate the ray streams the kernels and plain versions take."""
-    for name, x in (("bitmap_e", e), ("bitmap_u", u), ("intensities", w)):
-        if x.dim() != 2:
-            raise ValueError(f"{name} must be [M, N], got shape {tuple(x.shape)}")
-        if x.shape != e.shape or x.device != e.device or x.dtype != e.dtype:
-            raise ValueError(
-                "bitmap_e, bitmap_u and intensities must share shape, device and dtype"
-            )
-        if not x.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-    if e.device.type == "cuda":
-        if e.dtype != torch.float32:
-            raise TypeError(f"the CUDA splat takes float32, got {e.dtype}")
-    elif e.device.type == "cpu":
-        if e.dtype not in (torch.float32, torch.float64):
-            raise TypeError(f"the plain splat takes float32 or float64, got {e.dtype}")
+def _check_rays(e: torch.Tensor, u: torch.Tensor, w: torch.Tensor, dims: tuple[int, ...] = (2,)) -> None:
+    """Validate the ray streams the kernels and plain versions take: ``[M, N]`` (or, where
+    ``dims`` allows it, ``[M, r, P]``), contiguous, one shape, device and dtype. Written
+    for few tensor attribute reads: the kernel wrappers run it at every launch."""
+    if e.dim() not in dims:
+        raise ValueError(f"bitmap_e must be {' or '.join(('[M, N]', '[M, r, P]')[d - 2] for d in dims)}, "
+                         f"got shape {tuple(e.shape)}")
+    shape, dtype, device = e.shape, e.dtype, e.device
+    if u.shape != shape or w.shape != shape or u.dtype != dtype or w.dtype != dtype or u.device != device \
+            or w.device != device:
+        raise ValueError("bitmap_e, bitmap_u and intensities must share shape, device and dtype")
+    if not (e.is_contiguous() and u.is_contiguous() and w.is_contiguous()):
+        raise ValueError("bitmap_e, bitmap_u and intensities must be contiguous")
+    if device.type == "cuda":
+        if dtype != torch.float32:
+            raise TypeError(f"the CUDA splat takes float32, got {dtype}")
+    elif device.type == "cpu":
+        if dtype not in (torch.float32, torch.float64):
+            raise TypeError(f"the plain splat takes float32 or float64, got {dtype}")
     else:
-        raise ValueError(f"no splat for device type {e.device.type!r}")
+        raise ValueError(f"no splat for device type {device.type!r}")
 
 
 def _check_bitmap(height: int, width: int) -> None:
@@ -105,7 +109,9 @@ def _check_bitmap(height: int, width: int) -> None:
 
 
 def _launch_args(e: torch.Tensor, height: int, width: int) -> list:
-    num_maps, rays_per_map = e.shape
+    """The sizes, device and stream of a launch on ``[M, ...]`` rays: M maps of the rest."""
+    num_maps = e.shape[0]
+    rays_per_map = e.numel() // num_maps if num_maps else 0
     stream = torch.cuda.current_stream(e.device).cuda_stream
     return [num_maps, rays_per_map, height, width, e.device.index, stream]
 
@@ -156,11 +162,12 @@ def splat_forward_cuda(
     return out
 
 
-def splat_backward_cuda(
-    e: torch.Tensor, u: torch.Tensor, w: torch.Tensor, g: torch.Tensor,
-    height: int, width: int,
+def backward_gather(
+    e: torch.Tensor, u: torch.Tensor, w: torch.Tensor, g: torch.Tensor, height: int, width: int
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Launch ``splat_backward_kernel``: per-ray (de, du, dw), each ``[M, N]``."""
+    """Launch ``splat_backward_kernel``: per-ray (de, du, dw), each of the rays' shape
+    (``[M, N]``, or any ``[M, ...]`` whose rest is a map's rays). The callers count the
+    launch under their own names."""
     grads = tuple(torch.empty_like(e) for _ in range(3))
     if e.numel() == 0:
         return grads
@@ -171,7 +178,17 @@ def splat_backward_cuda(
         *_launch_args(e, height, width),
     )
     _check_status(library, "splat_backward", status)
-    LAUNCHES["splat_backward"] += 1
+    return grads
+
+
+def splat_backward_cuda(
+    e: torch.Tensor, u: torch.Tensor, w: torch.Tensor, g: torch.Tensor,
+    height: int, width: int,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Launch ``splat_backward_kernel``: per-ray (de, du, dw), each ``[M, N]``."""
+    grads = backward_gather(e, u, w, g, height, width)
+    if e.numel():
+        LAUNCHES["splat_backward"] += 1
     return grads
 
 

@@ -15,7 +15,10 @@ and never builds ``[M, R, P, 4, 4]`` rotation tensors.
 Kernel launches per checkpointed ray chunk, forward and backward: two splat
 forwards (the recompute runs it again) and one splat backward, of the
 dynamic-window kernels with ``splat_block_window`` set and of the full splat
-otherwise (``splat_window`` wraps the full splat at window size); with
+otherwise (``splat_window`` wraps the full splat at window size). The
+dynamic-window kernels take the chunk's ``[M, r, P]`` streams as they are and
+cut their ray blocks through the point order (``point_permutation``), so
+no ray stream is reordered or copied for them; with
 blocking on the compacted route (``blocking_candidates`` set) one sigma
 forward and one sigma backward; on the flat route
 (``blocking_candidates=None``) one cull, one flat sigma forward and one
@@ -41,6 +44,7 @@ from torch.utils.checkpoint import (
 
 from artist_tpu_torch.field.solar_tower import SolarTower
 from artist_tpu_torch.geometry.transforms import apply_distortion_rotation
+from artist_tpu_torch.kernels.splat_window import splat_dynamic_window
 from artist_tpu_torch.raytracing import geometry
 from artist_tpu_torch.raytracing.blocking import soft_ray_blocking_mask
 from artist_tpu_torch.raytracing.splatting import bilinear_splat, point_tile_order
@@ -64,14 +68,15 @@ class RenderConfig:
     splat_window: int | None = None
     # Exact per-ray-block row window (pixels, a multiple of 8): each block of
     # rays splats through a window at its own deposit offset, a block that
-    # exceeds it into the full map. Rays are reordered point-major over
-    # spatial point tiles so blocks have compact spans. Takes precedence over
-    # splat_window. None = the full-bitmap splat.
+    # exceeds it into the full map. The blocks are cut from the rays taken
+    # point-major over spatial point tiles, so that they have compact spans;
+    # the kernels read the rays in place through that order. Takes precedence
+    # over splat_window. None = the full-bitmap splat.
     splat_block_window: int | None = None
-    # Spatial tile edge for the point reorder (splat_block_window only).
+    # Spatial tile edge of the point order (splat_block_window only).
     splat_point_tile: int = 10
-    # Surface-point grid layout (points_u, points_v, facets) for the tile
-    # reorder; None skips the permutation (plain point-major transpose).
+    # Surface-point grid layout (points_u, points_v, facets) of the tile
+    # order; None takes the points in index order (plain point-major).
     splat_point_layout: tuple[int, int, int] | None = None
     # Field-wide soft blocking; needs the blocking primitives.
     blocking_active: bool = False
@@ -167,19 +172,12 @@ def _save_blocking_sigma(ctx, op, *args, **kwargs) -> CheckpointPolicy:
 
 def point_permutation(config: RenderConfig, device) -> torch.Tensor | None:
     """The block-window route's order of the surface points (``point_tile_order``
-    of ``config.splat_point_layout``), or None without a layout."""
+    of ``config.splat_point_layout``, int32), or None without a layout."""
     if config.splat_point_layout is None:
         return None
     points_u, points_v, facets = config.splat_point_layout
     order = point_tile_order(points_u, points_v, facets, config.splat_point_tile)
-    return torch.tensor(order, dtype=torch.long, device=device)
-
-
-def point_major(x: torch.Tensor, permutation: torch.Tensor | None) -> torch.Tensor:
-    """A ray stream ``[M, r, P]`` -> ``[M, P, r]``, its points in ``permutation``'s order:
-    the block-window route's layout, where consecutive rays share compact spans."""
-    x = x.transpose(1, 2)
-    return x.contiguous() if permutation is None else x.index_select(1, permutation)
+    return torch.tensor(order, dtype=torch.int32, device=device)
 
 
 def trace_rays(
@@ -252,13 +250,13 @@ def trace_rays(
             ray_primitive_indices,
         )
         if config.splat_block_window is not None:
-            partial_flux = bilinear_splat(
-                point_major(rays.bitmap_e, permutation),
-                point_major(rays.bitmap_u, permutation),
-                point_major(rays.final_intensities, permutation),
+            partial_flux = splat_dynamic_window(
+                rays.bitmap_e.contiguous(),
+                rays.bitmap_u.contiguous(),
+                rays.final_intensities.contiguous(),
                 config.bitmap_resolution,
-                flip_up_down=False,
-                block_window=config.splat_block_window,
+                config.splat_block_window,
+                point_order=permutation,
             )
         else:
             partial_flux = bilinear_splat(

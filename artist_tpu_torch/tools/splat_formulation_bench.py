@@ -153,7 +153,7 @@ def run(device="cuda") -> dict:
     # 2. The dynamic row window.
     _, counts = splat_dynamic_window_forward_cuda(e, u, w, height, width, WINDOW)
     blocks = num * -(-rays_per_map // RAY_BLOCK)
-    result["dynamic_window_fit_fraction"] = int(counts[0]) / blocks
+    result["dynamic_window_fit_fraction"] = int(counts.sum()) / blocks
     result["dynamic_window_forward_ms"] = device_ms(
         lambda: splat_dynamic_window_forward_cuda(e, u, w, height, width, WINDOW)
     )

@@ -50,20 +50,24 @@ exits non-zero without them. It imports only ``torch``, ``numpy`` and the
    keeps most primitives and some blocking factor must fall below 1;
 9. flat blocking step: the blocking step of phase 6 on the flat route;
 10. block-window step (this slice's main path): the surface step of phase 4
-    with ``splat_block_window=96`` on rays reordered point-major over 10 x 10
-    point tiles (``bench.py``'s ``BENCH_SPLAT_BLOCK_WINDOW`` configuration),
-    its first loss equal to phase 4's;
+    with ``splat_block_window=96``, its ray blocks cut point-major over
+    10 x 10 point tiles (``bench.py``'s ``BENCH_SPLAT_BLOCK_WINDOW``
+    configuration) from the rays in place, its first loss equal to phase 4's,
+    and no ray stream reordered in a loss and its backward
+    (:func:`ray_stream_reorders`);
 11. the splat-formulation tool (``artist_tpu_torch.tools.splat_formulation_bench``)
     at its full shape (32 M rays).
 
 Phase 3 also holds the dynamic-window kernels (3d: on the block-window
-step's first chunk, reordered as that step reorders it, on rays that force
-fallback blocks, on the edge cases, on the piled rays and on rays whose
-window origin changes at nearly every block; the kernel's count of blocks
-that fit their window equal to the plain windows' count) and the
-formulation tool's kernels (3e: the band accumulate also on rays that
-straddle every band border); phase 7 also checks a small block-window step
-and a small windowed step (7c).
+step's first chunk in place with the tile order, as that step splats it,
+without the order, and at 3 rays a point, where blocks straddle points, with a
+ragged last block; without an order on rays that force fallback blocks, on the
+edge cases, on the piled rays and on rays whose window origin changes at
+nearly every block; the kernel's count of blocks that fit their window equal
+to the windows of the point-major copy) and the formulation tool's kernels
+(3e: the 2-D window's count equal to the plain windows'; the band accumulate
+also on rays that straddle every band border); phase 7 also checks a small
+block-window step and a small windowed step (7c).
 
 Each driven path sets every launch count to 0 just before it and reads them
 just after. Then one JSON line of per-kernel numbers and, last, the
@@ -110,7 +114,6 @@ from artist_tpu_torch.optim.losses import kl_divergence_loss  # noqa: E402
 from artist_tpu_torch.raytracing import geometry  # noqa: E402
 from artist_tpu_torch.raytracing.blocking import create_blocking_primitives_rectangles_by_index  # noqa: E402
 from artist_tpu_torch.raytracing.render import RenderConfig, point_permutation, ray_splat_inputs, trace_rays  # noqa: E402
-from artist_tpu_torch.raytracing.render import point_major as render_point_major  # noqa: E402
 from artist_tpu_torch.scenario.synthetic import make_synthetic_scenario  # noqa: E402
 from artist_tpu_torch.tools import sass_counts, splat_formulation_bench  # noqa: E402
 from artist_tpu_torch.util import constants  # noqa: E402
@@ -132,13 +135,15 @@ KERNELS = (
     "splat_band_forward",
 )
 # The source of each kernel, under artist_tpu_torch/kernels/csrc/.
+# The dynamic window's backward launches splat.cu's gather (splat_window.cu's head note).
 SOURCES = {
     **dict.fromkeys(("splat_forward", "splat_backward", "splat_band_forward"), "splat.cu"),
     **dict.fromkeys(KERNELS[2:7], "blocking.cu"),
-    **dict.fromkeys(KERNELS[7:10], "splat_window.cu"),
+    **dict.fromkeys(("splat_dynamic_window_forward", "splat_window_2d_forward"), "splat_window.cu"),
+    "splat_dynamic_window_backward": "splat.cu",
 }
 # The block-window step: bench.py's flagship step with BENCH_SPLAT_BLOCK_WINDOW=96,
-# whose rays are reordered point-major over 10 x 10 tiles of each facet's points.
+# whose ray blocks are cut point-major over 10 x 10 tiles of each facet's points.
 BLOCK_WINDOW = dict(splat_block_window=96, splat_point_layout=(50, 50, 4), splat_point_tile=10)
 
 
@@ -427,10 +432,21 @@ def flagship_inputs(
     return dataclasses.replace(inputs, config=dataclasses.replace(inputs.config, **splat_options))
 
 
+def point_major_copy(x: torch.Tensor, order: torch.Tensor | None) -> torch.Tensor:
+    """A ``[M, r, P]`` ray stream as the sequence that cuts the block window's ray blocks,
+    ``[M, P * r]``: the points in ``order`` (None: index order), each point's r rays
+    together. The layout the JAX package splats; the port's kernels read the stream
+    in place, and this copy is the reference for their windows."""
+    x = x.transpose(1, 2)
+    if order is not None:
+        x = x[:, order.long()]
+    return x.reshape(x.shape[0], -1).contiguous()
+
+
 def first_chunk_rays(inputs: StepInputs, point_major: bool = False):
     """The splat's inputs in the main path's first ray chunk: ``[M, chunk * P]`` each,
-    ray-major as the full splat takes them or, with ``point_major``, in the
-    block-window route's order (points outer, in tile order with a layout)."""
+    ray-major as the splats take them or, with ``point_major``, copied into the
+    block-window route's sequence (points outer, in tile order with a layout)."""
     group = inputs.scenario.heliostat_groups[0]
     chunk = inputs.config.ray_chunk
     with torch.no_grad():
@@ -449,7 +465,7 @@ def first_chunk_rays(inputs: StepInputs, point_major: bool = False):
     e, u, w = rays.bitmap_e, rays.bitmap_u, rays.final_intensities
     if point_major:
         permutation = point_permutation(inputs.config, e.device)
-        e, u, w = (render_point_major(x, permutation) for x in (e, u, w))
+        return tuple(point_major_copy(x, permutation) for x in (e, u, w))
     num = e.shape[0]
     return tuple(x.reshape(num, -1).contiguous() for x in (e, u, w))
 
@@ -781,43 +797,53 @@ def origin_change_rays(width: int, height: int, device: torch.device):
 
 
 def check_dynamic_window_kernels(inputs: StepInputs) -> dict[str, dict]:
-    """Phase 3d: the dynamic-window pair on the block-window step's first chunk (rays
-    point-major over tiles, as that step splats them), on rays that force
-    fallback blocks, on the edge cases, on the piled rays and on rays whose window
-    origin changes at nearly every block, each against its plain version; the
-    forward kernel's count of fitting blocks equal to the plain windows'
-    (:func:`splat_window.dyn_offsets`), above half the blocks on the chunk,
-    fallbacks present on the forced input, the edge cases and the origin changes.
-    Timed on the chunk beside the full splat's kernels on the same rays."""
+    """Phase 3d: the dynamic-window pair on the block-window step's first chunk as that step
+    splats it (the ``[M, 4, P]`` streams in place with the tile order), on the same
+    streams without the order, on their first 3 rays a point (r = 3, so that blocks
+    straddle points, and a ragged last block) with the order, and with no order on rays
+    that force fallback blocks, on the edge cases, on the piled rays and on rays whose
+    window origin changes at nearly every block, each against its plain version; the
+    forward kernel's count of fitting blocks equal to the windows of the point-major copy
+    (:func:`point_major_copy`, :func:`splat_window.dyn_offsets`), above half the blocks on
+    the chunk, fallbacks present on the forced input, the edge cases and the origin
+    changes; and on the chunk with an order whose entries leave [0, P), which must fault
+    nothing and leave the bitmap the full splat's. Timed on the chunk beside the full
+    splat's kernels on the same rays."""
     width, height = BITMAP
     window = BLOCK_WINDOW["splat_block_window"]
     device = inputs.ground_truth.device
-    chunk = first_chunk_rays(
-        dataclasses.replace(inputs, config=dataclasses.replace(inputs.config, **BLOCK_WINDOW)), point_major=True
-    )
+    config = dataclasses.replace(inputs.config, **BLOCK_WINDOW)
+    chunk_rays = first_chunk_rays(dataclasses.replace(inputs, config=config))
+    num, rays_per_map = chunk_rays[0].shape
+    chunk = tuple(x.reshape(num, config.ray_chunk, -1) for x in chunk_rays)
+    order = point_permutation(config, device)
     cases = {
-        "flagship chunk": chunk,
-        "forced fallbacks": mixed_window_rays(width, height, device),
-        "edge cases": window_edge_rays(width, height, device),
-        "piled rays": piled_rays(width, height, device),
-        "origin changes": origin_change_rays(width, height, device),
+        "flagship chunk": (chunk, order),
+        "flagship chunk, no order": (chunk, None),
+        "3 rays a point": (tuple(x[:, :3].contiguous() for x in chunk), order),
+        "forced fallbacks": (mixed_window_rays(width, height, device), None),
+        "edge cases": (window_edge_rays(width, height, device), None),
+        "piled rays": (piled_rays(width, height, device), None),
+        "origin changes": (origin_change_rays(width, height, device), None),
     }
     forward_err, backward_errs, worst_share, fitting = 0.0, [], 0.0, {}
-    for seed, (label, rays) in enumerate(cases.items()):
+    for seed, (label, (rays, point_order)) in enumerate(cases.items()):
         g = torch.randn(
             (rays[0].shape[0], height, width), device=device,
             generator=torch.Generator(device=device).manual_seed(SEED + 10 + seed),
         )
-        kernel, count = splat_window.splat_dynamic_window_forward_cuda(*rays, height, width, window)
-        plain = splat_window.splat_dynamic_window_forward_plain(*rays, height, width, window)
-        _, fits = splat_window.dyn_offsets(rays[0], rays[1], height, width, window)
-        fitting[label] = (int(count), int(fits.sum()), fits.numel())
+        kernel, count = splat_window.splat_dynamic_window_forward_cuda(*rays, height, width, window, None, point_order)
+        plain = splat_window.splat_dynamic_window_forward_plain(*rays, height, width, window, None, point_order)
+        sequence = rays if rays[0].dim() == 2 else tuple(point_major_copy(x, point_order) for x in rays)
+        _, fits = splat_window.dyn_offsets(sequence[0], sequence[1], height, width, window)
+        fitting[label] = (int(count.sum()), int(fits.sum()), fits.numel())
         if fitting[label][0] != fitting[label][1]:
             raise AssertionError(f"{label}: {fitting[label][0]} blocks fit in the kernel, {fitting[label][1]} in the plain windows")
-        err, share = check_forward("splat_dynamic_window_forward", kernel, plain, rays, height, width)
+        flat = tuple(x.reshape(x.shape[0], -1) for x in rays)
+        err, share = check_forward("splat_dynamic_window_forward", kernel, plain, flat, height, width)
         forward_err, worst_share = max(forward_err, err), max(worst_share, share)
-        grads = splat_window.splat_dynamic_window_backward_cuda(*rays, g, height, width, window)
-        plain_grads = splat_window.splat_dynamic_window_backward_plain(*rays, g, height, width, window)
+        grads = splat_window.splat_dynamic_window_backward_cuda(*rays, g, height, width, window, None, point_order)
+        plain_grads = splat_window.splat_dynamic_window_backward_plain(*rays, g, height, width, window, None, point_order)
         errors, share = check_backward("splat_dynamic_window_backward", grads, plain_grads, rays[2], g)
         backward_errs += errors
         worst_share = max(worst_share, share)
@@ -826,10 +852,17 @@ def check_dynamic_window_kernels(inputs: StepInputs) -> dict[str, dict]:
                 raise AssertionError("splat_dynamic_window_forward: non-finite bitmap from NaN/inf rays")
             for invalid, zero_weight in ((list(range(4, 13)), [13]), (WINDOW_EDGE_INVALID, WINDOW_EDGE_ZERO_WEIGHT)):
                 check_edge_gradients("splat_dynamic_window_backward", grads, invalid, zero_weight)
-        del plain, plain_grads
+        del plain, plain_grads, sequence
+    # An order entry outside [0, P) leaves its point's rays out of the plan, not the bitmap.
+    bad_order = order.clone()
+    bad_order[::7], bad_order[3::7] = order.numel() + 5, -2
+    kernel, _ = splat_window.splat_dynamic_window_forward_cuda(*chunk, height, width, window, None, bad_order)
+    check_forward("splat_dynamic_window_forward", kernel, splat_forward_plain(*chunk_rays, height, width),
+                  chunk_rays, height, width)
     torch.cuda.synchronize()
     ok = (
         fitting["flagship chunk"][0] > fitting["flagship chunk"][2] / 2
+        and fitting["3 rays a point"][0] > fitting["3 rays a point"][2] / 2
         and 0 < fitting["forced fallbacks"][0] < fitting["forced fallbacks"][2]
         and 0 < fitting["edge cases"][0] < fitting["edge cases"][2]
         and 0 < fitting["origin changes"][0] < fitting["origin changes"][2]
@@ -838,28 +871,40 @@ def check_dynamic_window_kernels(inputs: StepInputs) -> dict[str, dict]:
         raise AssertionError(f"dynamic window: the check is vacuous (fitting, plain, blocks: {fitting})")
 
     e, u, w = chunk
-    num, rays_per_map = e.shape
+    flat_e, flat_u, flat_w = chunk_rays
     g = torch.randn((num, height, width), device=device, generator=torch.Generator(device=device).manual_seed(SEED + 1))
-    work = splat_work(e, u, w, height, width)
+    work = splat_work(flat_e, flat_u, flat_w, height, width)
     fit_fraction = fitting["flagship chunk"][0] / fitting["flagship chunk"][2]
+
+    def forward():
+        return splat_window.splat_dynamic_window_forward_cuda(e, u, w, height, width, window, None, order)
+
+    def backward():
+        return splat_window.splat_dynamic_window_backward_cuda(e, u, w, g, height, width, window, None, order)
+
     timings = {
         "splat_dynamic_window_forward": dict(
-            ms=event_ms(lambda: splat_window.splat_dynamic_window_forward_cuda(e, u, w, height, width, window)),
-            plain_ms=event_ms(lambda: splat_window.splat_dynamic_window_forward_plain(e, u, w, height, width, window), 3, 1),
+            ms=event_ms(forward),
+            graph_ms=graph_ms(forward),
+            plain_ms=event_ms(
+                lambda: splat_window.splat_dynamic_window_forward_plain(e, u, w, height, width, window, None, order), 3, 1
+            ),
             library_ms=index_add_ms(work, num, height, width),
-            full_splat_ms=event_ms(lambda: splat_forward_cuda(e, u, w, height, width)),
+            full_splat_ms=event_ms(lambda: splat_forward_cuda(flat_e, flat_u, flat_w, height, width)),
             bound=work["forward_bound"],
             max_abs_err=forward_err,
             fit_fraction=fit_fraction,
             replaces="artist_tpu/kernels/splat_pallas.py:393 (_dyn_fwd_kernel, pallas_call :658)",
         ),
         "splat_dynamic_window_backward": dict(
-            ms=event_ms(lambda: splat_window.splat_dynamic_window_backward_cuda(e, u, w, g, height, width, window)),
+            ms=event_ms(backward),
+            graph_ms=graph_ms(backward),
             plain_ms=event_ms(
-                lambda: splat_window.splat_dynamic_window_backward_plain(e, u, w, g, height, width, window), 3, 1
+                lambda: splat_window.splat_dynamic_window_backward_plain(e, u, w, g, height, width, window, None, order),
+                3, 1,
             ),
             library_ms=None,
-            full_splat_ms=event_ms(lambda: splat_backward_cuda(e, u, w, g, height, width)),
+            full_splat_ms=event_ms(lambda: splat_backward_cuda(flat_e, flat_u, flat_w, g, height, width)),
             bound=work["backward_bound"],
             max_abs_err=max(backward_errs),
             fit_fraction=fit_fraction,
@@ -867,17 +912,18 @@ def check_dynamic_window_kernels(inputs: StepInputs) -> dict[str, dict]:
         ),
     }
     _log(
-        f"phase 3d dynamic-window kernels (window {window}): [{num}, {rays_per_map}] rays of the block-window "
-        f"step's first chunk ({work['valid']} valid, {work['touched']} pixels touched), the forced fallbacks, "
-        f"the edge cases, the piled rays and the origin changes; blocks fitting (kernel, plain, of): "
+        f"phase 3d dynamic-window kernels (window {window}): [{num}, {config.ray_chunk}, {rays_per_map // config.ray_chunk}] "
+        f"rays of the block-window step's first chunk in place ({work['valid']} valid, {work['touched']} pixels "
+        f"touched), with and without the tile order, its first 3 rays a point, the forced fallbacks, the edge cases, "
+        f"the piled rays and the origin changes; blocks fitting (kernel, plain windows of the point-major copy, of): "
         + ", ".join(f"{label} {f}" for label, f in fitting.items())
         + f"; the forward's {-(-height // splat_window.window_band_rows(rays_per_map, height, width, shared_limit(device)))} "
         f"bands a map send no global atomic and store {4 * num * height * width} bytes on the chunk, against the "
-        f"4 x valid = {4 * work['valid']} scalar atomics of a ray a thread"
+        f"4 x valid = {4 * work['valid']} scalar atomics of a ray a thread; the backward is the full splat's kernel"
         + f"; worst error {worst_share:.3g} of its tolerance: "
         + "; ".join(
-            f"{name} max_abs_err {t['max_abs_err']:.3g}, kernel {t['ms']:.4f} ms, full splat's kernel "
-            f"{t['full_splat_ms']:.4f} ms on the same rays, plain {t['plain_ms']:.4f} ms, library "
+            f"{name} max_abs_err {t['max_abs_err']:.3g}, kernel {t['ms']:.4f} ms ({t['graph_ms']:.4f} replayed), "
+            f"full splat's kernel {t['full_splat_ms']:.4f} ms on the same rays, plain {t['plain_ms']:.4f} ms, library "
             f"{t['library_ms'] if t['library_ms'] is None else round(t['library_ms'], 4)} ms, "
             f"bound {t['bound'][0]:.4f} ms ({t['bound'][1]})"
             for name, t in timings.items()
@@ -901,13 +947,14 @@ def band_border_rays(width: int, height: int, device: torch.device):
 
 
 def check_formulation_kernels(device: torch.device) -> dict[str, dict]:
-    """Phase 3e: the formulation tool's kernels, the 2-D window forward and the
-    per-ray band accumulate, against their plain versions on the tool's own rays
-    (its full shape, 32 M rays), on the edge cases and (the band accumulate
-    only) on rays that straddle every band border; the 2-D kernel's count of
-    fitting blocks equal to the plain windows' count, some blocks fitting on
-    the tool's rays and some falling back on the edge cases. Timed on the
-    tool's rays."""
+    """Phase 3e: the formulation tool's kernels, the 2-D window forward (the band kernel
+    planning rows and columns) and the per-ray band accumulate, against their plain
+    versions on the tool's own rays (its full shape, 32 M rays), on the edge cases and
+    (the band accumulate only) on rays that straddle every band border; the 2-D
+    kernel's count of fitting blocks equal to the plain windows'
+    (:func:`splat_window.window_2d_offsets`), some blocks fitting on the tool's rays
+    and some falling back on the edge cases. Timed on the tool's rays, by events and
+    replayed from a CUDA graph."""
     width, height = BITMAP
     cases = {
         "tool rays": splat_formulation_bench.flagship_rays(device=device),
@@ -918,7 +965,7 @@ def check_formulation_kernels(device: torch.device) -> dict[str, dict]:
         kernel, count = splat_window.splat_window_2d_forward_cuda(*rays, height, width)
         plain = splat_window.splat_window_2d_forward_plain(*rays, height, width)
         _, _, fits = splat_window.window_2d_offsets(rays[0], rays[1], height, width)
-        fitting[label] = (int(count), int(fits.sum()), fits.numel())
+        fitting[label] = (int(count.sum()), int(fits.sum()), fits.numel())
         if fitting[label][0] != fitting[label][1]:
             raise AssertionError(f"{label}: {fitting[label][0]} blocks fit in the 2-D kernel, {fitting[label][1]} in the plain windows")
         err, share = check_forward("splat_window_2d_forward", kernel, plain, rays, height, width)
@@ -944,15 +991,23 @@ def check_formulation_kernels(device: torch.device) -> dict[str, dict]:
     num, rays_per_map = e.shape
     work = splat_work(e, u, w, height, width)
     library = index_add_ms(work, num, height, width)
+    def window_2d():
+        return splat_window.splat_window_2d_forward_cuda(e, u, w, height, width)
+
+    def band():
+        return splat_scatter.splat_band_forward_cuda(e, u, w, height, width)
+
     timings = {
         "splat_window_2d_forward": dict(
-            ms=event_ms(lambda: splat_window.splat_window_2d_forward_cuda(e, u, w, height, width)),
+            ms=event_ms(window_2d),
+            graph_ms=graph_ms(window_2d),
             plain_ms=event_ms(lambda: splat_window.splat_window_2d_forward_plain(e, u, w, height, width), 3, 1),
             fit_fraction=fitting["tool rays"][0] / fitting["tool rays"][2],
             replaces="tools/splat_formulation_bench.py:174 (_dyn2d_fwd_kernel, pallas_call :307)",
         ),
         "splat_band_forward": dict(
-            ms=event_ms(lambda: splat_scatter.splat_band_forward_cuda(e, u, w, height, width)),
+            ms=event_ms(band),
+            graph_ms=graph_ms(band),
             plain_ms=event_ms(lambda: splat_forward_plain(e, u, w, height, width), 3, 1),
             replaces="tools/splat_formulation_bench.py:321 (_scatter_kernel, pallas_call :360)",
         ),
@@ -966,13 +1021,50 @@ def check_formulation_kernels(device: torch.device) -> dict[str, dict]:
         + ", ".join(f"{label} {f}" for label, f in fitting.items())
         + f"; worst error {worst_share:.3g} of its tolerance: "
         + "; ".join(
-            f"{name} max_abs_err {t['max_abs_err']:.3g}, kernel {t['ms']:.4f} ms against index_add_'s "
+            f"{name} max_abs_err {t['max_abs_err']:.3g}, kernel {t['ms']:.4f} ms ({t['graph_ms']:.4f} replayed) "
+            "against index_add_'s "
             f"{t['library_ms']:.4f} ms in this run, plain {t['plain_ms']:.4f} ms, bound {t['bound'][0]:.4f} ms "
             f"({t['bound'][1]})"
             for name, t in timings.items()
         )
     )
     return timings
+
+
+# What reads a ray stream out of its order: point_major_copy's indexing, or the
+# index_select of a point-major reorder (whose backward is an index_add_).
+REORDER_OPS = (
+    torch.ops.aten.index_select.default, torch.ops.aten.index.Tensor, torch.ops.aten.gather.default,
+    torch.ops.aten.take.default,
+)
+
+
+class CountRayStreamReorders(TorchDispatchMode):
+    """Counts the calls of ``REORDER_OPS`` that read a ray stream (``rays`` elements, in any
+    view) through an index with an entry for each point or each ray (``points`` or ``rays``
+    of them): a reorder of the stream. A gather of heliostats (an index of M) is none."""
+
+    def __init__(self, rays: int, points: int):
+        super().__init__()
+        self.rays, self.points = rays, points
+        self.count = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if func in REORDER_OPS and isinstance(args[0], torch.Tensor) and args[0].numel() == self.rays:
+            indices = [x for x in torch.utils._pytree.tree_leaves(args[1:]) if isinstance(x, torch.Tensor)]
+            self.count += any(x.numel() in (self.points, self.rays) for x in indices)
+        return func(*args, **(kwargs or {}))
+
+
+def ray_stream_reorders(inputs: StepInputs) -> int:
+    """Phase 10's count: the calls that reorder a ray stream of a chunk (``[M, chunk, P]``;
+    :class:`CountRayStreamReorders`) in one loss and backward of the step."""
+    group = inputs.scenario.heliostat_groups[0]
+    num, rays, points = inputs.distortions_u.shape
+    control_points = group.nurbs_control_points.clone().requires_grad_(True)
+    with CountRayStreamReorders(num * (inputs.config.ray_chunk or rays) * points, points) as mode:
+        surface_loss(control_points, inputs).backward()
+    return mode.count
 
 
 def reset_launch_counts() -> None:
@@ -2335,8 +2427,8 @@ def check_small_aim_point_against_cpu(device: torch.device) -> dict[int | None, 
 
 # The path whose run gives a kernel's "launches": the flat aim point (phase 8)
 # for every kernel it runs; the compacted aim point (phase 5) for the compacted
-# sigma kernels; this slice's main path, the block-window step (phase 10), for
-# the dynamic-window pair; the formulation tool (phase 11) for its kernels.
+# sigma kernels; the block-window step (phase 10) for the dynamic-window pair;
+# the formulation tool (phase 11) for its kernels.
 MAIN_PATH = {
     "blocking_sigma_forward": "aim_point",
     "blocking_sigma_backward": "aim_point",
@@ -2431,12 +2523,18 @@ def main() -> int:
         "phase 9 flat blocking step",
     )
     torch.cuda.empty_cache()
+    block_window_inputs = flagship_inputs(device, **BLOCK_WINDOW)
     paths["surface_step_block_window"] = drive_surface_step(
-        flagship_inputs(device, **BLOCK_WINDOW), LAUNCHES_PER_BLOCK_WINDOW_STEP, "phase 10 block-window step"
+        block_window_inputs, LAUNCHES_PER_BLOCK_WINDOW_STEP, "phase 10 block-window step"
     )
     first, windowed = paths["surface_step"]["losses"][0], paths["surface_step_block_window"]["losses"][0]
     if not abs(windowed - first) <= 1e-5 * abs(first):
         raise AssertionError(f"phase 10: first loss {windowed}, phase 4's {first}")
+    reorders = ray_stream_reorders(block_window_inputs)
+    _log(f"phase 10 block-window step: {reorders} calls reorder a ray stream in a loss and its backward")
+    if reorders:
+        raise AssertionError(f"phase 10: the block-window step reorders a ray stream {reorders} times")
+    del block_window_inputs
     torch.cuda.empty_cache()
     paths["formulation_tool"] = drive_formulation_tool(device)
 

@@ -12,8 +12,8 @@ drives it:
 - ``blocking_step_flat``: the same on the flat blocking route (every
   primitive, with the AABB cull);
 - ``surface_step_block_window``: the surface step with the dynamic-window
-  splat (``splat_block_window=96`` on rays reordered point-major over 10 x 10
-  point tiles);
+  splat (``splat_block_window=96``, its ray blocks cut point-major over
+  10 x 10 point tiles from the rays in place);
 - ``aim_point``: one epoch of the aim-point optimizer at ``bench.py``'s size
   (100 heliostats, 8 rays per point, 8 M rays, blocking with K = 16): the
   loss with its three penalty terms, its backward and the Adam update;
@@ -27,7 +27,9 @@ clock around synchronised steps), then profiles ``--steps`` more and prints:
   the device's idle share of the step, and the number of device events;
 - the device time of the port's own kernels (splat and blocking) and of
   everything else;
-- the top kernels by device time.
+- the top kernels by device time;
+- the calls and the device time of a few operators (``OPS``: the reorder
+  ``index_select``, the ``index_add_`` and zero-fill of its backward, copies).
 
 It writes the full ``key_averages`` table and a Chrome trace under ``--out``.
 Needs one CUDA card; exits non-zero without one.
@@ -50,7 +52,12 @@ from artist_tpu_torch.kernels.build import build_all
 PORT_KERNELS = (
     "band_accumulate_kernel", "splat_backward_kernel", "sigma_forward_kernel", "sigma_backward_kernel",
     "blocking_cull_kernel", "sigma_flat_forward_kernel", "sigma_flat_backward_kernel", "sigma_flat_reduce_kernel",
-    "dynamic_window_forward_kernel", "dynamic_window_backward_kernel",
+)
+# The operators whose calls and device time a step the summary lists: those of a reorder
+# of ray streams (an index_select, and the index_add_ and zero-fill of its backward) and copies.
+OPS = (
+    "aten::index_select", "aten::index_select_backward", "aten::index_add_", "aten::index_add", "aten::zeros",
+    "aten::new_zeros", "aten::zero_", "aten::fill_", "aten::copy_", "aten::contiguous", "aten::clone",
 )
 PATHS = (
     "surface_step", "blocking_step", "blocking_step_flat", "surface_step_block_window", "aim_point", "aim_point_flat",
@@ -161,6 +168,15 @@ def main() -> int:
         reverse=True,
     )
     port_ms = {kernel: sum(ms for ms, _, name in rows if kernel in name) for kernel in PORT_KERNELS}
+    ops = {
+        event.key: {
+            "calls_per_step": event.count / args.steps,
+            "self_device_ms_per_step": event.self_device_time_total / 1e3 / args.steps,
+            "device_ms_per_step": event.device_time_total / 1e3 / args.steps,
+        }
+        for event in profiler.key_averages()
+        if event.key in OPS
+    }
     step_ms = 1e3 * sum(profiled_seconds) / args.steps
     summary = {
         "card": card,
@@ -173,6 +189,7 @@ def main() -> int:
         "device_events_per_step": len(device_events) / args.steps,
         "port_kernels_ms_per_step": port_ms,
         "other_device_ms_per_step": busy_ms - sum(port_ms.values()),
+        "ops": ops,
         "top": [
             {"name": name[:120], "ms_per_step": ms, "calls_per_step": calls}
             for ms, calls, name in rows[:15]
