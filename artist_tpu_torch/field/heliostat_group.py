@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import dataclasses
 
+import numpy as np
 import torch
 
 from artist_tpu_torch.field import kinematics_rigid_body as rigid_body
@@ -55,6 +56,17 @@ class HeliostatGroupState:
         return dataclasses.replace(self, **changes)
 
 
+def active_indices_from_mask(active_heliostats_mask: np.ndarray) -> np.ndarray:
+    """Host-side sample -> heliostat index map from a multiplicity mask.
+
+    ``mask = [2, 0, 1]`` -> ``[0, 0, 2]``: heliostat 0 twice, heliostat 2
+    once; :func:`gather_active` with it is the activation, and the gradients
+    of a heliostat's repeated samples sum into its one row.
+    """
+    mask = np.asarray(active_heliostats_mask)
+    return np.repeat(np.arange(mask.shape[0], dtype=np.int32), mask)
+
+
 def gather_active(
     state: HeliostatGroupState, active_indices: torch.Tensor
 ) -> HeliostatGroupState:
@@ -83,7 +95,7 @@ def gather_active(
     )
 
 
-def _apply_orientations(
+def apply_orientations(
     points: torch.Tensor, normals: torch.Tensor, orientations: torch.Tensor
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Points/normals ``[M, P, 4]`` into the world frame: row vectors ``x @ O^T``."""
@@ -126,7 +138,7 @@ def align_surfaces_with_incident_ray_directions(
         actuator_optimizable=active.actuator_optimizable,
         warn_invalid=warn_invalid,
     )
-    points, normals = _apply_orientations(
+    points, normals = apply_orientations(
         active.surface_points, active.surface_normals, orientations
     )
     return points, normals, orientations, motor_positions
@@ -152,7 +164,7 @@ def align_surfaces_with_motor_positions(
         actuator_non_optimizable=active.actuator_non_optimizable,
         actuator_optimizable=active.actuator_optimizable,
     )
-    points, normals = _apply_orientations(
+    points, normals = apply_orientations(
         active.surface_points, active.surface_normals, orientations
     )
     return points, normals, orientations

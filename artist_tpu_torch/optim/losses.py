@@ -1,11 +1,15 @@
 """Losses of the inverse problems (counterpart of ``artist_tpu/optim/losses.py``).
 
-Pure functions; each returns a per-sample loss vector ``[M]``. Only the
-losses of the surface-reconstruction step are ported so far.
+Pure functions; each loss returns a per-sample vector ``[M]``, and the
+reductions take it to one value per heliostat. Only the flux losses of the
+surface reconstructor and the aim-point optimizer are ported so far.
 """
 
 from __future__ import annotations
 
+from typing import Callable
+
+import numpy as np
 import torch
 
 
@@ -32,3 +36,84 @@ def kl_divergence_loss(
     p = l1_normalize(ground_truth)
     q = l1_normalize(prediction)
     return torch.sum(p * (torch.log(p + eps) - torch.log(q + eps)), dim=(1, 2))
+
+
+def reduce_loss_per_sample(
+    loss_per_sample: torch.Tensor,
+    number_of_samples_per_heliostat: int,
+    reduction: Callable[[torch.Tensor], torch.Tensor] | str = "mean",
+) -> torch.Tensor:
+    """Sample -> heliostat loss reduction for one uniform sample count.
+
+    ``"mean"``, ``"median"`` (the lower of the two middle elements, as
+    ``torch.median``) or a function of the ``[H, count]`` losses. Samples
+    past the last whole heliostat are dropped. For
+    per-heliostat counts that differ use :func:`reduce_loss_per_heliostat`.
+    """
+    number_of_heliostats = loss_per_sample.numel() // number_of_samples_per_heliostat
+    grouped = loss_per_sample[: number_of_heliostats * number_of_samples_per_heliostat].reshape(
+        number_of_heliostats, number_of_samples_per_heliostat
+    )
+    if reduction == "mean":
+        return torch.mean(grouped, dim=1)
+    if reduction == "median":
+        sorted_losses = torch.sort(grouped, dim=1).values
+        return sorted_losses[:, (number_of_samples_per_heliostat - 1) // 2]
+    return reduction(grouped)
+
+
+def build_sample_index_matrix(sample_counts) -> tuple[np.ndarray, np.ndarray]:
+    """Host-side: pad ragged per-heliostat sample blocks to a gather matrix.
+
+    Heliostat ``h`` owns the samples ``[start_h, start_h + counts[h])``.
+    Returns ``padded_indices`` int32 ``[H, max_count]`` (0 past each
+    heliostat's count) and ``valid`` bool ``[H, max_count]``; a heliostat
+    with no sample keeps its row (its reduced loss is 0), and ``max_count``
+    is at least 1.
+    """
+    counts = np.asarray(sample_counts, dtype=np.int64)
+    starts = np.concatenate([[0], np.cumsum(counts)[:-1]])
+    max_count = max(1, int(counts.max()) if counts.size else 1)
+    offsets = np.arange(max_count)[None, :]
+    valid = offsets < counts[:, None]
+    padded = np.where(valid, starts[:, None] + offsets, 0).astype(np.int32)
+    return padded, valid
+
+
+def reduce_loss_per_heliostat(
+    loss_per_sample: torch.Tensor,
+    padded_sample_indices: torch.Tensor,
+    sample_valid: torch.Tensor,
+    reduction: str = "mean",
+) -> torch.Tensor:
+    """Sample -> heliostat loss reduction for ragged per-heliostat counts.
+
+    Parameters
+    ----------
+    loss_per_sample : torch.Tensor
+        ``[S]``.
+    padded_sample_indices : torch.Tensor
+        Integer ``[H, max_count]`` gather matrix (:func:`build_sample_index_matrix`).
+    sample_valid : torch.Tensor
+        Bool ``[H, max_count]``; False marks padding.
+    reduction : str
+        ``"mean"``, or ``"median"``: the lower middle element, with the
+        padding sorted to +inf.
+
+    Returns
+    -------
+    torch.Tensor
+        ``[H]``; 0 for a heliostat with no sample.
+    """
+    grouped = loss_per_sample[padded_sample_indices.long()]
+    counts = torch.sum(sample_valid, dim=1)
+    if reduction == "mean":
+        total = torch.sum(torch.where(sample_valid, grouped, torch.zeros_like(grouped)), dim=1)
+        return total / torch.clamp(counts, min=1)
+    if reduction == "median":
+        padded = torch.where(sample_valid, grouped, torch.full_like(grouped, float("inf")))
+        sorted_losses = torch.sort(padded, dim=1).values
+        middle = torch.clamp((counts - 1) // 2, min=0)
+        picked = torch.gather(sorted_losses, 1, middle[:, None])[:, 0]
+        return torch.where(counts > 0, picked, torch.zeros_like(picked))
+    raise ValueError(f"Unknown reduction: {reduction}")

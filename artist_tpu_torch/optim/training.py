@@ -3,15 +3,18 @@
 Counterpart of ``artist_tpu/optim/training.py:18-127``, as plain Python: a
 schedule is a function of the epoch, ``ReduceOnPlateau`` a host-side
 controller stepped with each epoch's loss. The optimizers read the rate once
-per epoch and set it on their ``torch.optim`` parameter group. The train/test
-split comes with the surface reconstructor.
+per epoch and set it on their ``torch.optim`` parameter group. The ragged
+train/test split of calibration data (``training.py:131-237``) is host numpy.
 """
 
 from __future__ import annotations
 
 import math
 from collections import deque
+from dataclasses import dataclass
 from typing import Callable
+
+import numpy as np
 
 from artist_tpu_torch.util import constants
 
@@ -112,3 +115,92 @@ class EarlyStopping:
         else:
             self.counter += 1
         return self.counter >= self.patience
+
+
+@dataclass
+class TrainTestSplit:
+    """Per-heliostat ordered train/test split of calibration data (host numpy)."""
+
+    flux_measured_train: np.ndarray
+    focal_spots_measured_train: np.ndarray
+    incident_ray_directions_train: np.ndarray
+    motor_positions_train: np.ndarray
+    target_area_indices_train: np.ndarray
+
+    flux_measured_test: np.ndarray
+    focal_spots_measured_test: np.ndarray
+    incident_ray_directions_test: np.ndarray
+    motor_positions_test: np.ndarray
+    target_area_indices_test: np.ndarray
+
+    active_heliostats_mask_train: np.ndarray
+    active_heliostats_mask_test: np.ndarray
+
+    train_indices: np.ndarray
+    test_indices: np.ndarray
+
+    number_of_train_samples: int
+    number_of_test_samples: int
+    number_of_samples_per_heliostat: int
+
+
+def train_test_split(
+    active_heliostats_mask: np.ndarray,
+    flux_measured: np.ndarray,
+    focal_spots_measured: np.ndarray,
+    incident_ray_directions: np.ndarray,
+    motor_positions: np.ndarray,
+    target_area_indices: np.ndarray,
+    test_fraction: float = 0.25,
+) -> TrainTestSplit:
+    """Split ordered per-heliostat sample blocks: train from each block's start,
+    test from its end.
+
+    The blocks are ragged: heliostat ``h`` with ``c_h > 0`` samples gives
+    ``max(1, int(c_h * test_fraction))`` test samples from the end of its
+    block and the rest to training; one with none gives none. The
+    ``number_of_*_samples`` fields hold the per-heliostat count where the
+    counts are uniform and the largest one otherwise; the masks hold the
+    per-heliostat counts.
+    """
+    active_heliostats_mask = np.asarray(active_heliostats_mask)
+    counts = active_heliostats_mask.astype(np.int64)
+    starts = np.concatenate([[0], np.cumsum(counts)[:-1]])
+    test_counts = np.where(counts > 0, np.maximum(1, (counts * test_fraction).astype(np.int64)), 0)
+    train_counts = counts - test_counts
+
+    train_indices = np.concatenate(
+        [np.arange(start, start + n_train) for start, n_train in zip(starts, train_counts)]
+        or [np.empty(0, np.int64)]
+    )
+    test_indices = np.concatenate(
+        [
+            np.arange(start + n_train, start + count)
+            for start, n_train, count in zip(starts, train_counts, counts)
+        ]
+        or [np.empty(0, np.int64)]
+    )
+    active_counts = counts[counts > 0]
+
+    def take(x, index):
+        return np.asarray(x)[index]
+
+    return TrainTestSplit(
+        flux_measured_train=take(flux_measured, train_indices),
+        focal_spots_measured_train=take(focal_spots_measured, train_indices),
+        incident_ray_directions_train=take(incident_ray_directions, train_indices),
+        motor_positions_train=take(motor_positions, train_indices),
+        target_area_indices_train=take(target_area_indices, train_indices),
+        flux_measured_test=take(flux_measured, test_indices),
+        focal_spots_measured_test=take(focal_spots_measured, test_indices),
+        incident_ray_directions_test=take(incident_ray_directions, test_indices),
+        motor_positions_test=take(motor_positions, test_indices),
+        target_area_indices_test=take(target_area_indices, test_indices),
+        active_heliostats_mask_train=train_counts.astype(active_heliostats_mask.dtype),
+        active_heliostats_mask_test=test_counts.astype(active_heliostats_mask.dtype),
+        train_indices=train_indices,
+        test_indices=test_indices,
+        number_of_train_samples=int(train_counts.max()) if counts.size else 0,
+        number_of_test_samples=int(test_counts.max()) if counts.size else 0,
+        number_of_samples_per_heliostat=int(active_counts.max()) if active_counts.size else 0,
+    )

@@ -2,7 +2,8 @@
 
 Counterpart of ``artist_tpu/raytracing/render.py``. Memory is bounded by a
 loop over ray chunks; each chunk runs under
-``torch.utils.checkpoint(..., use_reentrant=False)`` so the backward
+``torch.utils.checkpoint(..., use_reentrant=False)`` (unless
+``remat_chunks=False``) so the backward
 recomputes the chunk's forward (splat kernel included) instead of storing
 its per-ray tensors - the port of the JAX package's remat'd ``lax.scan``.
 With blocking on, the checkpoint is selective: the outputs of the blocking
@@ -22,10 +23,12 @@ no ray stream is reordered or copied for them; with
 blocking on the compacted route (``blocking_candidates`` set) one sigma
 forward and one sigma backward; on the flat route
 (``blocking_candidates=None``) one cull, one flat sigma forward and one
-flat sigma backward. Without ray chunks there is no recompute: one launch of
-each forward and backward kernel per trace.
+flat sigma backward. Without ray chunks, or with ``remat_chunks=False``, there
+is no recompute: one launch of each forward and backward kernel per chunk.
 
-Cylindrical targets are not ported yet and raise ``NotImplementedError``.
+Planar and cylindrical target areas: a tower with one kind runs its
+intersection alone; a mixed tower runs both on every heliostat and selects
+per heliostat by its target's kind.
 """
 
 from __future__ import annotations
@@ -83,6 +86,19 @@ class RenderConfig:
     # Candidate blockers per heliostat (K) of the compacted blocking route.
     # None selects the flat route over every primitive, with the AABB cull.
     blocking_candidates: int | None = 16
+    # Chunk of the blocking-primitive axis, passed to soft_ray_blocking_mask
+    # (which accepts it and computes the same mask without it).
+    primitive_chunk: int | None = None
+    # Recompute each ray chunk in the backward instead of storing its
+    # residuals (O(chunk) instead of O(rays) activation memory). False keeps
+    # every chunk's residuals: no recompute, one splat forward fewer a chunk.
+    remat_chunks: bool = True
+    # The JAX package's choice of TPU formulation for the splat and for
+    # blocking ("auto", "pallas", "xla", ...). Accepted and ignored: the port
+    # always computes the semantics of the JAX package's Pallas routes, with
+    # its own kernels on the card and their plain versions on the CPU.
+    splat_method: str = "auto"
+    blocking_method: str = "auto"
 
 
 class ChunkRays(NamedTuple):
@@ -96,6 +112,41 @@ class ChunkRays(NamedTuple):
     intensities: torch.Tensor
     blocked: torch.Tensor | None  # None with blocking off
     final_intensities: torch.Tensor  # with blocking, reflectivity and extinction
+
+
+def line_target_intersections(
+    ray_directions: torch.Tensor,
+    ray_magnitude: float | torch.Tensor,
+    aligned_surface_points: torch.Tensor,
+    tower: SolarTower,
+    target_area_indices: torch.Tensor,
+    bitmap_resolution: tuple[int, int],
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Each heliostat's rays ``[M, r, P, 4]`` against its target area (global index
+    ``[M]``, planar areas first): :func:`~geometry.line_plane_intersections` or
+    :func:`~geometry.line_cylinder_intersections` as the tower holds only one
+    kind; on a mixed tower both, selected per heliostat."""
+    n_planar = tower.number_of_planar_target_areas
+    n_cylindrical = tower.number_of_cylindrical_target_areas
+    arguments = (ray_directions, ray_magnitude, aligned_surface_points, tower)
+    if n_cylindrical == 0:
+        return geometry.line_plane_intersections(
+            *arguments, target_area_indices, bitmap_resolution
+        )
+    if n_planar == 0:
+        return geometry.line_cylinder_intersections(
+            *arguments, target_area_indices - n_planar, bitmap_resolution
+        )
+    plane = geometry.line_plane_intersections(
+        *arguments, torch.clamp(target_area_indices, 0, n_planar - 1), bitmap_resolution
+    )
+    cylinder = geometry.line_cylinder_intersections(
+        *arguments,
+        torch.clamp(target_area_indices - n_planar, 0, n_cylindrical - 1),
+        bitmap_resolution,
+    )
+    planar = (target_area_indices < n_planar)[:, None, None]
+    return tuple(torch.where(planar, p, c) for p, c in zip(plane, cylinder))
 
 
 def ray_splat_inputs(
@@ -124,7 +175,7 @@ def ray_splat_inputs(
     ray_directions = apply_distortion_rotation(
         e=distortions_e, u=distortions_u, directions=preferred_directions[:, None, :, :]
     )  # [M, r, P, 4]
-    bitmap_e, bitmap_u, distances, intensities = geometry.line_plane_intersections(
+    bitmap_e, bitmap_u, distances, intensities = line_target_intersections(
         ray_directions,
         ray_magnitude,
         aligned_surface_points,
@@ -144,6 +195,7 @@ def ray_splat_inputs(
             blocking_primitives_normals=normals,
             intersection_distances_target=distances,
             ray_primitive_indices=ray_primitive_indices,
+            primitive_chunk=config.primitive_chunk,
             max_candidates=config.blocking_candidates,
         )
         final_intensities = intensities * (1.0 - blocked)
@@ -193,7 +245,7 @@ def trace_rays(
     ray_primitive_indices: torch.Tensor | None = None,
     config: RenderConfig = RenderConfig(),
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Trace heliostat rays onto planar tower targets and splat flux bitmaps.
+    """Trace heliostat rays onto the tower's target areas and splat flux bitmaps.
 
     Parameters
     ----------
@@ -227,8 +279,6 @@ def trace_rays(
     """
     if config.blocking_active and blocking_primitives is None:
         raise ValueError("blocking_active needs blocking_primitives")
-    if tower.number_of_cylindrical_target_areas:
-        raise NotImplementedError("cylindrical target areas are not ported yet")
     num_active, num_rays, num_points = distortions_u.shape
 
     preferred = geometry.reflect(
@@ -294,10 +344,13 @@ def trace_rays(
         for start in range(0, num_rays, chunk):
             du = distortions_u[:, start : start + chunk]
             de = distortions_e[:, start : start + chunk]
-            partial = checkpoint(
-                trace_chunk, du, de, use_reentrant=False, preserve_rng_state=False,
-                context_fn=context_fn,
-            )
+            if config.remat_chunks:
+                partial = checkpoint(
+                    trace_chunk, du, de, use_reentrant=False, preserve_rng_state=False,
+                    context_fn=context_fn,
+                )
+            else:
+                partial = trace_chunk(du, de)
             flux = flux + partial[0]
             on_target_count = on_target_count + partial[1]
             intercept_count = intercept_count + partial[2]

@@ -1,7 +1,7 @@
 """Scenario: the runtime scene root.
 
 Counterpart of the ``Scenario`` dataclass in ``artist_tpu/scenario/scenario.py``
-(the container only; the HDF5 loader is not ported yet). Device state is
+(the container and ``update_surfaces``; the HDF5 loader is not ported yet). Device state is
 one :class:`~artist_tpu_torch.field.heliostat_group.HeliostatGroupState` per
 (kinematics, actuator) group plus a
 :class:`~artist_tpu_torch.field.solar_tower.SolarTower`.
@@ -12,10 +12,14 @@ from __future__ import annotations
 from collections import defaultdict
 from dataclasses import dataclass, field as dataclass_field
 
+import math
+
 import numpy as np
+import torch
 
 from artist_tpu_torch.field.heliostat_group import HeliostatGroupState
 from artist_tpu_torch.field.solar_tower import SolarTower
+from artist_tpu_torch.nurbs import create_nurbs_evaluation_grid, evaluate_nurbs_surfaces
 from artist_tpu_torch.scene.sun import Sun
 
 
@@ -121,3 +125,33 @@ class Scenario:
                 incident_ray_directions[index] = direction
                 index += 1
         return mask, target_area_indices, incident_ray_directions
+
+
+@torch.no_grad()
+def update_surfaces(
+    group: HeliostatGroupState,
+    number_of_surface_points_per_facet: tuple[int, int] | None = None,
+) -> HeliostatGroupState:
+    """The group with its canonical surface points and normals re-evaluated from its
+    NURBS control points, outside the autograd graph.
+
+    ``number_of_surface_points_per_facet`` defaults to a square grid of the
+    group's current count per facet.
+    """
+    if number_of_surface_points_per_facet is None:
+        per_facet = group.surface_points.shape[1] // group.number_of_facets_per_heliostat
+        side = int(math.sqrt(per_facet))
+        number_of_surface_points_per_facet = (side, side)
+    control_points = group.nurbs_control_points.detach()
+    points, normals = evaluate_nurbs_surfaces(
+        control_points,
+        group.nurbs_degrees,
+        create_nurbs_evaluation_grid(number_of_surface_points_per_facet, device=control_points.device),
+        canting=group.canting,
+        facet_translations=group.facet_translations,
+    )
+    num = group.number_of_heliostats
+    return group.replace(
+        surface_points=points.reshape(num, -1, 4),
+        surface_normals=normals.reshape(num, -1, 4),
+    )

@@ -1,10 +1,11 @@
-"""Synthetic scenario builder for the benchmark step, the chip smoke run and tests.
+"""Synthetic scenario and calibration data for the benchmark step, the chip smoke run and tests.
 
-Counterpart of ``make_synthetic_scenario`` in ``artist_tpu/scenario/synthetic.py``:
-a physically plausible solar-tower field built in memory (no HDF5) -
-heliostats on a grid south of a planar receiver, AA39-like linear actuators
-and 4-facet canted surfaces (parameter values of the PAINT Juelich
-single-heliostat test scenario).
+Counterpart of ``make_synthetic_scenario`` and ``SyntheticCalibrationParser``
+in ``artist_tpu/scenario/synthetic.py``: a physically plausible solar-tower
+field built in memory (no HDF5) - heliostats on a grid south of a planar
+receiver, AA39-like linear actuators and 4-facet canted surfaces (parameter
+values of the PAINT Juelich single-heliostat test scenario) - and
+deterministic focal-spot bitmaps to reconstruct surfaces from.
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ import numpy as np
 import torch
 
 from artist_tpu_torch.field.heliostat_group import HeliostatGroupState
+from artist_tpu_torch.io.calibration import CalibrationData
 from artist_tpu_torch.field.solar_tower import SolarTower
 from artist_tpu_torch.nurbs import (
     create_nurbs_evaluation_grid,
@@ -155,3 +157,48 @@ def make_synthetic_scenario(
         heliostat_groups=[group],
         heliostat_group_names=[f"{constants.rigid_body_key}_{actuator_type}"],
     )
+
+
+class SyntheticCalibrationParser:
+    """In-memory calibration data (no files) for tests and dry runs.
+
+    Implements the ``parse_data_for_reconstruction`` protocol of the PAINT
+    calibration parser with Gaussian focal spots whose centres come from
+    ``numpy.random.RandomState(seed)``, so the JAX package's parser of the
+    same name gives the same arrays bit for bit. Every sample looks from
+    the south horizon (``[0, 1, 0, 0]``) at target 0.
+    """
+
+    def __init__(self, samples_per_heliostat: int = 2, seed: int = 7):
+        self.samples_per_heliostat = samples_per_heliostat
+        self.seed = seed
+
+    def parse_data_for_reconstruction(
+        self,
+        heliostat_data_mapping,
+        heliostat_names,
+        target_name_to_index,
+        power_plant_position,
+        bitmap_resolution,
+    ) -> CalibrationData:
+        num = len(heliostat_names)
+        total = num * self.samples_per_heliostat
+        width, height = int(bitmap_resolution[0]), int(bitmap_resolution[1])
+        yy, xx = np.mgrid[0:height, 0:width]
+        rng = np.random.RandomState(self.seed)
+        centers = rng.uniform(0.3, 0.7, size=(total, 2))
+        flux = np.exp(
+            -(
+                (xx[None] / width - centers[:, :1, None]) ** 2
+                + (yy[None] / height - centers[:, 1:, None]) ** 2
+            )
+            / 0.02
+        ).astype(np.float32)
+        return CalibrationData(
+            flux_measured=flux,
+            focal_spots=np.tile(np.array([0.0, -3.0, 45.0, 1.0], np.float32), (total, 1)),
+            incident_ray_directions=np.tile(np.array([0.0, 1.0, 0.0, 0.0], np.float32), (total, 1)),
+            motor_positions=np.full((total, 2), 30000.0, np.float32),
+            active_heliostats_mask=np.full(num, self.samples_per_heliostat, np.int32),
+            target_area_indices=np.zeros(total, np.int32),
+        )

@@ -56,7 +56,18 @@ exits non-zero without them. It imports only ``torch``, ``numpy`` and the
     and no ray stream reordered in a loss and its backward
     (:func:`ray_stream_reorders`);
 11. the splat-formulation tool (``artist_tpu_torch.tools.splat_formulation_bench``)
-    at its full shape (32 M rays).
+    at its full shape (32 M rays);
+12. surface reconstructor (the North star's main path):
+    ``SurfaceReconstructor.reconstruct_surfaces`` at ``bench.py``'s production
+    configuration (12 heliostats x 4 synthetic calibration samples, 36 train
+    and 12 test; 50 x 50 points per facet x 4 facets, 180 rays per point, 6 x 6
+    control points per facet, ray chunks of 12: 64.8 M rays a train epoch, 21.6
+    M a validation; cyclic rate, energy constraint, ideal-surface
+    regularizer): one warm-up call, then the seconds per epoch as the slope
+    between a 2-epoch and a 6-epoch call, each call's launch counts asserted
+    and its losses, control points and refreshed surfaces checked; before it,
+    the splat pair against its plain versions at the train chunk (``[36,
+    120000]`` rays), timed.
 
 Phase 3 also holds the dynamic-window kernels (3d: on the block-window
 step's first chunk in place with the tile order, as that step splats it,
@@ -67,7 +78,9 @@ nearly every block; the kernel's count of blocks that fit their window equal
 to the windows of the point-major copy) and the formulation tool's kernels
 (3e: the 2-D window's count equal to the plain windows'; the band accumulate
 also on rays that straddle every band border); phase 7 also checks a small
-block-window step and a small windowed step (7c).
+block-window step and a small windowed step (7c), and a small surface
+reconstructor (3 epochs, its loss histories within phase 7a's loss tolerance)
+and a small trace onto a tower with a planar and a cylindrical target area (7d).
 
 Each driven path sets every launch count to 0 just before it and reads them
 just after. Then one JSON line of per-kernel numbers and, last, the
@@ -94,8 +107,8 @@ sys.path.insert(0, str(REPO))
 import artist_tpu_torch  # noqa: E402
 from artist_tpu_torch.kernels import splat_scatter, splat_window  # noqa: E402
 from artist_tpu_torch.field import heliostat_group as hg  # noqa: E402
-from artist_tpu_torch.field.solar_tower import get_centers_of_target_areas  # noqa: E402
-from artist_tpu_torch.flux.bitmap import trapezoid_distribution  # noqa: E402
+from artist_tpu_torch.field.solar_tower import SolarTower, get_centers_of_target_areas  # noqa: E402
+from artist_tpu_torch.flux.bitmap import crop_flux_distributions_around_center, trapezoid_distribution  # noqa: E402
 from artist_tpu_torch.kernels import blocking as blocking_kernels  # noqa: E402
 from artist_tpu_torch.kernels.build import build_all, build_library  # noqa: E402
 from artist_tpu_torch.kernels.splat import LAUNCHES as SPLAT_LAUNCHES  # noqa: E402
@@ -111,10 +124,11 @@ from artist_tpu_torch.kernels.splat import (  # noqa: E402
 from artist_tpu_torch.nurbs import create_nurbs_evaluation_grid, evaluate_nurbs_surfaces  # noqa: E402
 from artist_tpu_torch.optim.aim_point_optimizer import AimPointOptimizer  # noqa: E402
 from artist_tpu_torch.optim.losses import kl_divergence_loss  # noqa: E402
+from artist_tpu_torch.optim.surface_reconstructor import SurfaceReconstructor  # noqa: E402
 from artist_tpu_torch.raytracing import geometry  # noqa: E402
 from artist_tpu_torch.raytracing.blocking import create_blocking_primitives_rectangles_by_index  # noqa: E402
 from artist_tpu_torch.raytracing.render import RenderConfig, point_permutation, ray_splat_inputs, trace_rays  # noqa: E402
-from artist_tpu_torch.scenario.synthetic import make_synthetic_scenario  # noqa: E402
+from artist_tpu_torch.scenario.synthetic import SyntheticCalibrationParser, make_synthetic_scenario  # noqa: E402
 from artist_tpu_torch.tools import sass_counts, splat_formulation_bench  # noqa: E402
 from artist_tpu_torch.util import constants  # noqa: E402
 
@@ -199,6 +213,64 @@ AIM_LAUNCHES_PER_CALL = {
     AIM_CANDIDATES: launches(splat_forward=1, blocking_sigma_forward=1),
     None: launches(splat_forward=1, blocking_cull=1, blocking_sigma_flat_forward=1),
 }
+
+# The surface reconstructor as bench.py:_bench_surface_reconstruction configures
+# it (bench.py:585-655, the reference's production campaign): 12 heliostats x 4
+# calibration samples (3 train, 1 test each), 50 x 50 points per facet x 4
+# facets, 180 rays per point, 6 x 6 control points per facet, ray chunks of 12.
+# A train epoch traces 36 x 180 x 10,000 = 64.8 M rays, a validation 21.6 M.
+RECON_HELIOSTATS = 12
+RECON_SAMPLES = 4
+RECON_SURFACE_POINTS = (50, 50)
+RECON_RAYS = 180
+RECON_CONTROL_POINTS = (6, 6)
+RECON_RAY_CHUNK = 12
+RECON_EPOCHS = (1, 5)  # max_epoch of the short and the long timed call: 2 and 6 epochs
+
+
+def reconstruction_configuration(max_epoch: int, lr_min: float = 1e-6, lr_max: float = 1e-4,
+                                 step_size_up: int = 122) -> dict:
+    """bench.py's optimizer: initial rate 1e-5, tolerance 0, a cyclic rate between
+    ``lr_min`` and ``lr_max``, early stopping that never fires, the energy
+    constraint (rho 1, tolerance 0.01) and the ideal-surface regularizer (0.10)."""
+    return {
+        constants.optimization: {
+            constants.initial_learning_rate: 1e-5,
+            constants.tolerance: 0.0,
+            constants.max_epoch: max_epoch,
+            constants.log_step: 0,
+            constants.early_stopping_delta: 1e-9,
+            constants.early_stopping_patience: 10_000,
+            constants.early_stopping_window: 10_000,
+        },
+        constants.scheduler: {
+            constants.scheduler_type: constants.cyclic,
+            constants.lr_min: lr_min,
+            constants.lr_max: lr_max,
+            constants.step_size_up: step_size_up,
+        },
+        constants.constraints: {
+            constants.rho_flux_integral: 1.0,
+            constants.energy_tolerance: 0.01,
+            constants.weight_smoothness: 0.0,
+            constants.weight_ideal_surface: 0.10,
+        },
+    }
+
+
+def reconstruction_launches(max_epoch: int, chunks: int = RECON_RAYS // RECON_RAY_CHUNK) -> dict[str, int]:
+    """The launches of one ``reconstruct_surfaces`` call of ``max_epoch + 1`` epochs
+    without a stop: per ray chunk, the reference integrals' forward, each train
+    epoch's forward, recompute and backward, and the forward of each validation
+    (at epochs 0 and ``max_epoch``, as ``log_step`` 0 means ``max_epoch``, and at
+    ``max_epoch - 1``)."""
+    epochs = max_epoch + 1
+    validations = len({0, max_epoch - 1, max_epoch} & set(range(epochs)))
+    return launches(
+        splat_forward=chunks * (1 + 2 * epochs + validations),
+        splat_backward=chunks * epochs,
+    )
+
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s and fp32 FLOP/s outside
 # the tensor cores (the splat does no matrix work).
@@ -653,6 +725,29 @@ def piled_rays(width: int, height: int, device: torch.device):
     return tuple(torch.tensor(x.astype(np.float32), device=device) for x in (e, u, w))
 
 
+def time_splat_pair(rays, g: torch.Tensor, height: int, width: int) -> tuple[dict[str, dict], dict]:
+    """The splat pair on ``rays`` (cotangent ``g``) timed with CUDA events beside its
+    plain versions and the forward's ``index_add_`` yardstick, with the card's
+    bounds; and the work (:func:`splat_work`)."""
+    e, u, w = rays
+    work = splat_work(e, u, w, height, width)
+    timings = {
+        "splat_forward": dict(
+            ms=event_ms(lambda: splat_forward_cuda(e, u, w, height, width)),
+            plain_ms=event_ms(lambda: splat_forward_plain(e, u, w, height, width)),
+            library_ms=index_add_ms(work, e.shape[0], height, width),
+            bound=work["forward_bound"],
+        ),
+        "splat_backward": dict(
+            ms=event_ms(lambda: splat_backward_cuda(e, u, w, g, height, width)),
+            plain_ms=event_ms(lambda: splat_backward_plain(e, u, w, g, height, width)),
+            library_ms=None,
+            bound=work["backward_bound"],
+        ),
+    }
+    return timings, work
+
+
 def check_splat_kernels(inputs: StepInputs) -> dict[str, dict]:
     """Phase 3a: each splat kernel against its plain version, then timed. The forward on
     the flagship chunk, the edge cases, the band borders and the piled rays; the backward
@@ -695,25 +790,15 @@ def check_splat_kernels(inputs: StepInputs) -> dict[str, dict]:
     check_edge_gradients("splat_backward", splat_backward_cuda(*edge, edge_g, height, width), list(range(4, 13)), [13])
 
     num, rays_per_map = e.shape
-    work = splat_work(e, u, w, height, width)
-    timings = {
-        "splat_forward": dict(
-            ms=event_ms(lambda: splat_forward_cuda(e, u, w, height, width)),
-            plain_ms=event_ms(lambda: splat_forward_plain(e, u, w, height, width)),
-            library_ms=index_add_ms(work, num, height, width),
-            bound=work["forward_bound"],
-            max_abs_err=forward_err,
-            replaces="artist_tpu/kernels/splat_pallas.py:114 (_splat_fwd_kernel, via _splat_forward)",
-        ),
-        "splat_backward": dict(
-            ms=event_ms(lambda: splat_backward_cuda(e, u, w, g, height, width)),
-            plain_ms=event_ms(lambda: splat_backward_plain(e, u, w, g, height, width)),
-            library_ms=None,
-            bound=work["backward_bound"],
-            max_abs_err=max(backward_errs),
-            replaces="artist_tpu/kernels/splat_pallas.py:168 (_splat_bwd_kernel, via _splat_bwd)",
-        ),
-    }
+    timings, work = time_splat_pair((e, u, w), g, height, width)
+    timings["splat_forward"].update(
+        max_abs_err=forward_err,
+        replaces="artist_tpu/kernels/splat_pallas.py:114 (_splat_fwd_kernel, via _splat_forward)",
+    )
+    timings["splat_backward"].update(
+        max_abs_err=max(backward_errs),
+        replaces="artist_tpu/kernels/splat_pallas.py:168 (_splat_bwd_kernel, via _splat_bwd)",
+    )
     _log(
         f"phase 3a splat kernels: [{num}, {rays_per_map}] rays ({work['valid']} valid, {work['touched']} pixels "
         f"touched, {4 * work['valid'] / max(work['touched'], 1):.2f} deposits a touched pixel) -> "
@@ -1140,6 +1225,22 @@ class FixedDistortions:
 
     def get_distortions(self, generator, number_of_points: int, number_of_active_heliostats: int):
         return tuple(torch.tensor(x, device=generator.device) for x in self.distortions)
+
+
+class QueuedDistortions:
+    """A light source that hands out given sun distortions, one numpy ``[M, R, P]``
+    pair a call in the order given, on the generator's device: the surface
+    reconstructor draws its train batch's and then its test batch's."""
+
+    def __init__(self, number_of_rays: int, pairs):
+        self.number_of_rays = number_of_rays
+        self.pairs = list(pairs)
+
+    def get_distortions(self, generator, number_of_points: int, number_of_active_heliostats: int):
+        distortions_u, distortions_e = self.pairs.pop(0)
+        if distortions_u.shape != (number_of_active_heliostats, self.number_of_rays, number_of_points):
+            raise ValueError(f"queued distortions {distortions_u.shape} do not fit the draw")
+        return tuple(torch.tensor(x, device=generator.device) for x in (distortions_u, distortions_e))
 
 
 def aim_point_scenario(
@@ -2425,6 +2526,395 @@ def check_small_aim_point_against_cpu(device: torch.device) -> dict[int | None, 
     return results
 
 
+# --------------------------------------------------------------------------- #
+# The surface reconstructor (phases 7d and 12).
+# --------------------------------------------------------------------------- #
+
+
+def surface_reconstructor(
+    device: torch.device,
+    max_epoch: int,
+    heliostats: int = RECON_HELIOSTATS,
+    surface_points: tuple[int, int] = RECON_SURFACE_POINTS,
+    rays: int = RECON_RAYS,
+    bitmap: tuple[int, int] = BITMAP,
+    ray_chunk: int | None = RECON_RAY_CHUNK,
+    samples: int = RECON_SAMPLES,
+    configuration: dict | None = None,
+) -> SurfaceReconstructor:
+    """A ``SurfaceReconstructor`` on the synthetic field with ``samples`` synthetic
+    calibration samples a heliostat, at bench.py's production size by default."""
+    scenario = make_synthetic_scenario(
+        number_of_heliostats=heliostats,
+        number_of_control_points_per_facet=RECON_CONTROL_POINTS,
+        number_of_surface_points_per_facet=surface_points,
+        number_of_rays=rays,
+        device=device,
+    )
+    return SurfaceReconstructor(
+        scenario=scenario,
+        data={
+            constants.data_parser: SyntheticCalibrationParser(samples_per_heliostat=samples),
+            constants.heliostat_data_mapping: [],
+        },
+        optimization_configuration=configuration or reconstruction_configuration(max_epoch),
+        number_of_surface_points=surface_points,
+        bitmap_resolution=bitmap,
+        ray_chunk=ray_chunk,
+        seed=SEED,
+    )
+
+
+def batch_inputs(reconstructor: SurfaceReconstructor, batch: dict) -> StepInputs:
+    """A reconstructor's batch as the step's inputs: its samples, sun distortions and
+    measured flux, at the reconstructor's surface points, resolution and ray chunks."""
+    tower = reconstructor.scenario.solar_tower
+    return StepInputs(
+        scenario=reconstructor.scenario,
+        active_indices=batch["active_indices"],
+        target_area_indices=batch["target_area_indices"],
+        incident_ray_directions=batch["incident_ray_directions"],
+        aim_points=get_centers_of_target_areas(tower, batch["target_area_indices"]),
+        distortions_u=batch["distortions_u"],
+        distortions_e=batch["distortions_e"],
+        ground_truth=batch["flux_measured"],
+        surface_points_per_facet=reconstructor.number_of_surface_points,
+        config=RenderConfig(bitmap_resolution=reconstructor.bitmap_resolution, ray_chunk=reconstructor.ray_chunk),
+    )
+
+
+def check_reconstruction_chunk(device: torch.device) -> dict[str, dict]:
+    """Phase 12's kernel check: the splat pair against its plain versions at the
+    reconstructor's first train chunk (``[36, 120000]`` rays onto ``[36, 256, 256]``),
+    then timed. Returns the timings of each kernel."""
+    width, height = BITMAP
+    reconstructor = surface_reconstructor(device, RECON_EPOCHS[0])
+    group = reconstructor.scenario.heliostat_groups[0]
+    unique, split = reconstructor._group_data(group)
+    (batch,) = reconstructor._batches(group, split, unique, test=False)
+    rays = first_chunk_rays(batch_inputs(reconstructor, batch))
+    g = torch.randn(
+        (rays[0].shape[0], height, width), device=device,
+        generator=torch.Generator(device=device).manual_seed(SEED + 3),
+    )
+    forward_err, forward_share = check_forward(
+        "splat_forward", splat_forward_cuda(*rays, height, width), splat_forward_plain(*rays, height, width),
+        rays, height, width,
+    )
+    backward_errs, backward_share = check_backward(
+        "splat_backward", splat_backward_cuda(*rays, g, height, width), splat_backward_plain(*rays, g, height, width),
+        rays[2], g,
+    )
+    timings, work = time_splat_pair(rays, g, height, width)
+    timings["splat_forward"]["max_abs_err"] = forward_err
+    timings["splat_backward"]["max_abs_err"] = max(backward_errs)
+    shape = list(rays[0].shape)
+    _log(
+        f"phase 12 splat kernels at the reconstructor's train chunk: {shape} rays ({work['valid']} valid, "
+        f"{work['touched']} pixels touched) -> [{shape[0]}, {height}, {width}], "
+        f"{-(-height // band_layout(height, width, shared_limit(device))) * shape[0]} band blocks on "
+        f"{torch.cuda.get_device_properties(device).multi_processor_count} SMs; worst error "
+        f"{max(forward_share, backward_share):.3g} of its tolerance: "
+        + "; ".join(
+            f"{name} max_abs_err {t['max_abs_err']:.3g}, kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
+            f"library {t['library_ms'] if t['library_ms'] is None else round(t['library_ms'], 4)} ms, "
+            f"bound {t['bound'][0]:.4f} ms ({t['bound'][1]})"
+            for name, t in timings.items()
+        )
+    )
+    return {
+        name: dict(shape=shape, ms=t["ms"], plain_ms=t["plain_ms"], library_ms=t["library_ms"], bound_ms=t["bound"][0],
+                   bound_by=t["bound"][1], max_abs_err=t["max_abs_err"])
+        for name, t in timings.items()
+    }
+
+
+def check_reconstruction(label: str, reconstructor, original: torch.Tensor, final_loss, result, max_epoch: int):
+    """Phase 12's checks of one run: a finite history of ``max_epoch + 1`` epochs, a
+    finite final loss for every heliostat and finite test losses; control points
+    that moved, and surfaces re-evaluated from them."""
+    for key, values in result.loss_history.items():
+        if len(values) != max_epoch + 1 or not np.isfinite(values).all():
+            raise AssertionError(f"phase 12 {label}: history {key} {values}")
+    if final_loss.shape != (RECON_HELIOSTATS,) or not np.isfinite(final_loss).all():
+        raise AssertionError(f"phase 12 {label}: final loss per heliostat {final_loss}")
+    if set(result.test_loss) != {"test_loss_pixel", "test_loss_kl_divergence"} or not all(
+        value.shape == (RECON_HELIOSTATS,) and np.isfinite(value).all() for value in result.test_loss.values()
+    ):
+        raise AssertionError(f"phase 12 {label}: test losses {result.test_loss}")
+    group = reconstructor.scenario.heliostat_groups[0]
+    if not bool((group.nurbs_control_points != original).any()):
+        raise AssertionError(f"phase 12 {label}: the control points did not move")
+    points, normals = evaluate_nurbs_surfaces(
+        group.nurbs_control_points,
+        group.nurbs_degrees,
+        create_nurbs_evaluation_grid(RECON_SURFACE_POINTS, device=original.device),
+        canting=group.canting,
+        facet_translations=group.facet_translations,
+    )
+    if not (torch.equal(group.surface_points, points.reshape(RECON_HELIOSTATS, -1, 4))
+            and torch.equal(group.surface_normals, normals.reshape(RECON_HELIOSTATS, -1, 4))):
+        raise AssertionError(f"phase 12 {label}: the surfaces are not those of the new control points")
+
+
+def drive_surface_reconstruction(device: torch.device) -> dict:
+    """Phase 12: ``SurfaceReconstructor.reconstruct_surfaces`` at bench.py's production
+    configuration; one warm-up call, then a call of 2 and one of 6 epochs, whose
+    slope is the seconds per epoch (bench.py:665-669): the fixed costs (data,
+    batches, reference integrals, the final refresh) cancel, and the slope holds a
+    quarter of one validation an epoch (2 against 3). Each call's launch counts
+    are asserted; the long call's are the path's."""
+    runs = {}
+    for label, max_epoch in (("warm-up", RECON_EPOCHS[0]), ("short", RECON_EPOCHS[0]), ("long", RECON_EPOCHS[1])):
+        reconstructor = surface_reconstructor(device, max_epoch)
+        original = reconstructor.scenario.heliostat_groups[0].nurbs_control_points.clone()
+        epoch_ends = []
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        start = time.perf_counter()
+        final_loss, (result,) = reconstructor.reconstruct_surfaces(
+            "kl_divergence", on_epoch=lambda epoch, loss: epoch_ends.append(time.perf_counter())
+        )
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - start
+        counts = launch_counts()
+        if counts != reconstruction_launches(max_epoch):
+            raise AssertionError(
+                f"phase 12 {label} launched {counts}, expected {reconstruction_launches(max_epoch)}"
+            )
+        check_reconstruction(label, reconstructor, original, final_loss, result, max_epoch)
+        runs[label] = dict(
+            seconds=seconds,
+            epoch_seconds=np.diff([start] + epoch_ends).tolist(),
+            launches=counts,
+            max_memory_allocated=torch.cuda.max_memory_allocated(),
+            history=result.loss_history,
+            test_loss={key: value.tolist() for key, value in result.test_loss.items()},
+        )
+        del reconstructor
+        torch.cuda.empty_cache()
+    seconds_per_epoch = (runs["long"]["seconds"] - runs["short"]["seconds"]) / (RECON_EPOCHS[1] - RECON_EPOCHS[0])
+    points = 4 * RECON_SURFACE_POINTS[0] * RECON_SURFACE_POINTS[1]
+    train_samples = RECON_HELIOSTATS * (RECON_SAMPLES - 1)
+    train_rays = train_samples * RECON_RAYS * points
+    result = dict(
+        launches=runs["long"]["launches"],
+        seconds_per_epoch=seconds_per_epoch,
+        train_rays_per_epoch=train_rays,
+        validation_rays=RECON_HELIOSTATS * RECON_RAYS * points,
+        rays_per_second=train_rays / seconds_per_epoch,
+        max_memory_allocated=max(run["max_memory_allocated"] for run in runs.values()),
+        runs=runs,
+    )
+    for label, run in runs.items():
+        _log(
+            f"phase 12 surface reconstructor, {label} call: {len(run['epoch_seconds'])} epochs in "
+            f"{run['seconds']:.6f} s, epoch ends after {run['epoch_seconds']} s, max_memory_allocated "
+            f"{run['max_memory_allocated']} B, launches {run['launches']}, history {json.dumps(run['history'])}, "
+            f"test losses {json.dumps(run['test_loss'])}"
+        )
+    _log(
+        f"phase 12 surface reconstructor: {seconds_per_epoch:.6f} s an epoch (slope of {RECON_EPOCHS[1] + 1} "
+        f"against {RECON_EPOCHS[0] + 1} epochs), {train_rays} train rays an epoch ({train_samples} samples), "
+        f"{result['rays_per_second']:.6g} rays/s, max_memory_allocated {result['max_memory_allocated']} B"
+    )
+    if not seconds_per_epoch > 0:
+        raise AssertionError(f"phase 12: non-positive seconds per epoch {seconds_per_epoch}")
+    return result
+
+
+# Phase 7d's small reconstructor: 4 heliostats x 2 samples (1 train, 1 test), 8 x 8
+# points a facet, 8 rays, 64 x 64 bitmaps, ray chunks of 4, 3 epochs, at rates of
+# 1e-5 to 3e-5: large enough for the ideal-surface regularizer's squared
+# displacements to dwarf its 1e-12 epsilon, small enough that Adam's +-lr steps on
+# gradient entries at rounding level move the losses by less than 1e-5. The
+# measured flux is ones on each sample's cropped spot (above 5% of its peak, on
+# the CPU at the start) and zeros off it, as phase 7a's ground truth: under the
+# synthetic parser's Gaussians, positive on every pixel, the KL term -p log q of a
+# rim pixel holding a sliver of one deposit turned rounding into 4.4e-4 of the
+# loss between the card and the CPU at one epoch (1e-5 on the others).
+SMALL_RECONSTRUCTION = dict(heliostats=4, samples=2, surface_points=(8, 8), rays=8, bitmap=(64, 64), ray_chunk=4)
+SMALL_RECONSTRUCTION_EPOCHS = 2  # max_epoch: 3 epochs
+SMALL_RECONSTRUCTION_RATES = dict(lr_min=1e-5, lr_max=3e-5, step_size_up=2)
+# The histories' tolerances: phase 7a's loss rtol, 1e-4 of the total loss, for
+# the loss and each of its parts; the mean relative flux-integral difference
+# (near 0) to 1e-4 absolute, the energy-constraint term, a function of it below
+# 1e-3, to 1e-5.
+HISTORY_ABSOLUTE = {"flux_integral": 1e-4, "flux_integral_constraint": 1e-5}
+
+
+class MeasuredFlux:
+    """A calibration parser whose samples measure the given flux ``[S, H, W]``
+    (numpy), the rest of each sample from ``parser``."""
+
+    def __init__(self, parser, flux: np.ndarray):
+        self.parser, self.flux = parser, flux
+
+    def parse_data_for_reconstruction(self, **kwargs):
+        data = self.parser.parse_data_for_reconstruction(**kwargs)
+        return dataclasses.replace(data, flux_measured=self.flux)
+
+
+def small_reconstructor(device: torch.device, distortions, flux: np.ndarray | None = None) -> SurfaceReconstructor:
+    """The small reconstructor on ``device``, its light source handing out
+    ``distortions`` (the train and the test batch's), measuring ``flux`` if given."""
+    size = SMALL_RECONSTRUCTION
+    reconstructor = surface_reconstructor(
+        device, SMALL_RECONSTRUCTION_EPOCHS, size["heliostats"], size["surface_points"], size["rays"], size["bitmap"],
+        size["ray_chunk"], size["samples"],
+        reconstruction_configuration(SMALL_RECONSTRUCTION_EPOCHS, **SMALL_RECONSTRUCTION_RATES),
+    )
+    reconstructor.scenario.light_sources[0] = QueuedDistortions(size["rays"], distortions)
+    if flux is not None:
+        reconstructor.data[constants.data_parser] = MeasuredFlux(reconstructor.data[constants.data_parser], flux)
+    return reconstructor
+
+
+def spot_ground_truth(distortions) -> np.ndarray:
+    """Ones where each sample's cropped flux at the start exceeds 5% of its peak, on
+    the CPU, in the samples' order."""
+    reconstructor = small_reconstructor(torch.device("cpu"), list(distortions))
+    group = reconstructor.scenario.heliostat_groups[0]
+    unique, split = reconstructor._group_data(group)
+    samples = split.train_indices.size + split.test_indices.size
+    flux = np.zeros((samples,) + split.flux_measured_train.shape[1:], np.float32)
+    for batch, index in zip(reconstructor._batches(group, split, unique), (split.train_indices, split.test_indices)):
+        inputs = batch_inputs(reconstructor, batch)
+        with torch.no_grad():
+            cropped = crop_flux_distributions_around_center(
+                render(group.nurbs_control_points, inputs)[0], reconstructor.scenario.solar_tower,
+                inputs.target_area_indices,
+            )
+        flux[index] = (cropped > 0.05 * cropped.amax(dim=(1, 2), keepdim=True)).float().numpy()
+    return flux
+
+
+def check_small_reconstruction_against_cpu(device: torch.device) -> dict:
+    """Phase 7d: the small reconstructor's loss histories, ``device`` against the CPU,
+    from the same distortions; on the card with its launch counts asserted."""
+    size = SMALL_RECONSTRUCTION
+    rng = np.random.RandomState(SEED + 6)
+    points = 4 * size["surface_points"][0] * size["surface_points"][1]
+    samples = size["heliostats"]  # one train and one test sample a heliostat
+    distortions = [
+        tuple(rng.normal(0.0, 2e-3, (2, samples, size["rays"], points)).astype(np.float32)) for _ in range(2)
+    ]
+    spot = spot_ground_truth(distortions)
+    on_device = small_reconstructor(device, list(distortions), spot)
+    reset_launch_counts()
+    card = on_device.reconstruct_surfaces("kl_divergence")[1][0]
+    counts = launch_counts()
+    cpu = small_reconstructor(torch.device("cpu"), list(distortions), spot).reconstruct_surfaces("kl_divergence")[1][0]
+    expected = reconstruction_launches(SMALL_RECONSTRUCTION_EPOCHS, size["rays"] // size["ray_chunk"])
+    if device.type == "cuda" and counts != expected:
+        raise AssertionError(f"phase 7d small reconstructor launched {counts}, expected {expected}")
+    errors = {}
+    total = float(np.abs(cpu.loss_history["total_loss"]).max())
+    for key, values in cpu.loss_history.items():
+        mine, other = np.asarray(card.loss_history[key]), np.asarray(values)
+        if mine.shape != (SMALL_RECONSTRUCTION_EPOCHS + 1,) or mine.shape != other.shape:
+            raise AssertionError(f"phase 7d: history {key} {mine} on {device}, {other} on cpu")
+        err = float(np.abs(mine - other).max())
+        limit = HISTORY_ABSOLUTE.get(key, 1e-4 * total)
+        if not err <= limit:
+            raise AssertionError(f"phase 7d: history {key} differs between {device} and cpu: {mine} vs {other}")
+        errors[key] = (err, limit)
+    test_err = max(
+        float(np.abs(card.test_loss[key] - value).max() / np.abs(value).max()) for key, value in cpu.test_loss.items()
+    )
+    _log(
+        f"phase 7d agreement: small reconstructor on {device} vs cpu: total loss {card.loss_history['total_loss']} vs "
+        f"{cpu.loss_history['total_loss']}; "
+        + ", ".join(f"{key} max err {err:.3g} ({err / limit:.3g} of its limit)" for key, (err, limit) in errors.items())
+        + f"; test losses max rel err {test_err:.3g}; launches {counts}"
+    )
+    return errors
+
+
+def mixed_tower(device: torch.device) -> SolarTower:
+    """The synthetic field's 10 x 10 m receiver at 45 m and a cylinder of radius 10 m
+    at 30 m, 3 m high, 0.4 rad open toward the field (a 4 m arc; no ray grazes it)."""
+
+    def tensor(x) -> torch.Tensor:
+        return torch.tensor(np.asarray(x, dtype=np.float32), device=device)
+
+    return SolarTower(
+        planar_centers=tensor([[0.0, -3.0, 45.0, 1.0]]),
+        planar_normals=tensor([[0.0, 1.0, 0.0, 0.0]]),
+        planar_dimensions=tensor([[10.0, 10.0]]),
+        cylindrical_centers=tensor([[0.0, -13.0, 30.0, 1.0]]),
+        cylindrical_axes=tensor([[0.0, 0.0, 1.0, 0.0]]),
+        cylindrical_normals=tensor([[0.0, 1.0, 0.0, 0.0]]),
+        cylindrical_radii=tensor([10.0]),
+        cylindrical_heights=tensor([3.0]),
+        cylindrical_opening_angles=tensor([0.4]),
+        planar_names=("receiver",),
+        cylindrical_names=("cylinder",),
+    )
+
+
+SMALL_MIXED = dict(heliostats=3, surface_points=(5, 5), rays=4, bitmap=(48, 40), ray_chunk=2)
+# Card against CPU on the mixed tower: the flux to 2e-4 of its peak, where a hit on
+# the cylinder solves a quadratic that cancels b^2 against 4ac, so that rounding a
+# direction differently moves a hit by up to 2.5e-4 px (tests/test_torch_cylinder.py);
+# the factors, ray counts, to 1e-6.
+MIXED_FLUX_TOLERANCE = 2e-4
+
+
+def small_mixed_trace(device: torch.device, distortions: np.ndarray):
+    """The trace of the small field onto the mixed tower, heliostats 0 and 2 aiming at
+    the receiver and 1 at the cylinder: flux and factors."""
+    size = SMALL_MIXED
+    scenario = make_synthetic_scenario(
+        number_of_heliostats=size["heliostats"], number_of_surface_points_per_facet=size["surface_points"],
+        number_of_rays=size["rays"], device=device,
+    )
+    tower = mixed_tower(device)
+    num = size["heliostats"]
+    targets = torch.tensor([0, 1, 0], device=device)
+    incident = torch.tensor([0.0, 1.0, 0.0, 0.0], device=device).expand(num, 4)
+    active = hg.gather_active(scenario.heliostat_groups[0], torch.arange(num, device=device))
+    with torch.no_grad():
+        points, normals = hg.align_surfaces_with_incident_ray_directions(
+            active, get_centers_of_target_areas(tower, targets), incident
+        )[:2]
+        du, de = (torch.tensor(x, device=device) for x in distortions)
+        config = RenderConfig(bitmap_resolution=size["bitmap"], ray_chunk=size["ray_chunk"])
+        return [x.cpu() for x in trace_rays(tower, points, normals, incident, targets, du, de, config=config)]
+
+
+def check_small_mixed_trace_against_cpu(device: torch.device) -> None:
+    """Phase 7d: the small trace onto the planar and cylindrical tower, ``device``
+    against the CPU."""
+    size = SMALL_MIXED
+    points = 4 * size["surface_points"][0] * size["surface_points"][1]
+    distortions = np.random.RandomState(SEED + 7).normal(
+        0.0, 1e-2, (2, size["heliostats"], size["rays"], points)
+    ).astype(np.float32)
+    reset_launch_counts()
+    card = small_mixed_trace(device, distortions)
+    counts = launch_counts()
+    cpu = small_mixed_trace(torch.device("cpu"), distortions)
+    peak = float(cpu[0].max())
+    flux_err = float((card[0] - cpu[0]).abs().max())
+    factor_err = max(float((a - b).abs().max()) for a, b in zip(card[1:], cpu[1:]))
+    lit = cpu[0].sum(dim=(1, 2))
+    if not (flux_err <= MIXED_FLUX_TOLERANCE * peak and factor_err <= 1e-6 and bool((lit > 0).all())):
+        raise AssertionError(
+            f"phase 7d mixed tower: flux max err {flux_err} (peak {peak}), factors max err {factor_err}, "
+            f"map sums {lit.tolist()}"
+        )
+    chunks = size["rays"] // size["ray_chunk"]
+    if device.type == "cuda" and counts != launches(splat_forward=chunks):
+        raise AssertionError(f"phase 7d mixed tower launched {counts}")
+    _log(
+        f"phase 7d agreement: trace onto a planar and a cylindrical target area on {device} vs cpu: flux max err "
+        f"{flux_err:.3g} ({flux_err / (MIXED_FLUX_TOLERANCE * peak):.3g} of its limit), factors max err "
+        f"{factor_err:.3g}, intercept factors {card[1].tolist()}; launches {counts}"
+    )
+
+
 # The path whose run gives a kernel's "launches": the flat aim point (phase 8)
 # for every kernel it runs; the compacted aim point (phase 5) for the compacted
 # sigma kernels; the block-window step (phase 10) for the dynamic-window pair;
@@ -2473,8 +2963,8 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
-    name = torch.cuda.get_device_name(0)
-    _log(f"phase 1 device: {name}, {torch.cuda.device_count()} visible, torch {torch.__version__}, "
+    device_name = torch.cuda.get_device_name(0)
+    _log(f"phase 1 device: {device_name}, {torch.cuda.device_count()} visible, torch {torch.__version__}, "
          f"CUDA {torch.version.cuda}, TF32 off")
     _log(smi, stamp=False)
 
@@ -2511,6 +3001,8 @@ def main() -> int:
     check_small_step_against_cpu(device)
     check_small_aim_point_against_cpu(device)
     check_small_window_steps_against_cpu(device)
+    check_small_reconstruction_against_cpu(device)
+    check_small_mixed_trace_against_cpu(device)
     torch.cuda.empty_cache()
     paths["aim_point_flat"] = drive_aim_point(device, None, "phase 8 flat aim point")
     torch.cuda.empty_cache()
@@ -2537,9 +3029,15 @@ def main() -> int:
     del block_window_inputs
     torch.cuda.empty_cache()
     paths["formulation_tool"] = drive_formulation_tool(device)
+    torch.cuda.empty_cache()
+    reconstruction_chunk = check_reconstruction_chunk(device)
+    torch.cuda.empty_cache()
+    paths["surface_reconstruction"] = drive_surface_reconstruction(device)
+    for kernel_name, chunk_timings in reconstruction_chunk.items():
+        timings[kernel_name]["surface_reconstruction_chunk"] = chunk_timings
 
     case_keys = {key for _, key, *_ in SIGMA_CASES[1:] + FLAT_CASES[1:]} | {
-        "kept_primitives", "fit_fraction", "full_splat_ms", "graph_ms", "zero_pairs",
+        "kept_primitives", "fit_fraction", "full_splat_ms", "graph_ms", "zero_pairs", "surface_reconstruction_chunk",
     }
     kernels = []
     for kernel_name, t in timings.items():
@@ -2563,7 +3061,7 @@ def main() -> int:
             }
         )
     _log(json.dumps({"kernels": kernels}), stamp=False)
-    _log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}),
+    _log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device_name, "count": torch.cuda.device_count()}}),
          stamp=False)
     return 0
 

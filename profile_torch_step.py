@@ -17,7 +17,14 @@ drives it:
 - ``aim_point``: one epoch of the aim-point optimizer at ``bench.py``'s size
   (100 heliostats, 8 rays per point, 8 M rays, blocking with K = 16): the
   loss with its three penalty terms, its backward and the Adam update;
-- ``aim_point_flat``: the same epoch on the flat blocking route.
+- ``aim_point_flat``: the same epoch on the flat blocking route;
+- ``surface_reconstruction``: one train epoch of ``SurfaceReconstructor`` at
+  ``chip_smoke.py`` phase 12's configuration (``bench.py``'s production
+  campaign: 36 train samples x 180 rays x 10,000 points = 64.8 M rays, ray
+  chunks of 12, the cyclic rate, the energy constraint and the ideal-surface
+  regularizer), as its loop runs it without validation: the objective, its
+  backward, the edge lock, the Adam update, the multiplier update and the
+  loss fetched to the host.
 
 It runs one warm-up step, times ``--steps`` steps with the profiler off (host
 clock around synchronised steps), then profiles ``--steps`` more and prints:
@@ -48,6 +55,8 @@ import torch
 
 import chip_smoke
 from artist_tpu_torch.kernels.build import build_all
+from artist_tpu_torch.optim import training
+from artist_tpu_torch.util import constants
 
 PORT_KERNELS = (
     "band_accumulate_kernel", "splat_backward_kernel", "sigma_forward_kernel", "sigma_backward_kernel",
@@ -61,6 +70,7 @@ OPS = (
 )
 PATHS = (
     "surface_step", "blocking_step", "blocking_step_flat", "surface_step_block_window", "aim_point", "aim_point_flat",
+    "surface_reconstruction",
 )
 
 
@@ -97,6 +107,34 @@ def aim_point_epoch(device: torch.device, candidates: int | None):
         optimizer.zero_grad(set_to_none=True)
         loss_fn(params, references, lambdas)[0].backward()
         optimizer.step()
+
+    return step
+
+
+def reconstruction_epoch(device: torch.device):
+    """A train epoch of phase 12's reconstructor, as its loop runs it without
+    validation: the rate of its schedule, the train step, the loss fetched to the host."""
+    reconstructor = chip_smoke.surface_reconstructor(device, chip_smoke.RECON_EPOCHS[1])
+    group = reconstructor.scenario.heliostat_groups[0]
+    unique, split = reconstructor._group_data(group)
+    (train_batch,) = reconstructor._batches(group, split, unique, test=False)
+    train_step, _, reference_integrals, _ = reconstructor._build_step_functions(group, "kl_divergence")
+    control_points = group.nurbs_control_points.detach().clone().requires_grad_(True)
+    original_control_points = control_points.detach()[torch.as_tensor(unique, device=device)]
+    optimizer = torch.optim.Adam([control_points], eps=1e-8)
+    schedule = training.make_scheduler(
+        reconstructor.optimizer_dict[constants.initial_learning_rate], reconstructor.scheduler_dict
+    )
+    flux_ref = reference_integrals(control_points, train_batch)
+    state = {"epoch": 0, "lambda": torch.zeros(unique.shape[0], device=device)}
+
+    def step() -> None:
+        state["lambda"], loss, _ = train_step(
+            control_points, optimizer, state["lambda"], flux_ref, original_control_points, train_batch,
+            float(schedule(state["epoch"])),
+        )
+        state["epoch"] += 1
+        loss.item()
 
     return step
 
@@ -141,7 +179,9 @@ def main() -> int:
     build_all()
 
     candidates = None if args.path.endswith("_flat") else chip_smoke.AIM_CANDIDATES
-    if args.path.startswith("aim_point"):
+    if args.path == "surface_reconstruction":
+        step = reconstruction_epoch(device)
+    elif args.path.startswith("aim_point"):
         step = aim_point_epoch(device, candidates)
     elif args.path == "surface_step_block_window":
         step = surface_step(device, False, candidates, **chip_smoke.BLOCK_WINDOW)

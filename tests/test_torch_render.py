@@ -223,18 +223,31 @@ def test_bitmaps_per_target_ray_magnitude_and_losses(scenarios):
 
 @pytest.mark.parametrize("unported", ["cylinder", "chunk"])
 def test_trace_rays_refuses_what_is_not_ported(scenarios, unported):
+    """A ray chunk that does not divide the rays is refused. Cylindrical target areas
+    are ported (``test_torch_cylinder.py``): a tower that also holds one is accepted,
+    and heliostats aiming at its planar area get the planar tower's flux exactly."""
     _, scenario, du, de = scenarios
-    tower = scenario.solar_tower
-    config = render.RenderConfig(bitmap_resolution=BITMAP)
     if unported == "cylinder":
-        tower = dataclasses.replace(tower, cylindrical_centers=torch.zeros(1, 4))
-    else:
-        config = render.RenderConfig(bitmap_resolution=BITMAP, ray_chunk=3)
+        inputs = _port_inputs(scenario, du, de, None)
+        control_points = scenario.heliostat_groups[0].nurbs_control_points
+        cylinder = chip_smoke.mixed_tower(torch.device("cpu"))
+        mixed = dataclasses.replace(
+            scenario.solar_tower,
+            **{f.name: getattr(cylinder, f.name) for f in dataclasses.fields(cylinder) if f.name.startswith("cylindrical_")},
+        )
+        with torch.no_grad():
+            planar = chip_smoke.render(control_points, inputs)
+            inputs.scenario = dataclasses.replace(scenario, solar_tower=mixed)
+            both = chip_smoke.render(control_points, inputs)
+        assert mixed.number_of_cylindrical_target_areas == 1 and planar[0].sum() > 0
+        for mine, other in zip(both, planar):
+            torch.testing.assert_close(mine, other, rtol=0, atol=0)
+        return
+    config = render.RenderConfig(bitmap_resolution=BITMAP, ray_chunk=3)
     points = torch.zeros(HELIOSTATS, du.shape[2], 4)
-    error = ValueError if unported == "chunk" else NotImplementedError
-    with pytest.raises(error):
+    with pytest.raises(ValueError):
         render.trace_rays(
-            tower, points, points, torch.zeros(HELIOSTATS, 4), torch.zeros(HELIOSTATS, dtype=torch.long),
+            scenario.solar_tower, points, points, torch.zeros(HELIOSTATS, 4), torch.zeros(HELIOSTATS, dtype=torch.long),
             torch.tensor(du), torch.tensor(de), config=config,
         )
 
