@@ -18,9 +18,14 @@ drop, and no pixel may exceed the maximum flux density.
   scaled by the learning rate: the update formula is the same. The
   scheduler's rate is set on the parameter group each epoch.
 - Sun distortions come from a ``torch.Generator`` seeded with ``seed``.
+- ``checkpoint_dir``: every ``checkpoint_every`` epochs the loop saves its
+  resume state (tanh parameters, Adam state, multipliers, epoch-0
+  references, scheduler, early stopping, histories) under ``aim_point``, and
+  a new run with the same directory resumes from the latest
+  (:mod:`~artist_tpu_torch.optim.checkpointing`).
 
 Not ported yet, and refused with ``NotImplementedError``: ``distributed_setup``,
-``mesh``, ``checkpoint_dir`` and ``heliostat_chunk``.
+``mesh`` and ``heliostat_chunk``.
 """
 
 from __future__ import annotations
@@ -33,7 +38,7 @@ import torch
 
 from artist_tpu_torch.field import heliostat_group as hg
 from artist_tpu_torch.field.solar_tower import get_centers_of_target_areas
-from artist_tpu_torch.optim import losses, training
+from artist_tpu_torch.optim import checkpointing, losses, training
 from artist_tpu_torch.raytracing.blocking import create_blocking_primitives_rectangles_by_index
 from artist_tpu_torch.raytracing.render import (
     RenderConfig,
@@ -77,6 +82,10 @@ class AimPointOptimizer:
         Candidate blockers per heliostat (K) of the compacted blocking route
         (default 16); None or 0 selects the flat route over every primitive of
         the field, O(rays x field) instead of O(rays x K).
+    checkpoint_dir : path | None
+        Root of the loop's checkpoints; None saves nothing.
+    checkpoint_every : int
+        Epochs between checkpoints.
     """
 
     def __init__(
@@ -100,7 +109,6 @@ class AimPointOptimizer:
         for name, value in (
             ("distributed_setup", distributed_setup),
             ("mesh", mesh),
-            ("checkpoint_dir", checkpoint_dir),
             ("heliostat_chunk", heliostat_chunk),
         ):
             if value is not None:
@@ -122,6 +130,8 @@ class AimPointOptimizer:
         self.bitmap_resolution = tuple(bitmap_resolution)
         self.epsilon = epsilon
         self.seed = seed
+        self.checkpoint_dir = checkpoint_dir
+        self.checkpoint_every = int(checkpoint_every)
 
     def _target_plane_dimensions(self) -> np.ndarray:
         """Physical (width, height) of the chosen target area."""
@@ -349,7 +359,6 @@ class AimPointOptimizer:
         with torch.no_grad():
             init_flux, init_intercepts, _, _ = forward(params)
         references = (torch.sum(init_flux), init_intercepts)
-        reference_integral = float(references[0])
         zero = torch.zeros((), device=self.device)
         lambdas = (zero, zero, zero)
 
@@ -372,6 +381,23 @@ class AimPointOptimizer:
         loss_value = np.inf
         aux = None
         epoch = 0
+
+        checkpointer = None
+        if self.checkpoint_dir is not None:
+            checkpointer = checkpointing.LoopCheckpointer(
+                self.checkpoint_dir, "aim_point", every=self.checkpoint_every
+            )
+            restored = checkpointer.restore_loop(optimizer, scheduler, early_stopper, history)
+            if restored is not None:
+                epoch, loss_value, state = restored
+                with torch.no_grad():
+                    for param, value in zip(params, checkpointing.unpack_pytree(state["params"])):
+                        param.copy_(value)
+                lambdas = checkpointing.unpack_pytree(state["lambdas"], self.device)
+                references = checkpointing.unpack_pytree(state["references"], self.device)
+                log.info("Resuming aim-point optimization at epoch %d.", epoch)
+        reference_integral = float(references[0])
+
         while loss_value > tolerance and epoch <= max_epoch:
             if isinstance(scheduler, training.ReduceOnPlateau):
                 learning_rate = scheduler.learning_rate
@@ -419,6 +445,13 @@ class AimPointOptimizer:
             if early_stopper.step(loss_value):
                 log.info("Early stopping at epoch %d.", epoch)
                 break
+            if checkpointer is not None and checkpointer.should_save(epoch):
+                checkpointer.save_loop(
+                    epoch, optimizer, scheduler, early_stopper, history, loss_value,
+                    params=checkpointing.pack_pytree(params),
+                    lambdas=checkpointing.pack_pytree(lambdas),
+                    references=checkpointing.pack_pytree(references),
+                )
             epoch += 1
 
         with torch.no_grad():

@@ -1,8 +1,7 @@
 """Losses of the inverse problems (counterpart of ``artist_tpu/optim/losses.py``).
 
 Pure functions; each loss returns a per-sample vector ``[M]``, and the
-reductions take it to one value per heliostat. Only the flux losses of the
-surface reconstructor and the aim-point optimizer are ported so far.
+reductions take it to one value per heliostat.
 """
 
 from __future__ import annotations
@@ -11,6 +10,20 @@ from typing import Callable
 
 import numpy as np
 import torch
+
+from artist_tpu_torch.field.solar_tower import SolarTower
+from artist_tpu_torch.flux.bitmap import get_center_of_mass
+from artist_tpu_torch.geometry.coordinates import bitmap_coordinates_to_target_coordinates
+from artist_tpu_torch.geometry.transforms import _normalize
+
+
+def vector_loss(
+    prediction: torch.Tensor,
+    ground_truth: torch.Tensor,
+    reduction_dimensions: tuple[int, ...] = (1,),
+) -> torch.Tensor:
+    """Squared error summed over ``reduction_dimensions``."""
+    return torch.sum((prediction - ground_truth) ** 2, dim=reduction_dimensions)
 
 
 def pixel_loss(prediction: torch.Tensor, ground_truth: torch.Tensor) -> torch.Tensor:
@@ -36,6 +49,72 @@ def kl_divergence_loss(
     p = l1_normalize(ground_truth)
     q = l1_normalize(prediction)
     return torch.sum(p * (torch.log(p + eps) - torch.log(q + eps)), dim=(1, 2))
+
+
+def focal_spot_loss(
+    prediction_bitmaps: torch.Tensor,
+    ground_truth: torch.Tensor,
+    tower: SolarTower,
+    target_area_indices: torch.Tensor,
+    bitmap_resolution: tuple[int, int] | None = None,
+) -> torch.Tensor:
+    """Distance between the predicted and the measured focal spots in the world.
+
+    The centre of mass of each predicted bitmap ``[M, H, W]`` is mapped onto
+    its target area (planar or cylindrical). ``ground_truth`` is either the
+    measured bitmaps ``[M, H, W]``, whose centres are mapped the same way, or
+    the measured focal spots in world coordinates ``[M, 4]``.
+    ``bitmap_resolution`` is (width, height), by default the bitmaps'.
+    """
+    if bitmap_resolution is None:
+        bitmap_resolution = (prediction_bitmaps.shape[2], prediction_bitmaps.shape[1])
+    predicted = bitmap_coordinates_to_target_coordinates(
+        get_center_of_mass(prediction_bitmaps), bitmap_resolution, tower, target_area_indices
+    )
+    if ground_truth.ndim == 3:
+        measured = bitmap_coordinates_to_target_coordinates(
+            get_center_of_mass(ground_truth), bitmap_resolution, tower, target_area_indices
+        )
+    else:
+        measured = ground_truth
+    return torch.linalg.vector_norm(predicted[:, :3] - measured[:, :3], dim=1)
+
+
+class _ClipToUnit(torch.autograd.Function):
+    """``clamp(x, -1, 1)`` whose backward multiplies the cotangent by 1 inside
+    the interval, 1/2 on its ends and 0 outside, as ``jnp.clip`` does: an
+    infinite cotangent outside the interval becomes NaN, not 0 (``torch.clamp``
+    selects instead of multiplying, and passes 1 on the ends)."""
+
+    @staticmethod
+    def forward(ctx, x: torch.Tensor) -> torch.Tensor:
+        ctx.save_for_backward(x)
+        return torch.clamp(x, -1.0, 1.0)
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor) -> torch.Tensor:
+        (x,) = ctx.saved_tensors
+        inside = (x.abs() < 1.0).to(grad.dtype) + 0.5 * (x.abs() == 1.0).to(grad.dtype)
+        return grad * inside
+
+
+def angle_loss(prediction: torch.Tensor, ground_truth: torch.Tensor) -> torch.Tensor:
+    """Angle between the predicted and the measured directions ``[M, >=3]``:
+    ``arccos`` of the clipped dot product of their normalized first three
+    components. Its derivative is infinite where the two agree in fp32; the
+    kinematics reconstructor scrubs such gradients."""
+    p = _normalize(prediction[:, :3])
+    g = _normalize(ground_truth[:, :3])
+    return torch.arccos(_ClipToUnit.apply(torch.sum(p * g, dim=-1)))
+
+
+def cosine_similarity_loss(
+    prediction: torch.Tensor, ground_truth: torch.Tensor, eps: float = 1e-8
+) -> torch.Tensor:
+    """``1 - cos`` of the angle between the vectors along the last axis."""
+    dot = torch.sum(prediction * ground_truth, dim=-1)
+    norms = torch.linalg.vector_norm(prediction, dim=-1) * torch.linalg.vector_norm(ground_truth, dim=-1)
+    return 1.0 - dot / torch.maximum(norms, torch.full_like(norms, eps))
 
 
 def reduce_loss_per_sample(

@@ -21,10 +21,14 @@ update. Validation on the held-out samples at the logged epochs.
 - Sun distortions come from one ``torch.Generator`` seeded with ``seed`` per
   group: the train batch's first, then the test batch's. (The JAX package
   draws them from the two halves of ``jax.random.split(PRNGKey(seed))``.)
+- ``checkpoint_dir``: every ``checkpoint_every`` epochs each group's loop
+  saves its resume state (control points, Adam state, multipliers, reference
+  integrals, scheduler, early stopping, histories) under
+  ``surface_group_{i}``, and a new run with the same directory resumes from
+  the latest (:mod:`~artist_tpu_torch.optim.checkpointing`).
 
-Not ported yet, and refused with ``NotImplementedError``: ``mesh``,
-``distributed_setup`` and ``checkpoint_dir`` (``checkpoint_every`` is
-accepted). With no distributed setup the JAX package's result
+Not ported yet, and refused with ``NotImplementedError``: ``mesh`` and
+``distributed_setup``. With no distributed setup the JAX package's result
 synchronisation returns the local results, as this does.
 """
 
@@ -41,7 +45,7 @@ from artist_tpu_torch.field import heliostat_group as hg
 from artist_tpu_torch.field.solar_tower import get_centers_of_target_areas
 from artist_tpu_torch.flux.bitmap import crop_flux_distributions_around_center
 from artist_tpu_torch.nurbs import create_nurbs_evaluation_grid, evaluate_nurbs_surfaces
-from artist_tpu_torch.optim import losses, training
+from artist_tpu_torch.optim import checkpointing, losses, training
 from artist_tpu_torch.optim.regularizers import ideal_surface_regularizer, smoothness_regularizer
 from artist_tpu_torch.raytracing.render import RenderConfig, compute_ray_magnitude, trace_rays
 from artist_tpu_torch.scenario.scenario import Scenario, update_surfaces
@@ -111,6 +115,10 @@ class SurfaceReconstructor:
         NURBS sampling resolution per facet.
     bitmap_resolution : tuple[int, int]
         Flux bitmap resolution (width_e, height_u).
+    checkpoint_dir : path | None
+        Root of the loops' checkpoints; None saves nothing.
+    checkpoint_every : int
+        Epochs between checkpoints.
     ray_chunk : int | None
         Chunk of the ray axis of the trace (``RenderConfig.ray_chunk``): each
         chunk is recomputed in the backward, which bounds the step's
@@ -133,11 +141,7 @@ class SurfaceReconstructor:
         checkpoint_every: int = 25,
         ray_chunk: int | None = None,
     ) -> None:
-        for name, value in (
-            ("mesh", mesh),
-            ("distributed_setup", distributed_setup),
-            ("checkpoint_dir", checkpoint_dir),
-        ):
+        for name, value in (("mesh", mesh), ("distributed_setup", distributed_setup)):
             if value is not None:
                 raise NotImplementedError(f"{name} is not ported yet")
         self.scenario = scenario
@@ -151,6 +155,7 @@ class SurfaceReconstructor:
         self.bitmap_resolution = tuple(bitmap_resolution)
         self.epsilon = epsilon
         self.seed = seed
+        self.checkpoint_dir = checkpoint_dir
         self.checkpoint_every = int(checkpoint_every)
         self.ray_chunk = ray_chunk
 
@@ -359,27 +364,6 @@ class SurfaceReconstructor:
             "sample_valid": torch.as_tensor(valid, device=device),
         }
 
-    def _group_data(self, group: hg.HeliostatGroupState):
-        """The group's calibration data and its train/test split, or None without samples."""
-        calibration = self.data[constants.data_parser].parse_data_for_reconstruction(
-            heliostat_data_mapping=self.data[constants.heliostat_data_mapping],
-            heliostat_names=group.names,
-            target_name_to_index=self.scenario.solar_tower.target_name_to_index,
-            power_plant_position=self.scenario.power_plant_position,
-            bitmap_resolution=self.bitmap_resolution,
-        )
-        if calibration.active_heliostats_mask.sum() == 0:
-            return None
-        split = training.train_test_split(
-            active_heliostats_mask=calibration.active_heliostats_mask,
-            flux_measured=calibration.flux_measured,
-            focal_spots_measured=calibration.focal_spots,
-            incident_ray_directions=calibration.incident_ray_directions,
-            motor_positions=calibration.motor_positions,
-            target_area_indices=calibration.target_area_indices,
-        )
-        return np.nonzero(calibration.active_heliostats_mask)[0], split
-
     def _batches(self, group, split, unique: np.ndarray, test: bool = True) -> list[dict]:
         """The train batch and, with ``test``, the test batch, their distortions
         drawn in that order from one generator seeded with ``seed``."""
@@ -417,7 +401,7 @@ class SurfaceReconstructor:
         """
         outputs: dict[int, dict[str, np.ndarray]] = {}
         for group_index, group in enumerate(self.scenario.heliostat_groups):
-            group_data = self._group_data(group)
+            group_data = training.group_calibration_split(self.data, self.scenario, group, self.bitmap_resolution)
             if group_data is None:
                 continue
             unique, split = group_data
@@ -482,7 +466,7 @@ class SurfaceReconstructor:
 
         offset = 0
         for group_index, group in enumerate(list(groups)):
-            group_data = self._group_data(group)
+            group_data = training.group_calibration_split(self.data, self.scenario, group, self.bitmap_resolution)
             if group_data is None:
                 offset += group.number_of_heliostats
                 continue
@@ -508,6 +492,21 @@ class SurfaceReconstructor:
             total_loss = np.inf
             total_per_heliostat = None
             epoch = 0
+
+            checkpointer = None
+            if self.checkpoint_dir is not None:
+                checkpointer = checkpointing.LoopCheckpointer(
+                    self.checkpoint_dir, f"surface_group_{group_index}", every=self.checkpoint_every
+                )
+                restored = checkpointer.restore_loop(optimizer, scheduler, early_stopper, history)
+                if restored is not None:
+                    epoch, total_loss, state = restored
+                    with torch.no_grad():
+                        control_points.copy_(torch.as_tensor(state["control_points"]))
+                    lambda_flux = torch.as_tensor(state["lambda_flux"], device=self.device)
+                    flux_ref = torch.as_tensor(state["flux_integrals_reference"], device=self.device)
+                    log.info("Resuming surface reconstruction of group %d at epoch %d.", group_index, epoch)
+
             while total_loss > tolerance and epoch <= max_epoch:
                 if isinstance(scheduler, training.ReduceOnPlateau):
                     learning_rate = scheduler.learning_rate
@@ -537,6 +536,13 @@ class SurfaceReconstructor:
                 history["total_loss"].append(total_loss)
                 for key, value in zip(_HISTORY_AUX, fetched[1:]):
                     history[key].append(value)
+                if checkpointer is not None and checkpointer.should_save(epoch):
+                    checkpointer.save_loop(
+                        epoch, optimizer, scheduler, early_stopper, history, total_loss,
+                        control_points=control_points.detach().cpu().numpy(),
+                        lambda_flux=lambda_flux.cpu().numpy(),
+                        flux_integrals_reference=flux_ref.cpu().numpy(),
+                    )
                 epoch += 1
 
             groups[group_index] = update_surfaces(

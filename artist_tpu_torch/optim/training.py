@@ -204,3 +204,29 @@ def train_test_split(
         number_of_test_samples=int(test_counts.max()) if counts.size else 0,
         number_of_samples_per_heliostat=int(active_counts.max()) if active_counts.size else 0,
     )
+
+
+def group_calibration_split(
+    data: dict, scenario, group, bitmap_resolution: tuple[int, int]
+) -> tuple[np.ndarray, TrainTestSplit] | None:
+    """The calibration data of one heliostat group, from ``data``'s parser, and its
+    train/test split: (the group-local indices of the heliostats with data, the
+    split), or None where the group has no sample."""
+    calibration = data[constants.data_parser].parse_data_for_reconstruction(
+        heliostat_data_mapping=data[constants.heliostat_data_mapping],
+        heliostat_names=group.names,
+        target_name_to_index=scenario.solar_tower.target_name_to_index,
+        power_plant_position=scenario.power_plant_position,
+        bitmap_resolution=bitmap_resolution,
+    )
+    if calibration.active_heliostats_mask.sum() == 0:
+        return None
+    split = train_test_split(
+        active_heliostats_mask=calibration.active_heliostats_mask,
+        flux_measured=calibration.flux_measured,
+        focal_spots_measured=calibration.focal_spots,
+        incident_ray_directions=calibration.incident_ray_directions,
+        motor_positions=calibration.motor_positions,
+        target_area_indices=calibration.target_area_indices,
+    )
+    return np.nonzero(calibration.active_heliostats_mask)[0], split

@@ -67,7 +67,20 @@ exits non-zero without them. It imports only ``torch``, ``numpy`` and the
     between a 2-epoch and a 6-epoch call, each call's launch counts asserted
     and its losses, control points and refreshed surfaces checked; before it,
     the splat pair against its plain versions at the train chunk (``[36,
-    120000]`` rays), timed.
+    120000]`` rays), timed;
+13. kinematics reconstructor: ``KinematicsReconstructor.reconstruct_kinematics``
+    at the production calibration (examples/field_optimizations/config.yaml:
+    56-70; 100 heliostats x 20 samples, 50 x 50 points per facet x 4 facets,
+    19 rays per point) on samples built on the card from known rotation
+    deviations. a. the alignment method: a warm-up call, then a short and the
+    configuration's long call, the seconds per epoch as their slope over the
+    epochs run, the loss falling and the deviations nearing the known ones;
+    b. the splat pair against its plain versions at the flux-driven method's
+    validation and train batches (``[500, 190000]`` and ``[1500, 190000]``
+    rays), timed, then the flux-driven method timed the same way and its
+    scrubbed gradient; c. a small kinematics loop and a small aim-point loop
+    resumed from a checkpoint, against straight runs. Each call's launch counts
+    are asserted (:func:`kinematics_launches`).
 
 Phase 3 also holds the dynamic-window kernels (3d: on the block-window
 step's first chunk in place with the tile order, as that step splats it,
@@ -94,7 +107,9 @@ import json
 import pathlib
 import subprocess
 import sys
+import tempfile
 import time
+import warnings
 from dataclasses import dataclass
 
 import numpy as np
@@ -108,7 +123,17 @@ import artist_tpu_torch  # noqa: E402
 from artist_tpu_torch.kernels import splat_scatter, splat_window  # noqa: E402
 from artist_tpu_torch.field import heliostat_group as hg  # noqa: E402
 from artist_tpu_torch.field.solar_tower import SolarTower, get_centers_of_target_areas  # noqa: E402
-from artist_tpu_torch.flux.bitmap import crop_flux_distributions_around_center, trapezoid_distribution  # noqa: E402
+from artist_tpu_torch.flux.bitmap import (  # noqa: E402
+    crop_flux_distributions_around_center,
+    get_center_of_mass,
+    trapezoid_distribution,
+)
+from artist_tpu_torch.geometry.coordinates import (  # noqa: E402
+    azimuth_elevation_to_enu,
+    bitmap_coordinates_to_target_coordinates,
+    convert_3d_directions_to_4d_format,
+)
+from artist_tpu_torch.io.calibration import CalibrationData  # noqa: E402
 from artist_tpu_torch.kernels import blocking as blocking_kernels  # noqa: E402
 from artist_tpu_torch.kernels.build import build_all, build_library  # noqa: E402
 from artist_tpu_torch.kernels.splat import LAUNCHES as SPLAT_LAUNCHES  # noqa: E402
@@ -122,7 +147,9 @@ from artist_tpu_torch.kernels.splat import (  # noqa: E402
     splat_forward_plain,
 )
 from artist_tpu_torch.nurbs import create_nurbs_evaluation_grid, evaluate_nurbs_surfaces  # noqa: E402
+from artist_tpu_torch.optim import training  # noqa: E402
 from artist_tpu_torch.optim.aim_point_optimizer import AimPointOptimizer  # noqa: E402
+from artist_tpu_torch.optim.kinematics_reconstructor import VALIDATION_LOSSES, KinematicsReconstructor  # noqa: E402
 from artist_tpu_torch.optim.losses import kl_divergence_loss  # noqa: E402
 from artist_tpu_torch.optim.surface_reconstructor import SurfaceReconstructor  # noqa: E402
 from artist_tpu_torch.raytracing import geometry  # noqa: E402
@@ -725,26 +752,29 @@ def piled_rays(width: int, height: int, device: torch.device):
     return tuple(torch.tensor(x.astype(np.float32), device=device) for x in (e, u, w))
 
 
-def time_splat_pair(rays, g: torch.Tensor, height: int, width: int) -> tuple[dict[str, dict], dict]:
-    """The splat pair on ``rays`` (cotangent ``g``) timed with CUDA events beside its
-    plain versions and the forward's ``index_add_`` yardstick, with the card's
-    bounds; and the work (:func:`splat_work`)."""
+def time_splat_pair(rays, g: torch.Tensor | None, height: int, width: int,
+                    iterations: int = 20) -> tuple[dict[str, dict], dict]:
+    """The splat pair on ``rays`` (cotangent ``g``; the forward alone where it is None)
+    timed with CUDA events over ``iterations`` launches beside its plain versions and
+    the forward's ``index_add_`` yardstick, with the card's bounds; and the work
+    (:func:`splat_work`)."""
     e, u, w = rays
     work = splat_work(e, u, w, height, width)
     timings = {
         "splat_forward": dict(
-            ms=event_ms(lambda: splat_forward_cuda(e, u, w, height, width)),
-            plain_ms=event_ms(lambda: splat_forward_plain(e, u, w, height, width)),
+            ms=event_ms(lambda: splat_forward_cuda(e, u, w, height, width), iterations),
+            plain_ms=event_ms(lambda: splat_forward_plain(e, u, w, height, width), iterations),
             library_ms=index_add_ms(work, e.shape[0], height, width),
             bound=work["forward_bound"],
         ),
-        "splat_backward": dict(
-            ms=event_ms(lambda: splat_backward_cuda(e, u, w, g, height, width)),
-            plain_ms=event_ms(lambda: splat_backward_plain(e, u, w, g, height, width)),
+    }
+    if g is not None:
+        timings["splat_backward"] = dict(
+            ms=event_ms(lambda: splat_backward_cuda(e, u, w, g, height, width), iterations),
+            plain_ms=event_ms(lambda: splat_backward_plain(e, u, w, g, height, width), iterations),
             library_ms=None,
             bound=work["backward_bound"],
-        ),
-    }
+        )
     return timings, work
 
 
@@ -1280,10 +1310,13 @@ def aim_point_ground_truth(bitmap: tuple[int, int], device, slope: int = 30, pla
     return torch.outer(vertical, horizontal)
 
 
-def aim_point_optimizer(scenario, ground_truth, max_epoch: int, candidates: int, bitmap) -> AimPointOptimizer:
+def aim_point_optimizer(
+    scenario, ground_truth, max_epoch: int, candidates: int, bitmap, **options
+) -> AimPointOptimizer:
     """``bench.py:_bench_aim_point``'s optimizer: lr 1e-3, exponential decay 0.99,
     all three penalty weights 1, maximum flux density 1e6, incident light
-    ``[0, 1, 0, 0]`` onto target 0 at a DNI of 1000."""
+    ``[0, 1, 0, 0]`` onto target 0 at a DNI of 1000; ``options`` go to the
+    constructor."""
     configuration = {
         constants.optimization: {
             constants.initial_learning_rate: AIM_LEARNING_RATE,
@@ -1313,6 +1346,7 @@ def aim_point_optimizer(scenario, ground_truth, max_epoch: int, candidates: int,
         bitmap_resolution=bitmap,
         seed=SEED,
         blocking_candidates=candidates,
+        **options,
     )
 
 
@@ -2590,7 +2624,9 @@ def check_reconstruction_chunk(device: torch.device) -> dict[str, dict]:
     width, height = BITMAP
     reconstructor = surface_reconstructor(device, RECON_EPOCHS[0])
     group = reconstructor.scenario.heliostat_groups[0]
-    unique, split = reconstructor._group_data(group)
+    unique, split = training.group_calibration_split(
+        reconstructor.data, reconstructor.scenario, group, reconstructor.bitmap_resolution
+    )
     (batch,) = reconstructor._batches(group, split, unique, test=False)
     rays = first_chunk_rays(batch_inputs(reconstructor, batch))
     g = torch.randn(
@@ -2776,7 +2812,9 @@ def spot_ground_truth(distortions) -> np.ndarray:
     the CPU, in the samples' order."""
     reconstructor = small_reconstructor(torch.device("cpu"), list(distortions))
     group = reconstructor.scenario.heliostat_groups[0]
-    unique, split = reconstructor._group_data(group)
+    unique, split = training.group_calibration_split(
+        reconstructor.data, reconstructor.scenario, group, reconstructor.bitmap_resolution
+    )
     samples = split.train_indices.size + split.test_indices.size
     flux = np.zeros((samples,) + split.flux_measured_train.shape[1:], np.float32)
     for batch, index in zip(reconstructor._batches(group, split, unique), (split.train_indices, split.test_indices)):
@@ -2915,6 +2953,493 @@ def check_small_mixed_trace_against_cpu(device: torch.device) -> None:
     )
 
 
+# --------------------------------------------------------------------------- #
+# The kinematics reconstructor (phase 13).
+# --------------------------------------------------------------------------- #
+
+# The production calibration (examples/field_optimizations/config.yaml:56-70: the
+# alignment method, 20 samples a heliostat, 19 rays a point) on the synthetic field:
+# 100 heliostats x 20 samples (15 train, 5 test), 50 x 50 points a facet x 4 facets,
+# 256 x 256 maps. A validation traces 500 x 190,000 rays (95 M); the flux-driven
+# method's train epoch 1,500 x 190,000 (285 M), forward and backward, in one call.
+KINEMATICS = dict(heliostats=100, samples=20, surface_points=(50, 50), rays=19, bitmap=(256, 256))
+# Phase 13b's field (the flux-driven method at the same size).
+KINEMATICS_FLUX = dict(KINEMATICS)
+# The timed calls' max_epoch, short and long. The alignment method's long call runs
+# the configuration's 500, where the early stopping (a window of 40 epochs that must
+# improve by more than 100%, which no window of positive losses does, and patience 10)
+# ends every run at epoch 48: the slope is taken over the epochs each call ran, with
+# the same two validations (epoch 0, and epoch 19 or the stop) in both calls. The
+# flux-driven calls run 3 and 5 epochs, also with two validations each (epochs 0 and 1,
+# 0 and 3).
+KINEMATICS_EPOCHS = (20, 500)
+KINEMATICS_FLUX_EPOCHS = (2, 4)
+KINEMATICS_DATA_CHUNK = 250  # samples traced at once while the calibration data are built
+# The known rotation deviations: random signs, magnitudes in this range (rad).
+KNOWN_DEVIATIONS = (4e-3, 8e-3)
+
+
+def kinematics_configuration(max_epoch: int) -> dict:
+    """The production calibration's optimizer (config.yaml:56-70) with ``max_epoch``:
+    initial rate 3e-4, tolerance 5e-4, log step 50, reduce-on-plateau (minimum 1e-6,
+    factor 0.8, patience 50, threshold 1e-3, cooldown 5), early stopping (delta 1.0,
+    patience 10, window 40); ``batch_size`` 480 is passed and not read."""
+    return {
+        constants.optimization: {
+            constants.initial_learning_rate_rotation_deviation: 3e-4,
+            constants.tolerance: 5e-4,
+            constants.max_epoch: max_epoch,
+            constants.batch_size: 480,
+            constants.log_step: 50,
+            constants.early_stopping_delta: 1.0,
+            constants.early_stopping_patience: 10,
+            constants.early_stopping_window: 40,
+        },
+        constants.scheduler: {
+            constants.scheduler_type: constants.reduce_on_plateau,
+            constants.lr_min: 1e-6,
+            constants.reduce_factor: 0.8,
+            constants.patience: 50,
+            constants.threshold: 1e-3,
+            constants.cooldown: 5,
+        },
+    }
+
+
+class CalibrationSamples:
+    """A calibration parser that returns the given ``CalibrationData`` (of one group)."""
+
+    def __init__(self, data: CalibrationData):
+        self.data = data
+
+    def parse_data_for_reconstruction(self, **kwargs) -> CalibrationData:
+        return self.data
+
+
+def known_rotation_deviations(heliostats: int, seed: int = SEED + 11, magnitudes=KNOWN_DEVIATIONS) -> np.ndarray:
+    """``[H, 4]`` rotation deviations with random signs and magnitudes in ``magnitudes`` (rad)."""
+    rng = np.random.RandomState(seed)
+    signs = np.where(rng.rand(heliostats, 4) < 0.5, -1.0, 1.0)
+    return (signs * rng.uniform(*magnitudes, (heliostats, 4))).astype(np.float32)
+
+
+def sun_directions(count: int, seed: int) -> np.ndarray:
+    """``[count, 4]`` incident ray directions from distinct sun positions south of the
+    field (azimuth -60 to 60 degrees from south, elevation 15 to 65 degrees)."""
+    rng = np.random.RandomState(seed)
+    sun = azimuth_elevation_to_enu(rng.uniform(-60.0, 60.0, count), rng.uniform(15.0, 65.0, count))
+    return convert_3d_directions_to_4d_format(-sun).numpy()
+
+
+@torch.no_grad()
+def kinematics_calibration(scenario, deviations: np.ndarray, samples: int, bitmap: tuple[int, int],
+                           seed: int = SEED + 12, chunk: int = KINEMATICS_DATA_CHUNK) -> CalibrationData:
+    """Calibration samples that identify rotation deviations: ``samples`` a heliostat of
+    the scenario's first group (whose deviations are 0), each under its own sun
+    (:func:`sun_directions`); motor positions that aim the ideal heliostat at the
+    target's centre; the flux the heliostat casts with the rotation deviations
+    ``deviations`` ``[H, 4]`` at those motor positions (traced ``chunk`` samples at a
+    time, on the scenario's device); the focal spot at that flux's centre of mass on
+    the target."""
+    group = scenario.heliostat_groups[0]
+    tower = scenario.solar_tower
+    device = group.positions.device
+    total = group.number_of_heliostats * samples
+    heliostat = torch.arange(group.number_of_heliostats, device=device).repeat_interleave(samples)
+    incident = torch.tensor(sun_directions(total, seed), device=device)
+    targets = torch.zeros(total, dtype=torch.long, device=device)
+    aim_points = get_centers_of_target_areas(tower, targets)
+    deviated = group.replace(rotation_deviations=torch.tensor(deviations, device=device))
+    generator = torch.Generator(device=device).manual_seed(seed)
+    sun = scenario.light_sources[0]
+    motors, flux = [], []
+    for start in range(0, total, chunk):
+        part = slice(start, start + chunk)
+        index = heliostat[part]
+        motor = hg.align_surfaces_with_incident_ray_directions(
+            hg.gather_active(group, index), aim_points[part], incident[part]
+        )[3]
+        points, normals, _ = hg.align_surfaces_with_motor_positions(hg.gather_active(deviated, index), motor)
+        distortions_u, distortions_e = sun.get_distortions(generator, points.shape[1], index.shape[0])
+        flux.append(
+            trace_rays(
+                tower, points, normals, incident[part], targets[part], distortions_u, distortions_e,
+                config=RenderConfig(bitmap_resolution=bitmap),
+            )[0]
+        )
+        motors.append(motor)
+    flux = torch.cat(flux)
+    spots = bitmap_coordinates_to_target_coordinates(get_center_of_mass(flux), bitmap, tower, targets)
+    return CalibrationData(
+        flux_measured=flux.cpu().numpy(),
+        focal_spots=spots.cpu().numpy(),
+        incident_ray_directions=incident.cpu().numpy(),
+        motor_positions=torch.cat(motors).cpu().numpy(),
+        active_heliostats_mask=np.full(group.number_of_heliostats, samples, np.int32),
+        target_area_indices=np.zeros(total, np.int32),
+    )
+
+
+def kinematics_scenario(device: torch.device, size: dict):
+    return make_synthetic_scenario(
+        number_of_heliostats=size["heliostats"],
+        number_of_surface_points_per_facet=size["surface_points"],
+        number_of_rays=size["rays"],
+        device=device,
+    )
+
+
+def kinematics_reconstructor(device: torch.device, size: dict, data: CalibrationData, method: str,
+                             configuration: dict, **options) -> KinematicsReconstructor:
+    """A ``KinematicsReconstructor`` with ``method`` on a fresh synthetic field (rotation
+    deviations 0) of ``size``, reading the calibration samples ``data``."""
+    return KinematicsReconstructor(
+        scenario=kinematics_scenario(device, size),
+        data={constants.data_parser: CalibrationSamples(data), constants.heliostat_data_mapping: []},
+        optimization_configuration=configuration,
+        reconstruction_method=method,
+        bitmap_resolution=size["bitmap"],
+        seed=SEED,
+        **options,
+    )
+
+
+def kinematics_launches(method: str, epochs: list[int], max_epoch: int, log_step: int, stopped: bool) -> dict:
+    """The launches of one ``reconstruct_kinematics`` call that ran ``epochs``: a
+    validation (one splat forward) where ``epoch % log_step == 0``, at epoch
+    ``max_epoch - 1`` and at an early stop; with the flux-driven method, one splat
+    forward and one backward each epoch."""
+    validations = sum(
+        1 for epoch in epochs
+        if epoch % log_step == 0 or epoch == max_epoch - 1 or (stopped and epoch == epochs[-1])
+    )
+    train = len(epochs) if method == constants.kinematics_reconstruction_raytracing else 0
+    return launches(splat_forward=train + validations, splat_backward=train)
+
+
+def run_kinematics(device: torch.device, size: dict, data: CalibrationData, method: str, max_epoch: int,
+                   known: np.ndarray, label: str) -> dict:
+    """One timed ``reconstruct_kinematics`` call on a fresh field, its launches asserted
+    against :func:`kinematics_launches`; its losses, history and the distance of the
+    rotation deviations from ``known`` before and after."""
+    configuration = kinematics_configuration(max_epoch)
+    reconstructor = kinematics_reconstructor(device, size, data, method, configuration)
+    epochs, epoch_ends = [], []
+
+    def on_epoch(epoch: int, loss: float) -> None:
+        epochs.append(epoch)
+        epoch_ends.append(time.perf_counter())
+
+    synchronize(device)
+    reset_peak_memory(device)
+    reset_launch_counts()
+    start = time.perf_counter()
+    final_loss, (result,) = reconstructor.reconstruct_kinematics(on_epoch=on_epoch)
+    synchronize(device)
+    seconds = time.perf_counter() - start
+    counts = launch_counts()
+    stopped = len(result.loss_history) == len(epochs) - 1
+    log_step = configuration[constants.optimization][constants.log_step]
+    expected = kinematics_launches(method, epochs, max_epoch, log_step, stopped)
+    if device.type == "cuda" and counts != expected:
+        raise AssertionError(f"phase 13 {label} launched {counts}, expected {expected}")
+    history = result.loss_history
+    if not history or not np.isfinite(history).all() or not np.isfinite(final_loss).all():
+        raise AssertionError(f"phase 13 {label}: history {history}, final losses {final_loss}")
+    if set(result.test_loss) != set(VALIDATION_LOSSES) or not all(
+        np.isfinite(value).all() for value in result.test_loss.values()
+    ):
+        raise AssertionError(f"phase 13 {label}: test losses {result.test_loss}")
+    deviations = reconstructor.scenario.heliostat_groups[0].rotation_deviations.cpu().numpy()
+    return dict(
+        seconds=seconds,
+        epochs=len(epochs),
+        stopped=stopped,
+        epoch_seconds=np.diff([start] + epoch_ends).tolist(),
+        launches=counts,
+        max_memory_allocated=max_memory(device),
+        history=history,
+        test_loss={key: float(value.mean()) for key, value in result.test_loss.items()},
+        distance_before=float(np.linalg.norm(known)),
+        distance_after=float(np.linalg.norm(deviations - known)),
+    )
+
+
+def drive_kinematics(device: torch.device, method: str, size: dict, epochs: tuple[int, int], phase: str,
+                     data: CalibrationData, known: np.ndarray) -> dict:
+    """A warm-up call, then a short and a long timed call of ``reconstruct_kinematics``;
+    the seconds per epoch are the slope between the two over the epochs they ran."""
+    runs = {
+        label: run_kinematics(device, size, data, method, max_epoch, known, f"{phase} {label}")
+        for label, max_epoch in (("warm-up", 1), ("short", epochs[0]), ("long", epochs[1]))
+    }
+    short, long = runs["short"], runs["long"]
+    if long["epochs"] <= short["epochs"]:
+        raise AssertionError(f"{phase}: the long call ran {long['epochs']} epochs, the short {short['epochs']}")
+    seconds_per_epoch = (long["seconds"] - short["seconds"]) / (long["epochs"] - short["epochs"])
+    for label, run in runs.items():
+        _log(
+            f"{phase}, {label} call: {run['epochs']} epochs{' (early stop)' if run['stopped'] else ''} in "
+            f"{run['seconds']:.6f} s, max_memory_allocated {run['max_memory_allocated']} B, launches "
+            f"{ {k: v for k, v in run['launches'].items() if v} }, loss {run['history'][0]} -> {run['history'][-1]}, "
+            f"test losses {json.dumps(run['test_loss'])}, |deviations - known| {run['distance_before']:.6g} -> "
+            f"{run['distance_after']:.6g}"
+        )
+    if device.type == "cuda" and not seconds_per_epoch > 0:
+        raise AssertionError(f"{phase}: non-positive seconds per epoch {seconds_per_epoch}")
+    memory = [run["max_memory_allocated"] for run in runs.values()]
+    return dict(
+        launches=long["launches"],
+        seconds_per_epoch=seconds_per_epoch,
+        max_memory_allocated=None if None in memory else max(memory),
+        runs=runs,
+    )
+
+
+def synchronize(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def reset_peak_memory(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)
+
+
+def max_memory(device: torch.device) -> int | None:
+    """``torch.cuda.max_memory_allocated`` on the card; None elsewhere."""
+    return torch.cuda.max_memory_allocated(device) if device.type == "cuda" else None
+
+
+def empty_cache(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def kinematics_rays(reconstructor: KinematicsReconstructor, batch: dict):
+    """The splat's inputs of a flux-driven batch, as its trace makes them: ``[S, R * P]`` each."""
+    group = reconstructor.scenario.heliostat_groups[0]
+    with torch.no_grad():
+        points, normals, _ = hg.align_surfaces_with_motor_positions(
+            reconstructor._active(group.rotation_deviations, batch), batch["motor_positions"]
+        )
+        rays = ray_splat_inputs(
+            reconstructor.scenario.solar_tower,
+            geometry.reflect(batch["incident_ray_directions"][:, None, :], normals),
+            points,
+            batch["target_area_indices"],
+            batch["distortions_u"],
+            batch["distortions_e"],
+            batch["ray_magnitude"],
+            RenderConfig(bitmap_resolution=reconstructor.bitmap_resolution),
+        )
+    num = points.shape[0]
+    return tuple(x.reshape(num, -1).contiguous() for x in (rays.bitmap_e, rays.bitmap_u, rays.final_intensities))
+
+
+def check_kinematics_kernels(device: torch.device, size: dict, data: CalibrationData) -> dict[str, dict]:
+    """Phase 13b's kernel check: row 1 at the validation batch's rays and rows 1 and 2 at
+    the flux-driven train batch's, each against its plain version, then timed beside
+    ``index_add_`` and the bound. Returns the timings, by kernel and shape."""
+    width, height = size["bitmap"]
+    reconstructor = kinematics_reconstructor(
+        device, size, data, constants.kinematics_reconstruction_raytracing, kinematics_configuration(0)
+    )
+    group = reconstructor.scenario.heliostat_groups[0]
+    unique, split = training.group_calibration_split(
+        reconstructor.data, reconstructor.scenario, group, size["bitmap"]
+    )
+    batches = dict(zip(("kinematics_train", "kinematics_validation"), reconstructor._batches(group, split, unique)))
+    timings: dict[str, dict] = {"splat_forward": {}, "splat_backward": {}}
+    for label in ("kinematics_validation", "kinematics_train"):
+        rays = kinematics_rays(reconstructor, batches.pop(label))
+        shape = list(rays[0].shape)
+        forward_err, share = check_forward(
+            "splat_forward", splat_forward_cuda(*rays, height, width), splat_forward_plain(*rays, height, width),
+            rays, height, width,
+        )
+        g = None
+        if label == "kinematics_train":
+            g = torch.randn(
+                (shape[0], height, width), device=device,
+                generator=torch.Generator(device=device).manual_seed(SEED + 13),
+            )
+            backward_errs, backward_share = check_backward(
+                "splat_backward", splat_backward_cuda(*rays, g, height, width),
+                splat_backward_plain(*rays, g, height, width), rays[2], g,
+            )
+            share = max(share, backward_share)
+        timed, work = time_splat_pair(rays, g, height, width, iterations=5)
+        timed["splat_forward"]["max_abs_err"] = forward_err
+        if g is not None:
+            timed["splat_backward"]["max_abs_err"] = max(backward_errs)
+        del work, rays, g
+        _log(
+            f"phase 13b splat kernels at the flux-driven {label.split('_')[1]} batch: {shape} rays -> "
+            f"[{shape[0]}, {height}, {width}]; worst error {share:.3g} of its tolerance: "
+            + "; ".join(
+                f"{name} max_abs_err {t['max_abs_err']:.3g}, kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
+                f"library {t['library_ms'] if t['library_ms'] is None else round(t['library_ms'], 4)} ms, "
+                f"bound {t['bound'][0]:.4f} ms ({t['bound'][1]})"
+                for name, t in timed.items()
+            )
+        )
+        for name, t in timed.items():
+            timings[name][label] = dict(
+                shape=shape, ms=t["ms"], plain_ms=t["plain_ms"], library_ms=t["library_ms"], bound_ms=t["bound"][0],
+                bound_by=t["bound"][1], max_abs_err=t["max_abs_err"],
+            )
+        empty_cache(device)
+    return timings
+
+
+def drive_kinematics_alignment(device: torch.device, size: dict = KINEMATICS,
+                               epochs: tuple[int, int] = KINEMATICS_EPOCHS) -> tuple[dict, CalibrationData, np.ndarray]:
+    """Phase 13a: the alignment method at the production calibration on calibration
+    samples built from known rotation deviations. Returns the path's result, the
+    samples and the deviations."""
+    phase = "phase 13a kinematics reconstructor (alignment)"
+    known = known_rotation_deviations(size["heliostats"])
+    start = time.perf_counter()
+    data = kinematics_calibration(kinematics_scenario(device, size), known, size["samples"], size["bitmap"])
+    _log(f"{phase}: {data.flux_measured.shape[0]} calibration samples built in {time.perf_counter() - start:.3f} s")
+    result = drive_kinematics(device, constants.kinematics_reconstruction_alignment, size, epochs, phase, data, known)
+    long = result["runs"]["long"]
+    if not (long["history"][-1] < long["history"][0] and long["distance_after"] < long["distance_before"]):
+        raise AssertionError(
+            f"{phase}: loss {long['history'][0]} -> {long['history'][-1]}, |deviations - known| "
+            f"{long['distance_before']} -> {long['distance_after']}"
+        )
+    _log(
+        f"{phase}: {result['seconds_per_epoch']:.6f} s an epoch (slope of {long['epochs']} against "
+        f"{result['runs']['short']['epochs']} epochs), max_memory_allocated {result['max_memory_allocated']} B"
+    )
+    return result, data, known
+
+
+def flux_driven_samples(device: torch.device, data: CalibrationData, known: np.ndarray,
+                        size: dict = KINEMATICS_FLUX) -> tuple[CalibrationData, np.ndarray]:
+    """Phase 13a's samples and deviations, or, where phase 13b's field is cut, samples
+    built alike for a field of ``size["heliostats"]`` (whose layout differs)."""
+    if len(data.active_heliostats_mask) == size["heliostats"]:
+        return data, known
+    known = known_rotation_deviations(size["heliostats"])
+    return kinematics_calibration(kinematics_scenario(device, size), known, size["samples"], size["bitmap"]), known
+
+
+def drive_kinematics_raytracing(device: torch.device, data: CalibrationData, known: np.ndarray,
+                                size: dict = KINEMATICS_FLUX,
+                                epochs: tuple[int, int] = KINEMATICS_FLUX_EPOCHS) -> dict:
+    """Phase 13b: the flux-driven method on samples of ``size`` (:func:`flux_driven_samples`):
+    its timed calls, then one scrubbed objective gradient, which must be finite and
+    not all zero."""
+    phase = "phase 13b kinematics reconstructor (raytracing)"
+    result = drive_kinematics(device, constants.kinematics_reconstruction_raytracing, size, epochs, phase, data, known)
+    empty_cache(device)
+    gradients = kinematics_reconstructor(
+        device, size, data, constants.kinematics_reconstruction_raytracing, kinematics_configuration(0)
+    ).single_step_gradients()[0]["gradients"]
+    if not (np.isfinite(gradients).all() and (gradients != 0).any()):
+        raise AssertionError(f"{phase}: scrubbed gradient {gradients}")
+    result["gradient_max_abs"] = float(np.abs(gradients).max())
+    _log(
+        f"{phase}: {result['seconds_per_epoch']:.6f} s an epoch (slope of {result['runs']['long']['epochs']} against "
+        f"{result['runs']['short']['epochs']} epochs), max_memory_allocated {result['max_memory_allocated']} B, "
+        f"scrubbed gradient max |g| {result['gradient_max_abs']:.6g}"
+    )
+    return result
+
+
+# Phase 13c: a small kinematics loop (alignment, the production optimizer) and a
+# small aim-point loop, each run straight through 6 epochs and as a run of 4
+# epochs that saves every 2 and stops, then a run of 6 that resumes from its epoch
+# 2. On the card the kinematics loop runs under torch's deterministic algorithms
+# (its gradient's index_add_ sums a heliostat's samples in a fixed order) and must
+# equal the straight run bit for bit. The aim-point loop's splat forward (row 1)
+# adds a pixel's deposits with shared-memory atomics in an order that may change
+# from run to run: it must equal the straight run bit for bit where a second
+# straight run does, and otherwise agree within RESUME_TOLERANCE.
+SMALL_KINEMATICS = dict(heliostats=4, samples=4, surface_points=(5, 5), rays=4, bitmap=(64, 64))
+SMALL_RESUME_AIM = dict(heliostats=4, surface_points=(5, 5), rays=4, bitmap=(64, 64))
+RESUME_EPOCHS = (3, 5)  # max_epoch of the run that stops and of the others
+RESUME_EVERY = 2
+RESUME_TOLERANCE = 1e-4  # relative, for runs on the card whose straight runs differ
+
+
+def resumed_runs(run) -> dict[str, tuple[np.ndarray, np.ndarray]]:
+    """``run(checkpoint_dir, max_epoch)`` -> (history, parameters): straight through
+    twice, then stopped after a checkpoint and resumed from it."""
+    with tempfile.TemporaryDirectory() as root:
+        root = pathlib.Path(root)
+        straight = run(root / "straight", RESUME_EPOCHS[1])
+        again = run(root / "again", RESUME_EPOCHS[1])
+        run(root / "resumed", RESUME_EPOCHS[0])
+        resumed = run(root / "resumed", RESUME_EPOCHS[1])
+    return dict(straight=straight, again=again, resumed=resumed)
+
+
+def compare_resumed(label: str, runs: dict, exact: bool) -> dict:
+    """The resumed run against the straight one: bit for bit where ``exact`` or where the
+    two straight runs are equal, otherwise within RESUME_TOLERANCE."""
+    def largest_gap(a, b) -> float:
+        return max(float(np.abs(np.asarray(x) - np.asarray(y)).max() / max(np.abs(np.asarray(y)).max(), 1e-30))
+                   for x, y in zip(a, b))
+
+    straight, again, resumed = runs["straight"], runs["again"], runs["resumed"]
+    if len(resumed[0]) != RESUME_EPOCHS[1] + 1 or len(straight[0]) != RESUME_EPOCHS[1] + 1:
+        raise AssertionError(f"phase 13c {label}: histories {straight[0]} and {resumed[0]}")
+    reproducible = all(np.array_equal(x, y) for x, y in zip(straight, again))
+    equal = all(np.array_equal(x, y) for x, y in zip(straight, resumed))
+    gap, spread = largest_gap(resumed, straight), largest_gap(again, straight)
+    if (exact or reproducible) and not equal:
+        raise AssertionError(f"phase 13c {label}: the resumed run differs from the straight one by {gap} (relative)")
+    if not gap <= RESUME_TOLERANCE:
+        raise AssertionError(f"phase 13c {label}: the resumed run differs from the straight one by {gap} (relative)")
+    return dict(bit_equal=equal, straight_runs_bit_equal=reproducible, relative_gap=gap, straight_spread=spread)
+
+
+def check_resume(device: torch.device) -> dict:
+    """Phase 13c: the kinematics and the aim-point loop resumed from a checkpoint on
+    ``device`` against straight runs."""
+    size = SMALL_KINEMATICS
+    known = known_rotation_deviations(size["heliostats"])
+    data = kinematics_calibration(kinematics_scenario(device, size), known, size["samples"], size["bitmap"])
+
+    def kinematics_run(directory, max_epoch):
+        reconstructor = kinematics_reconstructor(
+            device, size, data, constants.kinematics_reconstruction_alignment, kinematics_configuration(max_epoch),
+            checkpoint_dir=directory, checkpoint_every=RESUME_EVERY,
+        )
+        result = reconstructor.reconstruct_kinematics()[1][0]
+        deviations = reconstructor.scenario.heliostat_groups[0].rotation_deviations
+        return np.asarray(result.loss_history), deviations.cpu().numpy()
+
+    aim = SMALL_RESUME_AIM
+    ground_truth = aim_point_ground_truth(aim["bitmap"], device, slope=10, plateau=20)
+
+    def aim_point_run(directory, max_epoch):
+        scenario = aim_point_scenario(device, aim["heliostats"], aim["surface_points"], aim["rays"])
+        optimizer = aim_point_optimizer(
+            scenario, ground_truth, max_epoch, AIM_CANDIDATES, aim["bitmap"], checkpoint_dir=directory,
+            checkpoint_every=RESUME_EVERY,
+        )
+        history = optimizer.optimize("kl_divergence")[1]
+        motors = scenario.heliostat_groups[0].motor_positions.cpu().numpy()
+        return np.asarray(history["total_loss"]), np.concatenate([np.asarray(v) for v in history.values()]), motors
+
+    deterministic = torch.are_deterministic_algorithms_enabled()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            kinematics = compare_resumed("kinematics", resumed_runs(kinematics_run), exact=True)
+        finally:
+            torch.use_deterministic_algorithms(deterministic)
+    aim_point = compare_resumed("aim point", resumed_runs(aim_point_run), exact=device.type != "cuda")
+    _log(f"phase 13c resume on {device}: kinematics {json.dumps(kinematics)}; aim point {json.dumps(aim_point)}")
+    return dict(kinematics=kinematics, aim_point=aim_point)
+
+
 # The path whose run gives a kernel's "launches": the flat aim point (phase 8)
 # for every kernel it runs; the compacted aim point (phase 5) for the compacted
 # sigma kernels; the block-window step (phase 10) for the dynamic-window pair;
@@ -3035,9 +3560,21 @@ def main() -> int:
     paths["surface_reconstruction"] = drive_surface_reconstruction(device)
     for kernel_name, chunk_timings in reconstruction_chunk.items():
         timings[kernel_name]["surface_reconstruction_chunk"] = chunk_timings
+    torch.cuda.empty_cache()
+    paths["kinematics_alignment"], kinematics_data, known = drive_kinematics_alignment(device)
+    torch.cuda.empty_cache()
+    kinematics_data, known = flux_driven_samples(device, kinematics_data, known)
+    for kernel_name, shape_timings in check_kinematics_kernels(device, KINEMATICS_FLUX, kinematics_data).items():
+        timings[kernel_name].update(shape_timings)
+    torch.cuda.empty_cache()
+    paths["kinematics_raytracing"] = drive_kinematics_raytracing(device, kinematics_data, known)
+    del kinematics_data
+    torch.cuda.empty_cache()
+    check_resume(device)
 
     case_keys = {key for _, key, *_ in SIGMA_CASES[1:] + FLAT_CASES[1:]} | {
         "kept_primitives", "fit_fraction", "full_splat_ms", "graph_ms", "zero_pairs", "surface_reconstruction_chunk",
+        "kinematics_train", "kinematics_validation",
     }
     kernels = []
     for kernel_name, t in timings.items():

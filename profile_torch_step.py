@@ -24,7 +24,15 @@ drives it:
   chunks of 12, the cyclic rate, the energy constraint and the ideal-surface
   regularizer), as its loop runs it without validation: the objective, its
   backward, the edge lock, the Adam update, the multiplier update and the
-  loss fetched to the host.
+  loss fetched to the host;
+- ``kinematics_alignment`` and ``kinematics_raytracing``: one train epoch of
+  ``KinematicsReconstructor`` with that method at ``chip_smoke.py`` phase
+  13's production calibration (100 heliostats x 15 train samples, 50 x 50
+  points per facet x 4 facets, 19 rays per point, 256 x 256 maps; the
+  flux-driven epoch traces its 285 M rays in one call) on the samples built
+  from known rotation deviations, as its loop runs it without validation:
+  the objective, its backward, the gradient scrub, the Adam update and the
+  loss fetched to the host for the reduce-on-plateau rate.
 
 It runs one warm-up step, times ``--steps`` steps with the profiler off (host
 clock around synchronised steps), then profiles ``--steps`` more and prints:
@@ -70,7 +78,7 @@ OPS = (
 )
 PATHS = (
     "surface_step", "blocking_step", "blocking_step_flat", "surface_step_block_window", "aim_point", "aim_point_flat",
-    "surface_reconstruction",
+    "surface_reconstruction", "kinematics_alignment", "kinematics_raytracing",
 )
 
 
@@ -116,7 +124,9 @@ def reconstruction_epoch(device: torch.device):
     validation: the rate of its schedule, the train step, the loss fetched to the host."""
     reconstructor = chip_smoke.surface_reconstructor(device, chip_smoke.RECON_EPOCHS[1])
     group = reconstructor.scenario.heliostat_groups[0]
-    unique, split = reconstructor._group_data(group)
+    unique, split = training.group_calibration_split(
+        reconstructor.data, reconstructor.scenario, group, reconstructor.bitmap_resolution
+    )
     (train_batch,) = reconstructor._batches(group, split, unique, test=False)
     train_step, _, reference_integrals, _ = reconstructor._build_step_functions(group, "kl_divergence")
     control_points = group.nurbs_control_points.detach().clone().requires_grad_(True)
@@ -135,6 +145,34 @@ def reconstruction_epoch(device: torch.device):
         )
         state["epoch"] += 1
         loss.item()
+
+    return step
+
+
+def kinematics_epoch(device: torch.device, method: str):
+    """A train epoch of phase 13's kinematics reconstructor with ``method``, as its loop
+    runs it without validation: the rate, the train step, the loss to the host."""
+    alignment = method == constants.kinematics_reconstruction_alignment
+    size = chip_smoke.KINEMATICS if alignment else chip_smoke.KINEMATICS_FLUX
+    known = chip_smoke.known_rotation_deviations(size["heliostats"])
+    data = chip_smoke.kinematics_calibration(chip_smoke.kinematics_scenario(device, size), known, size["samples"],
+                                             size["bitmap"])
+    reconstructor = chip_smoke.kinematics_reconstructor(
+        device, size, data, method, chip_smoke.kinematics_configuration(chip_smoke.KINEMATICS_EPOCHS[1])
+    )
+    group = reconstructor.scenario.heliostat_groups[0]
+    unique, split = training.group_calibration_split(reconstructor.data, reconstructor.scenario, group, size["bitmap"])
+    (train_batch,) = reconstructor._batches(group, split, unique, test=False)
+    train_step, _, _ = reconstructor._build_step_functions(reconstructor._default_loss(None))
+    rotation_deviations = group.rotation_deviations.detach().clone().requires_grad_(True)
+    optimizer = torch.optim.Adam([rotation_deviations], eps=1e-8)
+    scheduler = training.make_scheduler(
+        reconstructor.optimizer_dict[constants.initial_learning_rate_rotation_deviation], reconstructor.scheduler_dict
+    )
+
+    def step() -> None:
+        loss, _ = train_step(rotation_deviations, optimizer, train_batch, scheduler.learning_rate)
+        scheduler.step(loss.item())
 
     return step
 
@@ -181,6 +219,8 @@ def main() -> int:
     candidates = None if args.path.endswith("_flat") else chip_smoke.AIM_CANDIDATES
     if args.path == "surface_reconstruction":
         step = reconstruction_epoch(device)
+    elif args.path.startswith("kinematics_"):
+        step = kinematics_epoch(device, args.path.removeprefix("kinematics_"))
     elif args.path.startswith("aim_point"):
         step = aim_point_epoch(device, candidates)
     elif args.path == "surface_step_block_window":

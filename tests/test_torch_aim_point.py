@@ -380,14 +380,20 @@ def test_aim_point_optimizer_flat_route_against_jax(scene):
 
 
 @pytest.mark.parametrize("option", ["distributed_setup", "mesh", "checkpoint_dir", "heliostat_chunk"])
-def test_aim_point_optimizer_refuses_what_is_not_ported(option):
+def test_aim_point_optimizer_refuses_what_is_not_ported(option, tmp_path):
+    """Every option but ``checkpoint_dir`` is refused; it is ported
+    (``tests/test_torch_checkpointing.py`` resumes from it) and accepted."""
     scenario = _port_scenario(_jax_scenario(), (np.zeros(1), np.zeros(1)))
-    with pytest.raises(NotImplementedError):
-        AimPointOptimizer(
-            scenario=scenario, optimization_configuration=_configuration(1),
-            incident_ray_direction=[0.0, 1.0, 0.0, 0.0], target_area_index=0,
-            ground_truth=np.ones(BITMAP[::-1]), dni=DNI, **{option: 2},
-        )
+    arguments = dict(
+        scenario=scenario, optimization_configuration=_configuration(1),
+        incident_ray_direction=[0.0, 1.0, 0.0, 0.0], target_area_index=0,
+        ground_truth=np.ones(BITMAP[::-1]), dni=DNI,
+    )
+    if option == "checkpoint_dir":
+        assert AimPointOptimizer(**arguments, checkpoint_dir=tmp_path).checkpoint_dir == tmp_path
+    else:
+        with pytest.raises(NotImplementedError):
+            AimPointOptimizer(**arguments, **{option: 2})
 
 
 def test_chip_smoke_aim_point_agreement_runs_on_the_cpu():

@@ -516,11 +516,18 @@ def test_ray_chunks_do_not_change_the_trajectory():
 
 
 @pytest.mark.parametrize("option", ["mesh", "distributed_setup", "checkpoint_dir"])
-def test_unported_options_are_refused(option):
+def test_unported_options_are_refused(option, tmp_path):
+    """``mesh`` and ``distributed_setup`` are refused; ``checkpoint_dir`` is ported
+    (``tests/test_torch_checkpointing.py`` resumes from it) and accepted."""
     _, scenario = _scenarios()
     data = {constants.data_parser: SyntheticCalibrationParser(), constants.heliostat_data_mapping: []}
-    with pytest.raises(NotImplementedError, match=option):
-        reconstructor.SurfaceReconstructor(scenario, data, _configuration(constants.cyclic), **{option: object()})
+    if option == "checkpoint_dir":
+        configuration = _configuration(constants.cyclic)
+        ours = reconstructor.SurfaceReconstructor(scenario, data, configuration, checkpoint_dir=tmp_path)
+        assert ours.checkpoint_dir == tmp_path
+    else:
+        with pytest.raises(NotImplementedError, match=option):
+            reconstructor.SurfaceReconstructor(scenario, data, _configuration(constants.cyclic), **{option: object()})
     with pytest.raises(ValueError):
         reconstructor.SurfaceReconstructor(scenario, data, _configuration(constants.cyclic)).reconstruct_surfaces("l2")
 
