@@ -23,9 +23,18 @@ drop, and no pixel may exceed the maximum flux density.
   references, scheduler, early stopping, histories) under ``aim_point``, and
   a new run with the same directory resumes from the latest
   (:mod:`~artist_tpu_torch.optim.checkpointing`).
+- ``heliostat_chunk``: each group's heliostat axis is cut into chunks of
+  this many heliostats, each run under a checkpoint
+  (:mod:`~artist_tpu_torch.parallel.microbatch`), so the backward keeps one
+  chunk's aligned surfaces and per-ray tensors at a time. Blocking stays
+  field-wide and exact: phase 1 maps every chunk to its 4-corner primitives,
+  phase 2 traces each chunk against the whole field's primitives, summing
+  the target flux and stitching the per-heliostat factors back together. A
+  group of at most ``heliostat_chunk`` heliostats, or one the chunk does not
+  divide (with a warning), runs unchunked.
 
-Not ported yet, and refused with ``NotImplementedError``: ``distributed_setup``,
-``mesh`` and ``heliostat_chunk``.
+Not ported yet, and refused with ``NotImplementedError``: ``distributed_setup``
+and ``mesh``.
 """
 
 from __future__ import annotations
@@ -39,6 +48,7 @@ import torch
 from artist_tpu_torch.field import heliostat_group as hg
 from artist_tpu_torch.field.solar_tower import get_centers_of_target_areas
 from artist_tpu_torch.optim import checkpointing, losses, training
+from artist_tpu_torch.parallel.microbatch import chunked_map, chunked_sum_and_map
 from artist_tpu_torch.raytracing.blocking import create_blocking_primitives_rectangles_by_index
 from artist_tpu_torch.raytracing.render import (
     RenderConfig,
@@ -86,6 +96,10 @@ class AimPointOptimizer:
         Root of the loop's checkpoints; None saves nothing.
     checkpoint_every : int
         Epochs between checkpoints.
+    heliostat_chunk : int | None
+        Heliostats a chunk of each group's checkpointed align-and-trace
+        (None: no chunks); a group whose heliostat count it does not divide
+        runs unchunked, with a warning.
     """
 
     def __init__(
@@ -106,16 +120,13 @@ class AimPointOptimizer:
         blocking_candidates: int | None = 16,
         heliostat_chunk: int | None = None,
     ) -> None:
-        for name, value in (
-            ("distributed_setup", distributed_setup),
-            ("mesh", mesh),
-            ("heliostat_chunk", heliostat_chunk),
-        ):
+        for name, value in (("distributed_setup", distributed_setup), ("mesh", mesh)):
             if value is not None:
                 raise NotImplementedError(f"{name} is not ported yet")
         self.scenario = scenario
         self.device = scenario.heliostat_groups[0].positions.device
         self.blocking_candidates = int(blocking_candidates) if blocking_candidates else None
+        self.heliostat_chunk = int(heliostat_chunk) if heliostat_chunk else None
         self.optimizer_dict = optimization_configuration[constants.optimization]
         self.scheduler_dict = optimization_configuration[constants.scheduler]
         self.constraint_dict = optimization_configuration[constants.constraints]
@@ -233,42 +244,94 @@ class AimPointOptimizer:
             [[0], np.cumsum([g.number_of_heliostats for g in groups])[:-1]]
         )
 
-        def forward(group_params):
-            """Align all groups, trace with field-wide blocking, sum the target's flux."""
-            aligned = []
-            for g, group in enumerate(groups):
-                motors = initial_motor_positions[g] + torch.tanh(group_params[g]) * scales[g]
-                active = hg.gather_active(
-                    group, torch.arange(group.number_of_heliostats, device=self.device)
+        def chunking(group) -> int | None:
+            """The group's heliostat chunk, or None to run it unchunked."""
+            chunk = self.heliostat_chunk
+            if not chunk or group.number_of_heliostats <= chunk:
+                return None
+            if group.number_of_heliostats % chunk:
+                log.warning(
+                    "heliostat_chunk=%d does not divide the group's %d heliostats; microbatching is "
+                    "DISABLED for this group (it will need the full field's memory).",
+                    chunk, group.number_of_heliostats,
                 )
-                aligned.append(hg.align_surfaces_with_motor_positions(active, motors)[:2])
-            corners, spans, prim_normals = zip(
-                *(create_blocking_primitives_rectangles_by_index(points) for points, _ in aligned)
-            )
+                return None
+            return chunk
+
+        chunks = [chunking(group) for group in groups]
+
+        def forward(group_params):
+            """Align all groups, trace with field-wide blocking, sum the target's flux.
+
+            A chunked group is aligned chunk by chunk inside the checkpointed
+            functions of both phases (so a chunk's gathered state and aligned
+            surfaces are recomputed in the backward, not kept); an unchunked
+            group is aligned once and its surfaces serve both phases.
+            """
+            motors = [
+                initial_motor_positions[g] + torch.tanh(group_params[g]) * scales[g]
+                for g in range(len(groups))
+            ]
+
+            def aligned_chunk(g, idx):
+                active = hg.gather_active(groups[g], idx)
+                return hg.align_surfaces_with_motor_positions(active, motors[g].index_select(0, idx))[:2]
+
+            corners, spans, prim_normals, aligned_full = [], [], [], {}
+            for g, group in enumerate(groups):
+                chunk = chunks[g]
+                every = torch.arange(group.number_of_heliostats, device=self.device)
+                if chunk:
+                    c, s, n = chunked_map(
+                        lambda idx, g=g: create_blocking_primitives_rectangles_by_index(aligned_chunk(g, idx)[0]),
+                        every,
+                        chunk,
+                    )
+                else:
+                    aligned_full[g] = aligned_chunk(g, every)
+                    c, s, n = create_blocking_primitives_rectangles_by_index(aligned_full[g][0])
+                corners.append(c)
+                spans.append(s)
+                prim_normals.append(n)
             primitives = (torch.cat(corners), torch.cat(spans), torch.cat(prim_normals))
 
             total_flux = 0
             intercepts, on_targets, blockings = [], [], []
             for g, group in enumerate(groups):
-                points, normals = aligned[g]
-                flux, intercept, on_target, blocking = trace_rays(
-                    tower=tower,
-                    aligned_surface_points=points,
-                    aligned_surface_normals=normals,
-                    incident_ray_directions=incident_dirs[g],
-                    target_area_indices=target_indices[g],
-                    distortions_u=distortions[g][0],
-                    distortions_e=distortions[g][1],
-                    ray_magnitude=ray_magnitudes[g],
-                    blocking_primitives=primitives,
-                    ray_primitive_indices=torch.arange(
-                        group.number_of_heliostats, device=self.device
-                    ) + int(group_offsets[g]),
-                    config=render_config,
-                )
-                total_flux = total_flux + get_bitmaps_per_target(
-                    flux, target_indices[g], number_of_target_areas
-                )[self.target_area_index]
+
+                def traced_chunk(idx, g=g, aligned=None):
+                    # An unchunked group (aligned given) reads its tensors whole.
+                    def take(x):
+                        return x if aligned is not None else x.index_select(0, idx)
+
+                    points, normals = aligned or aligned_chunk(g, idx)
+                    targets = take(target_indices[g])
+                    flux, intercept, on_target, blocking = trace_rays(
+                        tower=tower,
+                        aligned_surface_points=points,
+                        aligned_surface_normals=normals,
+                        incident_ray_directions=take(incident_dirs[g]),
+                        target_area_indices=targets,
+                        distortions_u=take(distortions[g][0]),
+                        distortions_e=take(distortions[g][1]),
+                        ray_magnitude=ray_magnitudes[g],
+                        blocking_primitives=primitives,
+                        ray_primitive_indices=idx + int(group_offsets[g]),
+                        config=render_config,
+                    )
+                    flux_on_target = get_bitmaps_per_target(flux, targets, number_of_target_areas)[
+                        self.target_area_index
+                    ]
+                    return flux_on_target, (intercept, on_target, blocking)
+
+                every = torch.arange(group.number_of_heliostats, device=self.device)
+                if chunks[g]:
+                    group_flux, (intercept, on_target, blocking) = chunked_sum_and_map(
+                        traced_chunk, every, chunks[g]
+                    )
+                else:
+                    group_flux, (intercept, on_target, blocking) = traced_chunk(every, aligned=aligned_full[g])
+                total_flux = total_flux + group_flux
                 intercepts.append(intercept)
                 on_targets.append(on_target)
                 blockings.append(blocking)

@@ -25,8 +25,11 @@ On every device these are the Pallas routes' semantics. Rays are not padded:
 the CUDA kernels mask their ragged block edges themselves.
 ``primitive_chunk`` is accepted and changes nothing: it bounds the JAX XLA
 route's ``[M, R, P, chunk]`` temporaries, which the kernels never hold (the
-JAX Pallas routes ignore it too). ``cull_method="lbvh"`` is not ported yet
-and raises ``NotImplementedError``.
+JAX Pallas routes ignore it too). ``cull_method="lbvh"`` finds the flat
+route's keep flags by per-ray traversal of a linear bounding volume hierarchy
+(:mod:`artist_tpu_torch.raytracing.lbvh`) instead of the dense AABB cull; the
+keep-set is the same, and so is the mask, bit for bit. As in the JAX package,
+whose compacted route requires the dense cull, it always takes the flat route.
 """
 
 from __future__ import annotations
@@ -37,6 +40,7 @@ import torch
 
 from artist_tpu_torch.geometry.transforms import _normalize
 from artist_tpu_torch.kernels.blocking import NUM_COLUMNS, blocking_cull, blocking_sigma, blocking_sigma_flat
+from artist_tpu_torch.raytracing.lbvh import lbvh_keep
 
 # Candidate lists are padded to a multiple of the TPU path's primitive tile,
 # so that both packages see the same K.
@@ -279,27 +283,30 @@ def soft_ray_blocking_mask(
     ray_primitive_indices : torch.Tensor | None
         Global primitive index owned by each ray-emitting heliostat ``[M]``.
     cull_method : str
-        ``"dense"``; ``"lbvh"`` is not ported yet.
+        ``"dense"`` (the default): the compacted route with ``max_candidates``,
+        else the flat route with the AABB cull. ``"lbvh"``: the flat route,
+        whatever ``max_candidates`` says, its keep flags from the LBVH
+        traversal (the same flags).
     primitive_chunk : int | None
         Accepted for the JAX signature's sake; changes nothing here.
     max_candidates : int | None
         Candidate blockers per heliostat (K) of the compacted route; None
-        selects the flat route.
+        selects the flat route (so does ``cull_method="lbvh"``).
 
     Returns
     -------
     torch.Tensor
         blocked in [0, 1], ``[M, R, P]``.
     """
-    if cull_method != "dense":
-        raise NotImplementedError(f"cull_method={cull_method!r} is not ported yet")
+    if cull_method not in ("dense", "lbvh"):
+        raise ValueError(f"cull_method must be 'dense' or 'lbvh', got {cull_method!r}")
     num, rays, points = ray_directions.shape[:3]
     directions = ray_directions.reshape(num, rays * points, 4).contiguous()
     table = primitive_table(
         blocking_primitives_corners, blocking_primitives_spans, blocking_primitives_normals, epsilon
     ).to(ray_origins.dtype)
     parameters = (float(softness), float(ray_origin_offset), float(epsilon))
-    if max_candidates is not None and intersection_distances_target is not None:
+    if cull_method == "dense" and max_candidates is not None and intersection_distances_target is not None:
         indices, valid = select_blocking_candidates(
             ray_origins, ray_directions, blocking_primitives_corners, ray_primitive_indices,
             intersection_distances_target, max_candidates,
@@ -323,7 +330,8 @@ def soft_ray_blocking_mask(
         if intersection_distances_target is None:
             keep = torch.ones(table.shape[0], dtype=table.dtype, device=table.device)
         else:
-            keep = cull_primitives(
+            cull = lbvh_keep if cull_method == "lbvh" else cull_primitives
+            keep = cull(
                 ray_origins, ray_directions, blocking_primitives_corners, ray_primitive_indices,
                 intersection_distances_target,
             )

@@ -81,6 +81,28 @@ exits non-zero without them. It imports only ``torch``, ``numpy`` and the
     scrubbed gradient; c. a small kinematics loop and a small aim-point loop
     resumed from a checkpoint, against straight runs. Each call's launch counts
     are asserted (:func:`kinematics_launches`).
+14. plant scale: a. the plant-scale example
+    (``artist_tpu_torch/examples/plant_scale_aim_points.py``) through its entry
+    function at its defaults (4,000 heliostats in checkpointed chunks of 500, 2
+    rays per point, 50 x 50 points per facet x 4 facets, K = 16: 80 M rays an
+    epoch): the field unchunked for 2 epochs, then chunked for 2 and for the
+    example's 11 epochs, the seconds per epoch as the slope between the chunked
+    calls, rays/s and peak memory; the unchunked histories, intercepts and
+    factors held to the chunked ones within the JAX package's tolerances (the
+    flux integral's also allowing each run's epoch-0 spread, PLANT_HISTORY_TOLERANCE),
+    and the chunked peak below the unchunked one; b. ``bench.py``'s ``xl_field`` step
+    (the same field, ray chunks of 1, heliostat chunks of 500) without blocking
+    and with blocking at K = 16, 8 and 32, one warm-up and three timed Adam steps
+    each, then the chunked step's loss and gradient against the unchunked step's;
+    c. the LBVH on the first chunk's first-epoch rays (``[500, 20000]``) against
+    all 4,000 primitives, on the synthetic field and with its rows 3 m apart: the
+    tree reaches every leaf once, the traversal kernel's keep flags equal its plain
+    version's and the cull kernel's bit for bit, both timed, and
+    ``soft_ray_blocking_mask(cull_method="lbvh")`` equal to the dense cull's flat
+    route bit for bit; d. the splat pair and the sigma pair (K = 16) at that
+    chunk's shape against their plain versions, timed, and the sigma pair timed at
+    K = 32. Every call's launch counts
+    are asserted (:func:`plant_aim_point_launches`, :func:`xl_step_launches`).
 
 Phase 3 also holds the dynamic-window kernels (3d: on the block-window
 step's first chunk in place with the tile order, as that step splats it,
@@ -133,8 +155,10 @@ from artist_tpu_torch.geometry.coordinates import (  # noqa: E402
     bitmap_coordinates_to_target_coordinates,
     convert_3d_directions_to_4d_format,
 )
+from artist_tpu_torch.examples import plant_scale_aim_points  # noqa: E402
 from artist_tpu_torch.io.calibration import CalibrationData  # noqa: E402
 from artist_tpu_torch.kernels import blocking as blocking_kernels  # noqa: E402
+from artist_tpu_torch.kernels import lbvh as lbvh_kernels  # noqa: E402
 from artist_tpu_torch.kernels.build import build_all, build_library  # noqa: E402
 from artist_tpu_torch.kernels.splat import LAUNCHES as SPLAT_LAUNCHES  # noqa: E402
 from artist_tpu_torch.kernels.splat import reset_launch_counts as reset_splat_launch_counts  # noqa: E402
@@ -152,12 +176,17 @@ from artist_tpu_torch.optim.aim_point_optimizer import AimPointOptimizer  # noqa
 from artist_tpu_torch.optim.kinematics_reconstructor import VALIDATION_LOSSES, KinematicsReconstructor  # noqa: E402
 from artist_tpu_torch.optim.losses import kl_divergence_loss  # noqa: E402
 from artist_tpu_torch.optim.surface_reconstructor import SurfaceReconstructor  # noqa: E402
-from artist_tpu_torch.raytracing import geometry  # noqa: E402
-from artist_tpu_torch.raytracing.blocking import create_blocking_primitives_rectangles_by_index  # noqa: E402
+from artist_tpu_torch.parallel.microbatch import chunked_map, chunked_sum  # noqa: E402
+from artist_tpu_torch.raytracing import geometry, lbvh  # noqa: E402
+from artist_tpu_torch.raytracing.blocking import (  # noqa: E402
+    create_blocking_primitives_rectangles_by_index,
+    soft_ray_blocking_mask,
+)
 from artist_tpu_torch.raytracing.render import RenderConfig, point_permutation, ray_splat_inputs, trace_rays  # noqa: E402
 from artist_tpu_torch.scenario.synthetic import SyntheticCalibrationParser, make_synthetic_scenario  # noqa: E402
 from artist_tpu_torch.tools import sass_counts, splat_formulation_bench  # noqa: E402
 from artist_tpu_torch.util import constants  # noqa: E402
+from artist_tpu_torch.util.indices import actuator_max_motor_position, actuator_min_motor_position  # noqa: E402
 
 # The flagship configuration of bench.py's differentiable step.
 HELIOSTATS = 100
@@ -173,7 +202,7 @@ KERNELS = (
     "splat_forward", "splat_backward", "blocking_sigma_forward", "blocking_sigma_backward",
     "blocking_cull", "blocking_sigma_flat_forward", "blocking_sigma_flat_backward",
     "splat_dynamic_window_forward", "splat_dynamic_window_backward", "splat_window_2d_forward",
-    "splat_band_forward",
+    "splat_band_forward", "lbvh_traverse",
 )
 # The source of each kernel, under artist_tpu_torch/kernels/csrc/.
 # The dynamic window's backward launches splat.cu's gather (splat_window.cu's head note).
@@ -182,6 +211,7 @@ SOURCES = {
     **dict.fromkeys(KERNELS[2:7], "blocking.cu"),
     **dict.fromkeys(("splat_dynamic_window_forward", "splat_window_2d_forward"), "splat_window.cu"),
     "splat_dynamic_window_backward": "splat.cu",
+    "lbvh_traverse": "lbvh.cu",
 }
 # The block-window step: bench.py's flagship step with BENCH_SPLAT_BLOCK_WINDOW=96,
 # whose ray blocks are cut point-major over 10 x 10 tiles of each facet's points.
@@ -419,6 +449,8 @@ class StepInputs:
     ground_truth: torch.Tensor  # [M, H, W]
     surface_points_per_facet: tuple[int, int]
     config: RenderConfig
+    # Heliostats a checkpointed chunk of the step (bench.py's heliostat_chunk); None: no chunks.
+    heliostat_chunk: int | None = None
 
 
 def step_inputs(
@@ -430,11 +462,13 @@ def step_inputs(
     ray_chunk: int | None,
     blocking: bool = False,
     candidates: int | None = AIM_CANDIDATES,
+    heliostat_chunk: int | None = None,
 ) -> StepInputs:
     """The flagship step's inputs: every heliostat active, incident light from
     the south horizon ``[0, 1, 0, 0]``, target 0, aim point the target's
     centre, an all-ones ground truth; field-wide blocking if asked, on the
-    compacted route with ``candidates`` per heliostat or, with None, the flat one."""
+    compacted route with ``candidates`` per heliostat or, with None, the flat
+    one; the heliostat axis in checkpointed chunks of ``heliostat_chunk``."""
     group = scenario.heliostat_groups[0]
     device = group.positions.device
     num = group.number_of_heliostats
@@ -453,16 +487,23 @@ def step_inputs(
             bitmap_resolution=bitmap_resolution, ray_chunk=ray_chunk, blocking_active=blocking,
             blocking_candidates=candidates,
         ),
+        heliostat_chunk=heliostat_chunk,
     )
 
 
-def aligned_surfaces(control_points: torch.Tensor, inputs: StepInputs):
-    """Control points -> NURBS surfaces -> alignment: ``[M, P, 4]`` points and normals."""
+def _take(x: torch.Tensor, indices: torch.Tensor | None) -> torch.Tensor:
+    """Rows ``indices`` of a per-heliostat tensor; all of it for None."""
+    return x if indices is None else x.index_select(0, indices)
+
+
+def aligned_surfaces(control_points: torch.Tensor, inputs: StepInputs, indices: torch.Tensor | None = None):
+    """Control points -> NURBS surfaces -> alignment: ``[M, P, 4]`` points and normals,
+    of the heliostats ``indices`` (positions in ``inputs.active_indices``; None: all)."""
     group = inputs.scenario.heliostat_groups[0]
     active = hg.gather_active(
-        group.replace(nurbs_control_points=control_points), inputs.active_indices
+        group.replace(nurbs_control_points=control_points), _take(inputs.active_indices, indices)
     )
-    count = inputs.active_indices.shape[0]
+    count = active.positions.shape[0]
     points, normals = evaluate_nurbs_surfaces(
         active.nurbs_control_points,
         group.nurbs_degrees,
@@ -477,37 +518,72 @@ def aligned_surfaces(control_points: torch.Tensor, inputs: StepInputs):
         surface_normals=normals.reshape(count, -1, 4),
     )
     return hg.align_surfaces_with_incident_ray_directions(
-        active, inputs.aim_points, inputs.incident_ray_directions
+        active, _take(inputs.aim_points, indices), _take(inputs.incident_ray_directions, indices)
     )[:2]
 
 
-def render(control_points: torch.Tensor, inputs: StepInputs):
-    """The step's forward render: ``trace_rays``'s flux and three factors.
+def render(
+    control_points: torch.Tensor,
+    inputs: StepInputs,
+    indices: torch.Tensor | None = None,
+    primitives: tuple[torch.Tensor, ...] | None = None,
+):
+    """The step's forward render: ``trace_rays``'s flux and three factors, of the
+    heliostats ``indices`` (None: all).
 
     With blocking on, every heliostat's aligned surface is a blocker (its
-    rectangle by corner index), as in ``bench.py:_build_step(blocking=True)``.
+    rectangle by corner index), as in ``bench.py:_build_step(blocking=True)``:
+    ``primitives`` are the whole field's when given, else those of the
+    heliostats rendered.
     """
-    points, normals = aligned_surfaces(control_points, inputs)
+    points, normals = aligned_surfaces(control_points, inputs, indices)
     blocking = inputs.config.blocking_active
+    if blocking and primitives is None:
+        primitives = create_blocking_primitives_rectangles_by_index(points)
     return trace_rays(
         tower=inputs.scenario.solar_tower,
         aligned_surface_points=points,
         aligned_surface_normals=normals,
-        incident_ray_directions=inputs.incident_ray_directions,
-        target_area_indices=inputs.target_area_indices,
-        distortions_u=inputs.distortions_u,
-        distortions_e=inputs.distortions_e,
-        blocking_primitives=create_blocking_primitives_rectangles_by_index(points) if blocking else None,
-        ray_primitive_indices=inputs.active_indices if blocking else None,
+        incident_ray_directions=_take(inputs.incident_ray_directions, indices),
+        target_area_indices=_take(inputs.target_area_indices, indices),
+        distortions_u=_take(inputs.distortions_u, indices),
+        distortions_e=_take(inputs.distortions_e, indices),
+        blocking_primitives=primitives if blocking else None,
+        ray_primitive_indices=_take(inputs.active_indices, indices) if blocking else None,
         config=inputs.config,
     )
 
 
 def surface_loss(control_points: torch.Tensor, inputs: StepInputs) -> torch.Tensor:
-    """The flagship step's loss: the summed KL divergence over heliostats, over M."""
-    flux = render(control_points, inputs)[0]
+    """The flagship step's loss: the summed KL divergence over heliostats, over M.
+
+    With ``inputs.heliostat_chunk`` it is ``bench.py:_build_step``'s chunked
+    loss: phase 1 maps each chunk to its 4-corner primitives (with blocking
+    on), phase 2 sums each chunk's KL sum, traced against the whole field's
+    primitives; each chunk runs under a checkpoint, NURBS and alignment
+    included.
+    """
     num = inputs.active_indices.shape[0]
-    return torch.sum(kl_divergence_loss(flux, inputs.ground_truth)) / num
+    chunk = inputs.heliostat_chunk
+    if not chunk:
+        flux = render(control_points, inputs)[0]
+        return torch.sum(kl_divergence_loss(flux, inputs.ground_truth)) / num
+    positions = torch.arange(num, device=control_points.device)
+    primitives = None
+    if inputs.config.blocking_active:
+        primitives = chunked_map(
+            lambda idx: create_blocking_primitives_rectangles_by_index(
+                aligned_surfaces(control_points, inputs, idx)[0]
+            ),
+            positions,
+            chunk,
+        )
+
+    def kl_sum(idx: torch.Tensor) -> torch.Tensor:
+        flux = render(control_points, inputs, idx, primitives)[0]
+        return torch.sum(kl_divergence_loss(flux, inputs.ground_truth.index_select(0, idx)))
+
+    return chunked_sum(kl_sum, positions, chunk) / num
 
 
 def flagship_inputs(
@@ -1187,19 +1263,22 @@ def reset_launch_counts() -> None:
     blocking_kernels.reset_launch_counts()
     splat_window.reset_launch_counts()
     splat_scatter.reset_launch_counts()
+    lbvh_kernels.reset_launch_counts()
 
 
 def launch_counts() -> dict[str, int]:
-    return {**SPLAT_LAUNCHES, **blocking_kernels.LAUNCHES, **splat_window.LAUNCHES, **splat_scatter.LAUNCHES}
+    return {**SPLAT_LAUNCHES, **blocking_kernels.LAUNCHES, **splat_window.LAUNCHES, **splat_scatter.LAUNCHES,
+            **lbvh_kernels.LAUNCHES}
 
 
 def drive_surface_step(inputs: StepInputs, launches_per_step: dict[str, int], phase: str) -> dict:
     """One warm-up and STEPS timed Adam steps of the flagship surface step."""
     group = inputs.scenario.heliostat_groups[0]
+    device = group.positions.device
     control_points = group.nurbs_control_points.clone().requires_grad_(True)
     optimizer = torch.optim.Adam([control_points], lr=LEARNING_RATE)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
+    synchronize(device)
+    reset_peak_memory(device)
     reset_launch_counts()
     step_seconds, losses = [], []
     for step in range(1 + STEPS):
@@ -1209,7 +1288,7 @@ def drive_surface_step(inputs: StepInputs, launches_per_step: dict[str, int], ph
         loss.backward()
         grad = control_points.grad.detach().clone()
         optimizer.step()
-        torch.cuda.synchronize()
+        synchronize(device)
         if step:
             step_seconds.append(time.perf_counter() - start)
         losses.append(loss.item())
@@ -1219,16 +1298,16 @@ def drive_surface_step(inputs: StepInputs, launches_per_step: dict[str, int], ph
             raise AssertionError(f"{phase}, step {step}: control-point gradient not finite or all zero")
     launches = launch_counts()
     expected = {name: count * (1 + STEPS) for name, count in launches_per_step.items()}
-    if launches != expected:
+    if device.type == "cuda" and launches != expected:
         raise AssertionError(f"{phase} launched {launches}, expected {expected}")
-    rays = HELIOSTATS * RAYS * 4 * SURFACE_POINTS[0] * SURFACE_POINTS[1]
+    rays = inputs.distortions_u.numel()
     mean_step = sum(step_seconds) / len(step_seconds)
     result = dict(
         launches=launches,
         step_seconds=step_seconds,
         rays_per_step=rays,
         rays_per_second=rays / mean_step,
-        max_memory_allocated=torch.cuda.max_memory_allocated(),
+        max_memory_allocated=max_memory(device),
         losses=losses,
     )
     _log(
@@ -3357,8 +3436,12 @@ def drive_kinematics_raytracing(device: torch.device, data: CalibrationData, kno
 # (its gradient's index_add_ sums a heliostat's samples in a fixed order) and must
 # equal the straight run bit for bit. The aim-point loop's splat forward (row 1)
 # adds a pixel's deposits with shared-memory atomics in an order that may change
-# from run to run: it must equal the straight run bit for bit where a second
-# straight run does, and otherwise agree within RESUME_TOLERANCE.
+# from run to run, so on the card it agrees within RESUME_TOLERANCE. Two straight
+# runs that happen to agree bit for bit do not show that the order held: on an
+# H100 80GB HBM3 (700 W limit) any two of these runs either agreed or parted by
+# 1.5224354748964094e-06 (relative), in no fixed pattern. Every loop, on every device,
+# must also give back bit for bit the history up to its checkpoint: the resumed
+# run's first RESUME_EVERY + 1 entries are the stopped run's.
 SMALL_KINEMATICS = dict(heliostats=4, samples=4, surface_points=(5, 5), rays=4, bitmap=(64, 64))
 SMALL_RESUME_AIM = dict(heliostats=4, surface_points=(5, 5), rays=4, bitmap=(64, 64))
 RESUME_EPOCHS = (3, 5)  # max_epoch of the run that stops and of the others
@@ -3366,32 +3449,39 @@ RESUME_EVERY = 2
 RESUME_TOLERANCE = 1e-4  # relative, for runs on the card whose straight runs differ
 
 
-def resumed_runs(run) -> dict[str, tuple[np.ndarray, np.ndarray]]:
-    """``run(checkpoint_dir, max_epoch)`` -> (history, parameters): straight through
-    twice, then stopped after a checkpoint and resumed from it."""
+def resumed_runs(run) -> dict[str, tuple[np.ndarray, ...]]:
+    """``run(checkpoint_dir, max_epoch)`` -> (loss history, parameters...): straight
+    through twice, then stopped after a checkpoint and resumed from it."""
     with tempfile.TemporaryDirectory() as root:
         root = pathlib.Path(root)
         straight = run(root / "straight", RESUME_EPOCHS[1])
         again = run(root / "again", RESUME_EPOCHS[1])
-        run(root / "resumed", RESUME_EPOCHS[0])
+        stopped = run(root / "resumed", RESUME_EPOCHS[0])
         resumed = run(root / "resumed", RESUME_EPOCHS[1])
-    return dict(straight=straight, again=again, resumed=resumed)
+    return dict(straight=straight, again=again, stopped=stopped, resumed=resumed)
 
 
 def compare_resumed(label: str, runs: dict, exact: bool) -> dict:
-    """The resumed run against the straight one: bit for bit where ``exact`` or where the
-    two straight runs are equal, otherwise within RESUME_TOLERANCE."""
+    """The resumed run against the straight one: bit for bit where ``exact``, otherwise
+    within RESUME_TOLERANCE; and its history up to the checkpoint bit for bit the
+    stopped run's."""
     def largest_gap(a, b) -> float:
         return max(float(np.abs(np.asarray(x) - np.asarray(y)).max() / max(np.abs(np.asarray(y)).max(), 1e-30))
                    for x, y in zip(a, b))
 
-    straight, again, resumed = runs["straight"], runs["again"], runs["resumed"]
+    straight, again, stopped, resumed = runs["straight"], runs["again"], runs["stopped"], runs["resumed"]
     if len(resumed[0]) != RESUME_EPOCHS[1] + 1 or len(straight[0]) != RESUME_EPOCHS[1] + 1:
         raise AssertionError(f"phase 13c {label}: histories {straight[0]} and {resumed[0]}")
+    restored = RESUME_EPOCHS[0] // RESUME_EVERY * RESUME_EVERY + 1  # entries up to the checkpoint
+    if len(stopped[0]) != RESUME_EPOCHS[0] + 1 or not np.array_equal(resumed[0][:restored], stopped[0][:restored]):
+        raise AssertionError(
+            f"phase 13c {label}: the resumed run's history {resumed[0]} does not begin with the stopped run's "
+            f"first {restored} entries {stopped[0]}"
+        )
     reproducible = all(np.array_equal(x, y) for x, y in zip(straight, again))
     equal = all(np.array_equal(x, y) for x, y in zip(straight, resumed))
     gap, spread = largest_gap(resumed, straight), largest_gap(again, straight)
-    if (exact or reproducible) and not equal:
+    if exact and not equal:
         raise AssertionError(f"phase 13c {label}: the resumed run differs from the straight one by {gap} (relative)")
     if not gap <= RESUME_TOLERANCE:
         raise AssertionError(f"phase 13c {label}: the resumed run differs from the straight one by {gap} (relative)")
@@ -3440,10 +3530,517 @@ def check_resume(device: torch.device) -> dict:
     return dict(kinematics=kinematics, aim_point=aim_point)
 
 
+# --------------------------------------------------------------------------- #
+# Phase 14: plant scale.
+# --------------------------------------------------------------------------- #
+
+# The plant-scale example (artist_tpu_torch/examples/plant_scale_aim_points.py, the
+# counterpart of examples/plant_scale_aim_points.py) at its defaults: 4,000
+# heliostats in chunks of 500, 2 rays a point, 50 x 50 points a facet x 4 facets,
+# max_epoch 10 (the loop runs epochs 0-10), 256 x 256, K = 16: 80 M rays an epoch,
+# 8 chunks of 10 M. PLANT_SHORT_EPOCHS is the max_epoch of the short chunked call
+# (the slope's other end) and of the unchunked call it is compared with.
+PLANT_SHORT_EPOCHS = 1
+# Chunked against unchunked: the JAX package's own tolerances for the same
+# comparison (tests/optim/test_aim_point_optimizer.py:140-149). One history entry
+# needs more on the card: the flux integral, 100 (sum - ref + 1e-8) / ref with ref
+# the sum of the epoch-0 references' forward. At epoch 0 it is the gap between two
+# forwards of the same motors: 0 where the forward is deterministic (the CPU), but
+# row 1 orders a pixel's deposits differently in each launch, and two forwards of 80 M
+# rays part by ~1e-7 of the sum (9.1e-6 after the 100, unchunked, on the H100). So
+# that entry is allowed, besides the JAX tolerance, each run's own epoch-0 gap: the
+# spread the card shows between two forwards, measured in the same runs.
+PLANT_HISTORY_TOLERANCE = dict(rtol=2e-4, atol=1e-6)
+PLANT_FACTOR_TOLERANCE = 1e-4
+# bench.py's xl_field entry (:109-122, :907-950): 4,000 heliostats x 2 rays a
+# point, ray chunks of max(1, rays // 2) = 1 (_field_entry, :845), heliostat
+# chunks of 500; blocking off, and on at K = 16 and the sweep's 8 and 32.
+XL = dict(heliostats=4000, rays=2, ray_chunk=1, heliostat_chunk=500)
+XL_CANDIDATES = (16, 8, 32)
+# The chunked step against the unchunked one: tests/parallel/test_microbatch.py's
+# tolerances for the JAX package's (1e-4 of the loss, 1e-5 of the largest
+# gradient entry).
+XL_LOSS_RTOL = 1e-4
+XL_GRADIENT_ATOL = 1e-5
+# The LBVH traversal's operations a visited node (csrc/lbvh.cu's head note).
+LBVH_OPS_PER_VISIT = 25
+PLANT_CHUNK_HELIOSTATS = 500  # the heliostats of one chunk: phases 14c and 14d take the first
+
+
+def plant_aim_point_launches(epochs: int, chunks: int, candidates: int | None = AIM_CANDIDATES) -> dict[str, int]:
+    """Launches of an ``optimize()`` call of ``epochs`` epochs whose field is cut into
+    ``chunks`` checkpointed heliostat chunks (1: unchunked). Counted on the CPU
+    (``tests/test_torch_plant_scale.py``): the epoch-0 references run each chunk's
+    forward once; an epoch runs it, and the backward's recompute runs it again (the
+    chunk's saved tensors include the splat's and sigma's inputs and the mask's
+    exponential, so no kernel of the chunk is skipped); each chunk's backward once.
+    Unchunked, nothing is recomputed."""
+    recompute = 2 if chunks > 1 else 1
+    per_epoch, per_call = AIM_LAUNCHES_PER_EPOCH[candidates], AIM_LAUNCHES_PER_CALL[candidates]
+    # The forward kernels are those the epoch-0 references launch (per_call).
+    return {
+        name: chunks * (per_epoch[name] * epochs * (recompute if per_call[name] else 1) + per_call[name])
+        for name in KERNELS
+    }
+
+
+def xl_step_launches(chunks: int, ray_chunks: int, candidates: int | None, blocking: bool) -> dict[str, int]:
+    """Launches of one step of bench.py's flagship step with ``chunks`` heliostat chunks
+    (1: unchunked) and ``ray_chunks`` checkpointed ray chunks. Counted on the CPU
+    (``tests/test_torch_plant_scale.py``): unchunked, each ray chunk runs the splat
+    forward twice (forward and recompute) and the sigma forward once (the selective
+    checkpoint saves sigma). Chunked, the heliostat chunk's recompute runs each ray
+    chunk's forward once more: the splat forward three times, the sigma forward
+    twice (the inner checkpoint saves it in that recompute)."""
+    rays = chunks * ray_chunks
+    splat_forward = (3 if chunks > 1 else 2) * rays
+    sigma_forward = (2 if chunks > 1 else 1) * rays
+    if not blocking:
+        return launches(splat_forward=splat_forward, splat_backward=rays)
+    if candidates is None:
+        return launches(splat_forward=splat_forward, splat_backward=rays, blocking_cull=sigma_forward,
+                        blocking_sigma_flat_forward=sigma_forward, blocking_sigma_flat_backward=rays)
+    return launches(splat_forward=splat_forward, splat_backward=rays, blocking_sigma_forward=sigma_forward,
+                    blocking_sigma_backward=rays)
+
+
+def run_plant_example(device: torch.device, chunk: int | None, epochs: int, **size) -> dict:
+    """One call of the plant-scale example's entry function, launch counts set to 0 just
+    before it and its peak memory read just after: the example's result with
+    ``launches`` and ``max_memory_allocated``."""
+    synchronize(device)
+    reset_peak_memory(device)
+    reset_launch_counts()
+    result = plant_scale_aim_points.run(chunk=chunk, epochs=epochs, device=device, **size)
+    synchronize(device)
+    result["launches"] = launch_counts()
+    result["max_memory_allocated"] = max_memory(device)
+    return result
+
+
+def check_plant_run(phase: str, result: dict, heliostats: int, epochs: int, chunks: int) -> None:
+    """A plant-scale call's gates: its launch counts, ``epochs + 1`` finite losses,
+    finite factors, and motors that moved and stayed within their limits and the tanh bound."""
+    expected = plant_aim_point_launches(epochs + 1, chunks)
+    if result["optimizer"].device.type == "cuda" and result["launches"] != expected:
+        raise AssertionError(f"{phase} launched {result['launches']}, expected {expected}")
+    losses = result["history"]["total_loss"]
+    if len(losses) != epochs + 1 or not np.isfinite(losses).all():
+        raise AssertionError(f"{phase}: losses {losses}")
+    for name in ("intercepts", "on_targets", "blockings"):
+        if result[name].shape != (heliostats,) or not torch.isfinite(result[name]).all():
+            raise AssertionError(f"{phase}: {name} not finite or of the wrong shape")
+    optimizer = result["optimizer"]
+    group = optimizer.scenario.heliostat_groups[0]
+    motors, initial = group.motor_positions, optimizer.initial_motor_positions_all_groups[0]
+    scale = optimizer.scales_all_groups[0]
+    minimum = group.actuator_non_optimizable[:, actuator_min_motor_position]
+    maximum = group.actuator_non_optimizable[:, actuator_max_motor_position]
+    moved = float((motors != initial).double().mean())
+    within = bool(((motors - initial).abs() <= scale * (1 + 1e-6)).all() and (motors >= minimum).all()
+                  and (motors <= maximum).all())
+    if not (torch.isfinite(motors).all() and moved > 0.5 and within):
+        raise AssertionError(f"{phase}: motors moved {moved}, within their limits and the tanh bound {within}")
+
+
+def drive_plant_aim_point(device: torch.device, size: dict | None = None) -> dict:
+    """Phase 14a: the plant-scale example through its entry function at its defaults.
+    First the field unchunked for PLANT_SHORT_EPOCHS (max_epoch; it also warms the
+    card up), then a chunked call of as many epochs and the example's own (max_epoch
+    EPOCHS), the seconds an epoch as the slope between the two chunked calls. The
+    unchunked call's histories, intercepts, on-target and blocking factors are held
+    to the short chunked call's (PLANT_HISTORY_TOLERANCE, PLANT_FACTOR_TOLERANCE),
+    and its peak memory must exceed the chunked one's.
+    ``size`` overrides the example's field (heliostats, rays, points) and chunk."""
+    size = {**dict(heliostats=plant_scale_aim_points.HELIOSTATS, rays=plant_scale_aim_points.RAYS,
+                   points=plant_scale_aim_points.POINTS, chunk=plant_scale_aim_points.CHUNK), **(size or {})}
+    chunk = size.pop("chunk")
+    heliostats = size["heliostats"]
+    chunks = heliostats // chunk
+    long_epochs = plant_scale_aim_points.EPOCHS
+    unchunked = run_plant_example(device, None, PLANT_SHORT_EPOCHS, **size)
+    check_plant_run("phase 14a plant aim point, unchunked", unchunked, heliostats, PLANT_SHORT_EPOCHS, 1)
+    short = run_plant_example(device, chunk, PLANT_SHORT_EPOCHS, **size)
+    check_plant_run("phase 14a plant aim point, short call", short, heliostats, PLANT_SHORT_EPOCHS, chunks)
+    long = run_plant_example(device, chunk, long_epochs, **size)
+    check_plant_run("phase 14a plant aim point", long, heliostats, long_epochs, chunks)
+    long_line = plant_scale_aim_points.summary(heliostats, chunk, long)
+
+    gaps = {}
+    for key, values in short["history"].items():
+        mine, other = np.asarray(unchunked["history"][key]), np.asarray(values)
+        gaps[key] = float(np.abs(mine - other).max()) if mine.size else 0.0
+        spread = abs(mine[0]) + abs(other[0]) if key == "flux_integral" else 0.0
+        np.testing.assert_allclose(mine, other, rtol=PLANT_HISTORY_TOLERANCE["rtol"],
+                                   atol=PLANT_HISTORY_TOLERANCE["atol"] + spread,
+                                   err_msg=f"phase 14a: history {key}, unchunked against chunked")
+    for name in ("intercepts", "on_targets", "blockings"):
+        gaps[name] = _max_abs_err(unchunked[name], short[name])
+        if not gaps[name] <= PLANT_FACTOR_TOLERANCE:
+            raise AssertionError(f"phase 14a: {name} unchunked against chunked {gaps[name]} > {PLANT_FACTOR_TOLERANCE}")
+    if device.type == "cuda" and not short["max_memory_allocated"] < unchunked["max_memory_allocated"]:
+        raise AssertionError(
+            f"phase 14a: chunked peak {short['max_memory_allocated']} B, unchunked {unchunked['max_memory_allocated']} B"
+        )
+    epochs_long, epochs_short = long_epochs + 1, PLANT_SHORT_EPOCHS + 1
+    epoch_seconds = (long["seconds"] - short["seconds"]) / (epochs_long - epochs_short)
+    rays = heliostats * size["rays"] * 4 * size["points"] ** 2
+    result = dict(
+        launches=long["launches"],
+        epochs=(epochs_short, epochs_long),
+        call_seconds=(short["seconds"], long["seconds"]),
+        epoch_seconds=epoch_seconds,
+        rays_per_epoch=rays,
+        rays_per_second=rays / epoch_seconds,
+        max_memory_allocated=long["max_memory_allocated"],
+        short_max_memory_allocated=short["max_memory_allocated"],
+        unchunked_max_memory_allocated=unchunked["max_memory_allocated"],
+        unchunked_seconds=unchunked["seconds"],
+        losses=long["history"]["total_loss"],
+        unchunked_gaps=gaps,
+        flux_integral_epoch0=(unchunked["history"]["flux_integral"][0], short["history"]["flux_integral"][0]),
+        blocking_factor_mean=float(long["blockings"].mean()),
+        intercept_mean=float(long["intercepts"].mean()),
+    )
+    _log(
+        f"phase 14a plant aim point (the example's entry function, {heliostats} heliostats in chunks of {chunk}, "
+        f"{rays} rays an epoch, K = {plant_scale_aim_points.CANDIDATES}): {long_line}; calls of {epochs_short} and "
+        f"{epochs_long} epochs {short['seconds']:.3f} s and {long['seconds']:.3f} s, {epoch_seconds:.6f} s an epoch "
+        f"(slope), {result['rays_per_second']:.6g} rays/s, max_memory_allocated {long['max_memory_allocated']} B "
+        f"(short call {short['max_memory_allocated']} B), launches {long['launches']}; unchunked, {epochs_short} "
+        f"epochs in {unchunked['seconds']:.3f} s, max_memory_allocated {unchunked['max_memory_allocated']} B, "
+        f"largest gaps to the chunked call {json.dumps({k: float(f'{v:.3g}') for k, v in gaps.items()})}, epoch-0 "
+        f"flux integral (two forwards' spread) {result['flux_integral_epoch0'][0]:.3g} unchunked, "
+        f"{result['flux_integral_epoch0'][1]:.3g} chunked"
+    )
+    return result
+
+
+def xl_inputs(device: torch.device, blocking: bool, candidates: int | None, heliostat_chunk: int | None,
+              size: dict = XL) -> StepInputs:
+    """bench.py's flagship step at the xl_field entry's size (``size``: heliostats, rays
+    a point, ray chunk, and optionally surface points and bitmap), its heliostat axis
+    in chunks of ``heliostat_chunk``."""
+    surface_points, bitmap = size.get("surface_points", SURFACE_POINTS), size.get("bitmap", BITMAP)
+    scenario = make_synthetic_scenario(
+        number_of_heliostats=size["heliostats"], number_of_surface_points_per_facet=surface_points,
+        number_of_rays=size["rays"], device=device,
+    )
+    group = scenario.heliostat_groups[0]
+    generator = torch.Generator(device=device).manual_seed(SEED)
+    distortions_u, distortions_e = scenario.light_sources[0].get_distortions(
+        generator, group.surface_points.shape[1], group.number_of_heliostats
+    )
+    return step_inputs(scenario, distortions_u, distortions_e, surface_points, bitmap, size["ray_chunk"], blocking,
+                       candidates, heliostat_chunk)
+
+
+def xl_loss_and_gradient(inputs: StepInputs) -> tuple[float, torch.Tensor]:
+    """The step's loss and control-point gradient, without an update."""
+    control_points = inputs.scenario.heliostat_groups[0].nurbs_control_points.clone().requires_grad_(True)
+    loss = surface_loss(control_points, inputs)
+    loss.backward()
+    return loss.item(), control_points.grad
+
+
+def drive_xl_step(device: torch.device, size: dict = XL) -> dict[str, dict]:
+    """Phase 14b: bench.py's xl_field step with heliostat chunks, blocking off and on at
+    each K of XL_CANDIDATES (one warm-up and STEPS timed Adam steps each, launch counts
+    asserted), then the chunked step's loss and gradient (K = 16) against the unchunked
+    step's, with both peaks."""
+    heliostats, chunk = size["heliostats"], size["heliostat_chunk"]
+    chunks, ray_chunks = heliostats // chunk, size["rays"] // size["ray_chunk"]
+    results = {}
+    for blocking, candidates in ((False, AIM_CANDIDATES), *((True, k) for k in XL_CANDIDATES)):
+        key = f"k{candidates}" if blocking else "plain"
+        empty_cache(device)
+        results[key] = drive_surface_step(
+            xl_inputs(device, blocking, candidates, chunk, size),
+            xl_step_launches(chunks, ray_chunks, candidates, blocking),
+            f"phase 14b XL step ({heliostats} heliostats in chunks of {chunk}, "
+            + (f"blocking K = {candidates})" if blocking else "no blocking)"),
+        )
+    comparison = {}
+    for label, heliostat_chunk in (("chunked", chunk), ("unchunked", None)):
+        empty_cache(device)
+        inputs = xl_inputs(device, True, AIM_CANDIDATES, heliostat_chunk, size)
+        synchronize(device)
+        reset_peak_memory(device)
+        loss, grad = xl_loss_and_gradient(inputs)
+        comparison[label] = (loss, grad, max_memory(device))
+        del inputs
+    (loss, grad, peak), (loss_plain, grad_plain, peak_plain) = comparison["chunked"], comparison["unchunked"]
+    scale = float(grad_plain.abs().max())
+    loss_gap = abs(loss - loss_plain) / abs(loss_plain)
+    gradient_gap = _max_abs_err(grad, grad_plain) / scale
+    _log(
+        f"phase 14b XL step, chunked against unchunked (K = {AIM_CANDIDATES}): loss {loss:.9g} and {loss_plain:.9g} "
+        f"(relative gap {loss_gap:.3g}, limit {XL_LOSS_RTOL}), largest gradient gap {gradient_gap:.3g} of the "
+        f"largest entry {scale:.4g} (limit {XL_GRADIENT_ATOL}), max_memory_allocated {peak} B chunked, "
+        f"{peak_plain} B unchunked"
+    )
+    if not (np.isfinite(loss) and scale > 0 and torch.isfinite(grad).all()):
+        raise AssertionError("phase 14b: the chunked step's loss or gradient is not finite, or the gradient is 0")
+    if not (loss_gap <= XL_LOSS_RTOL and gradient_gap <= XL_GRADIENT_ATOL):
+        raise AssertionError(f"phase 14b: chunked against unchunked, loss gap {loss_gap}, gradient gap {gradient_gap}")
+    results["comparison"] = dict(loss_gap=loss_gap, gradient_gap=gradient_gap, chunked_max_memory_allocated=peak,
+                                 unchunked_max_memory_allocated=peak_plain)
+    return results
+
+
+def plant_chunk_inputs(device: torch.device, row_spacing: float | None, heliostats: int = XL["heliostats"],
+                       chunk: int = PLANT_CHUNK_HELIOSTATS, surface_points=SURFACE_POINTS, rays: int = XL["rays"]) -> dict:
+    """The plant-scale aim point's first chunk at its first epoch, the field's rows
+    ``row_spacing`` apart if given: every heliostat aligned by its initial motor
+    positions, the whole field's primitives, and the first ``chunk`` heliostats'
+    rays (the optimizer's sun distortions, seed SEED). Returns the blocking mask's
+    inputs (``origins [c, P, 4]``, ``directions [c, R, P, 4]``, ``t_target [c, R,
+    P]``, ``own [c]``, ``primitives``) and the splat's (``splat``: e, u and the
+    intensities before blocking, each ``[c, R P]``)."""
+    scenario = aim_point_scenario(device, heliostats, surface_points, rays, row_spacing)
+    group = scenario.heliostat_groups[0]
+    tower = scenario.solar_tower
+    every = torch.arange(heliostats, device=device)
+    targets = torch.zeros(heliostats, dtype=torch.long, device=device)
+    incident = torch.tensor([0.0, 1.0, 0.0, 0.0], device=device).expand(heliostats, 4)
+    with torch.no_grad():
+        active = hg.gather_active(group, every)
+        motors = hg.align_surfaces_with_incident_ray_directions(
+            active, get_centers_of_target_areas(tower, targets), incident
+        )[3]
+        points, normals = hg.align_surfaces_with_motor_positions(active, motors)[:2]
+        primitives = create_blocking_primitives_rectangles_by_index(points)
+        distortions_u, distortions_e = scenario.light_sources[0].get_distortions(
+            torch.Generator(device=device).manual_seed(SEED), points.shape[1], heliostats
+        )
+        part = slice(0, chunk)
+        traced = ray_splat_inputs(
+            tower, geometry.reflect(incident[part, None, :], normals[part]), points[part], targets[part],
+            distortions_u[part], distortions_e[part], 1.0,
+            RenderConfig(bitmap_resolution=BITMAP, blocking_active=False),
+        )
+    return dict(
+        origins=points[part].contiguous(),
+        directions=traced.ray_directions,
+        t_target=traced.distances,
+        own=every[part],
+        primitives=primitives,
+        splat=tuple(x.reshape(chunk, -1).contiguous() for x in (traced.bitmap_e, traced.bitmap_u,
+                                                                   traced.final_intensities)),
+    )
+
+
+def lbvh_tree_checks(tree) -> dict:
+    """The tree's shape: the leaves a walk from the root reaches, the most visits of a
+    node, and whether every child's box lies inside its parent's. ``tree``'s arrays are
+    tensors or anything numpy reads."""
+    def numpy(x):
+        return x.cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+    left, right, leaf = numpy(tree.left), numpy(tree.right), numpy(tree.is_leaf)
+    visits = np.zeros(left.shape[0], np.int64)
+    stack = [0]
+    while stack:
+        node = stack.pop()
+        visits[node] += 1
+        if not leaf[node]:
+            stack += [left[node], right[node]]
+    internal = np.nonzero(~leaf)[0]
+    children = np.concatenate([left[internal], right[internal]])
+    parents = np.concatenate([internal, internal])
+    lo, hi = numpy(tree.aabb_min), numpy(tree.aabb_max)
+    nested = bool((lo[children] >= lo[parents]).all() and (hi[children] <= hi[parents]).all())
+    return dict(leaves_reached=int((visits[leaf] > 0).sum()), leaves=int(leaf.sum()),
+                most_visits=int(visits.max()), nested=nested)
+
+
+def check_lbvh(device: torch.device, **size) -> tuple[dict, dict]:
+    """Phase 14c: the LBVH on one plant chunk's first-epoch rays against the whole
+    field's primitives, on the synthetic field (12 m rows) and with the rows 3 m apart:
+    the tree reaches every leaf once and nests its boxes; the kernel's keep flags equal
+    its plain version's and row 5's cull kernel's bit for bit; kernel and cull timed
+    side by side; and ``soft_ray_blocking_mask(cull_method="lbvh")`` (launch counts set
+    to 0 just before it) equal to the dense cull's flat route bit for bit. Returns the
+    kernel's timings and the path's result."""
+    parameters = (1000.0, 0.05, 1e-12)
+    cases, path = {}, {}
+    for label, spacing in (("synthetic field", None), ("dense rows", DENSE_ROW_SPACING)):
+        chunk_inputs = plant_chunk_inputs(device, spacing, **size)
+        origins, directions, t_target, own = (chunk_inputs[k] for k in ("origins", "directions", "t_target", "own"))
+        corners, spans, normals = chunk_inputs["primitives"]
+        del chunk_inputs
+        num, rays, points = directions.shape[:3]
+        flat_directions = directions.reshape(num, rays * points, 4).contiguous()
+        flat_t = t_target.reshape(num, rays * points).contiguous()
+        own = own.to(torch.int64).contiguous()
+        tree = lbvh.build_linear_bounding_volume_hierarchies(corners)
+        shape = lbvh_tree_checks(tree)
+        count = corners.shape[0]
+        if not (shape["leaves_reached"] == count and shape["most_visits"] == 1 and shape["nested"]):
+            raise AssertionError(f"phase 14c {label}: the tree is malformed ({shape})")
+        nodes = lbvh.lbvh_nodes(tree)
+        cull_inputs = (origins, flat_directions, flat_t, own)
+        aabb = torch.cat([corners[:, :, :3].amin(dim=1), corners[:, :, :3].amax(dim=1)], dim=1).contiguous()
+        keep = lbvh_kernels.traverse_cuda(*cull_inputs, nodes)
+        plain, visits = lbvh_kernels.traverse_plain(*cull_inputs, nodes, count_visits=True)
+        cull = blocking_kernels.cull_cuda(*cull_inputs, aabb)
+        synchronize(device)
+        if not (torch.equal(keep, plain) and torch.equal(keep, cull)):
+            raise AssertionError(
+                f"phase 14c {label}: LBVH keeps {int(keep.sum())}, its plain version {int(plain.sum())}, "
+                f"the cull {int(cull.sum())} ({int((keep != cull).sum())} differ)"
+            )
+        mask_arguments = (origins, directions, corners, spans, normals)
+        mask_options = dict(intersection_distances_target=t_target, ray_primitive_indices=own)
+        with torch.no_grad():
+            dense = soft_ray_blocking_mask(*mask_arguments, **mask_options, max_candidates=None)
+            synchronize(device)
+            reset_launch_counts()
+            mask = soft_ray_blocking_mask(*mask_arguments, **mask_options, max_candidates=AIM_CANDIDATES,
+                                          cull_method="lbvh")
+            synchronize(device)
+        counted = launch_counts()
+        if not torch.equal(mask, dense):
+            raise AssertionError(f"phase 14c {label}: the LBVH mask differs from the dense cull's at "
+                                 f"{int((mask != dense).sum())} rays")
+        if device.type == "cuda" and counted != launches(lbvh_traverse=1, blocking_sigma_flat_forward=1):
+            raise AssertionError(f"phase 14c {label}: the LBVH mask launched {counted}")
+        path.setdefault("launches", counted)
+        bytes_moved = 16 * num * points + 20 * num * rays * points + 8 * num + 32 * nodes.shape[0] + 4 * count
+        cases[label] = dict(
+            ms=event_ms(lambda: lbvh_kernels.traverse_cuda(*cull_inputs, nodes)),
+            with_build_ms=event_ms(lambda: lbvh.lbvh_keep(origins, directions, corners, own, t_target)),
+            cull_ms=event_ms(lambda: blocking_kernels.cull_cuda(*cull_inputs, aabb)),
+            plain_ms=event_ms(lambda: lbvh_kernels.traverse_plain(*cull_inputs, nodes), 1, 0),
+            bound=bound_ms(bytes_moved, LBVH_OPS_PER_VISIT * visits),
+            visits=visits,
+            kept=int(keep.sum()),
+            blocked_share=float((mask >= 1e-3).double().mean()),
+            shape=[num, rays * points, count],
+            tree=shape,
+        )
+        del origins, directions, t_target, flat_directions, flat_t, mask, dense, corners, spans, normals
+        empty_cache(device)
+    _log(
+        "phase 14c LBVH: "
+        + "; ".join(
+            f"{label} ([{c['shape'][0]}, {c['shape'][1]}] rays against {c['shape'][2]} primitives): tree reaches "
+            f"{c['tree']['leaves_reached']} of {c['tree']['leaves']} leaves, each node at most "
+            f"{c['tree']['most_visits']} time(s), boxes nested {c['tree']['nested']}; keeps {c['kept']} (kernel, plain "
+            f"and cull bit-equal), mask bit-equal to the dense cull's (blocked share {c['blocked_share']:.4g}); "
+            f"{c['visits']} node visits ({c['visits'] / (c['shape'][0] * c['shape'][1]):.2f} a ray); traversal "
+            f"kernel {c['ms']:.4f} ms ({c['with_build_ms']:.4f} ms with the build), cull kernel {c['cull_ms']:.4f} ms, "
+            f"plain {c['plain_ms']:.2f} ms, bound {c['bound'][0]:.4f} ms ({c['bound'][1]})"
+            for label, c in cases.items()
+        )
+        + f"; launches of the LBVH mask {path['launches']}"
+    )
+    first = cases["synthetic field"]
+    timings = {
+        "lbvh_traverse": dict(
+            ms=first["ms"], plain_ms=first["plain_ms"], bound=first["bound"], library_ms=None, max_abs_err=0.0,
+            replaces="artist_tpu/raytracing/lbvh.py:337 (lbvh_filter_blocking_planes's vmap-ed lax.while_loop "
+                     "traversal; no Pallas kernel)",
+            with_build_ms=first["with_build_ms"], cull_ms=first["cull_ms"], visits=first["visits"],
+            dense_rows={k: cases["dense rows"][k] for k in ("ms", "with_build_ms", "cull_ms", "plain_ms", "visits",
+                                                            "kept")}
+            | {"bound_ms": cases["dense rows"]["bound"][0], "bound_by": cases["dense rows"]["bound"][1]},
+        )
+    }
+    return timings, path
+
+
+def check_plant_kernels(device: torch.device, **size) -> dict[str, dict]:
+    """Phase 14d: rows 1-2 and 9-10 at the plant chunk's shape (the first chunk's
+    first-epoch rays, ``[500, 20000]`` onto ``[500, 256, 256]``, and its K = 16 sigma
+    pair against the whole field's primitives), each against its plain version (the
+    sigma pair against the float64 arbiter), timed beside ``index_add_`` (row 1) and
+    its bound; the sigma pair also timed at K = 32. Returns the timings, by kernel,
+    under "plant_chunk" (and "plant_chunk_k32")."""
+    width, height = BITMAP
+    chunk_inputs = plant_chunk_inputs(device, None, **size)
+    corners, spans, normals = chunk_inputs["primitives"]
+    directions = chunk_inputs["directions"]
+    # The XL step's sweep also runs the pair at K = 32 (rows 11-12): timed, not checked (phase 3b holds it).
+    capture, wide = CaptureBlockingInputs(), CaptureBlockingInputs()
+    for candidates, recorder in ((AIM_CANDIDATES, capture), (2 * AIM_CANDIDATES, wide)):
+        with torch.no_grad(), recorder:
+            soft_ray_blocking_mask(
+                chunk_inputs["origins"], directions, corners, spans, normals,
+                intersection_distances_target=chunk_inputs["t_target"], ray_primitive_indices=chunk_inputs["own"],
+                max_candidates=candidates,
+            )
+    (arguments,) = capture.calls["blocking_sigma"]
+    sigma_inputs_, sigma_parameters = tuple(arguments[:5]), tuple(arguments[5:])
+    gbar = torch.randn(sigma_inputs_[2].shape, device=device,
+                       generator=torch.Generator(device=device).manual_seed(SEED + 3))
+    sigma = check_sigma_pair("plant chunk", sigma_inputs_, sigma_parameters, gbar)
+    counts = sigma_pair_counts(sigma_inputs_, sigma_parameters, gbar)
+    sigma_timings = time_sigma_pair(sigma_inputs_, sigma_parameters, gbar, counts)
+    (arguments,) = wide.calls["blocking_sigma"]
+    wide_inputs = tuple(arguments[:5])
+    wide_timings = time_sigma_pair(wide_inputs, sigma_parameters, gbar,
+                                   sigma_pair_counts(wide_inputs, sigma_parameters, gbar))
+    sigma_shape = [directions.shape[0], directions.shape[1] * directions.shape[2], AIM_CANDIDATES]
+    rays = chunk_inputs["splat"]
+    del chunk_inputs, capture, wide, arguments, sigma_inputs_, wide_inputs, gbar, directions
+    empty_cache(device)
+
+    shape = list(rays[0].shape)
+    g = torch.randn((shape[0], height, width), device=device,
+                    generator=torch.Generator(device=device).manual_seed(SEED + 14))
+    forward_err, forward_share = check_forward(
+        "splat_forward", splat_forward_cuda(*rays, height, width), splat_forward_plain(*rays, height, width),
+        rays, height, width,
+    )
+    backward_errs, backward_share = check_backward(
+        "splat_backward", splat_backward_cuda(*rays, g, height, width), splat_backward_plain(*rays, g, height, width),
+        rays[2], g,
+    )
+    splat_timings, work = time_splat_pair(rays, g, height, width, iterations=5)
+    splat_timings["splat_forward"]["max_abs_err"] = forward_err
+    splat_timings["splat_backward"]["max_abs_err"] = max(backward_errs)
+    sigma_timings["blocking_sigma_forward"]["max_abs_err"] = sigma["forward_err"]
+    sigma_timings["blocking_sigma_backward"]["max_abs_err"] = sigma["backward_err"]
+    timed = {**splat_timings, **sigma_timings}
+    for name, t in wide_timings.items():
+        t["max_abs_err"] = None
+        timed[f"{name}, K = {2 * AIM_CANDIDATES}"] = t
+    _log(
+        f"phase 14d kernels at the plant chunk: splat {shape} rays ({work['valid']} valid, {work['touched']} pixels "
+        f"touched) -> [{shape[0]}, {height}, {width}], worst error {max(forward_share, backward_share):.3g} of its "
+        f"tolerance; sigma [{sigma_shape[0]}, {sigma_shape[1]}] rays x K = {AIM_CANDIDATES}: kept candidates "
+        f"{sigma['kept_candidates']}, {describe_counts(counts)}, worst share of the arbiter's limit "
+        + json.dumps({k: round(v, 4) for k, v in sigma["worst_share"].items()})
+        + "; "
+        + "; ".join(
+            f"{name} max_abs_err {'not checked' if t['max_abs_err'] is None else format(t['max_abs_err'], '.3g')}, "
+            f"kernel {t['ms']:.4f} ms"
+            + (f" ({t['graph_ms']:.4f} ms replayed from a CUDA graph)" if "graph_ms" in t else "")
+            + f", plain {t['plain_ms']:.4f} ms, library "
+            f"{t.get('library_ms') if t.get('library_ms') is None else round(t['library_ms'], 4)} ms, bound "
+            f"{t['bound'][0]:.4f} ms ({t['bound'][1]})"
+            for name, t in timed.items()
+        )
+    )
+    results: dict[str, dict] = {}
+    for label, t in timed.items():
+        name, _, wide_label = label.partition(", ")
+        key = "plant_chunk_k32" if wide_label else "plant_chunk"
+        results.setdefault(name, {})[key] = dict(
+            shape=shape if name.startswith("splat") else sigma_shape[:2] + [2 * AIM_CANDIDATES if wide_label else AIM_CANDIDATES],
+            ms=t["ms"], plain_ms=t["plain_ms"], library_ms=t.get("library_ms"), bound_ms=t["bound"][0],
+            bound_by=t["bound"][1], max_abs_err=t["max_abs_err"], **({"graph_ms": t["graph_ms"]} if "graph_ms" in t else {}),
+        )
+    return results
+
+
 # The path whose run gives a kernel's "launches": the flat aim point (phase 8)
 # for every kernel it runs; the compacted aim point (phase 5) for the compacted
 # sigma kernels; the block-window step (phase 10) for the dynamic-window pair;
-# the formulation tool (phase 11) for its kernels.
+# the formulation tool (phase 11) for its kernels; the LBVH mask at the plant
+# chunk (phase 14c) for the LBVH traversal. "launches_by_path" gives every path's,
+# the plant-scale example's (phase 14a) and the XL steps' (14b) among them.
 MAIN_PATH = {
     "blocking_sigma_forward": "aim_point",
     "blocking_sigma_backward": "aim_point",
@@ -3451,6 +4048,7 @@ MAIN_PATH = {
     "splat_dynamic_window_backward": "surface_step_block_window",
     "splat_window_2d_forward": "formulation_tool",
     "splat_band_forward": "formulation_tool",
+    "lbvh_traverse": "plant_lbvh",
 }
 # The formulation tool's errors against the full splat's plain version, relative
 # to the peak: at most the summation bound 2 (n - 1) u of the fullest pixel's
@@ -3571,10 +4169,20 @@ def main() -> int:
     del kinematics_data
     torch.cuda.empty_cache()
     check_resume(device)
+    torch.cuda.empty_cache()
+    paths["plant_aim_point"] = drive_plant_aim_point(device)
+    for key, result in drive_xl_step(device).items():
+        paths[f"xl_step_{key}"] = result
+    lbvh_timings, paths["plant_lbvh"] = check_lbvh(device)
+    timings.update(lbvh_timings)
+    torch.cuda.empty_cache()
+    for kernel_name, shape_timings in check_plant_kernels(device).items():
+        timings[kernel_name].update(shape_timings)
 
     case_keys = {key for _, key, *_ in SIGMA_CASES[1:] + FLAT_CASES[1:]} | {
         "kept_primitives", "fit_fraction", "full_splat_ms", "graph_ms", "zero_pairs", "surface_reconstruction_chunk",
-        "kinematics_train", "kinematics_validation",
+        "kinematics_train", "kinematics_validation", "plant_chunk", "plant_chunk_k32", "with_build_ms", "cull_ms",
+        "visits",
     }
     kernels = []
     for kernel_name, t in timings.items():
@@ -3587,7 +4195,7 @@ def main() -> int:
                 "replaces": t["replaces"],
                 "main_path": main_path,
                 "launches": paths[main_path]["launches"][kernel_name],
-                "launches_by_path": {path: r["launches"][kernel_name] for path, r in paths.items()},
+                "launches_by_path": {path: r["launches"][kernel_name] for path, r in paths.items() if "launches" in r},
                 "max_abs_err": t["max_abs_err"],
                 "ms": t["ms"],
                 "plain_ms": t["plain_ms"],

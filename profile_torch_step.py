@@ -25,6 +25,12 @@ drives it:
   regularizer), as its loop runs it without validation: the objective, its
   backward, the edge lock, the Adam update, the multiplier update and the
   loss fetched to the host;
+- ``plant_aim_point``: one epoch of the plant-scale example's optimizer at its
+  defaults (``chip_smoke.py`` phase 14a: 4,000 heliostats in checkpointed
+  chunks of 500, 2 rays per point, 80 M rays, K = 16);
+- ``xl_step``: one step of ``bench.py``'s ``xl_field`` entry (phase 14b: the
+  flagship step on 4,000 heliostats x 2 rays per point, ray chunks of 1,
+  heliostat chunks of 500, blocking with K = 16);
 - ``kinematics_alignment`` and ``kinematics_raytracing``: one train epoch of
   ``KinematicsReconstructor`` with that method at ``chip_smoke.py`` phase
   13's production calibration (100 heliostats x 15 train samples, 50 x 50
@@ -62,6 +68,7 @@ import time
 import torch
 
 import chip_smoke
+from artist_tpu_torch.examples import plant_scale_aim_points
 from artist_tpu_torch.kernels.build import build_all
 from artist_tpu_torch.optim import training
 from artist_tpu_torch.util import constants
@@ -78,12 +85,16 @@ OPS = (
 )
 PATHS = (
     "surface_step", "blocking_step", "blocking_step_flat", "surface_step_block_window", "aim_point", "aim_point_flat",
-    "surface_reconstruction", "kinematics_alignment", "kinematics_raytracing",
+    "surface_reconstruction", "kinematics_alignment", "kinematics_raytracing", "plant_aim_point", "xl_step",
 )
 
 
 def surface_step(device: torch.device, blocking: bool, candidates: int | None, **splat_options):
-    inputs = chip_smoke.flagship_inputs(device, blocking=blocking, candidates=candidates, **splat_options)
+    return surface_step_of(chip_smoke.flagship_inputs(device, blocking=blocking, candidates=candidates, **splat_options))
+
+
+def surface_step_of(inputs: chip_smoke.StepInputs):
+    """A step of the flagship step on ``inputs``: loss, backward, Adam on the control points."""
     control_points = inputs.scenario.heliostat_groups[0].nurbs_control_points.clone().requires_grad_(True)
     optimizer = torch.optim.Adam([control_points], lr=chip_smoke.LEARNING_RATE)
 
@@ -95,13 +106,16 @@ def surface_step(device: torch.device, blocking: bool, candidates: int | None, *
     return step
 
 
-def aim_point_epoch(device: torch.device, candidates: int | None):
-    scenario = chip_smoke.aim_point_scenario(
-        device, chip_smoke.AIM_HELIOSTATS, chip_smoke.AIM_SURFACE_POINTS, chip_smoke.AIM_RAYS
-    )
-    aim_point = chip_smoke.aim_point_optimizer(
-        scenario, chip_smoke.aim_point_ground_truth(chip_smoke.BITMAP, device), 0, candidates, chip_smoke.BITMAP,
-    )
+def aim_point_epoch(device: torch.device, candidates: int | None, aim_point=None):
+    """An epoch of ``aim_point`` (an AimPointOptimizer; by default bench.py's aim-point
+    optimizer with ``candidates``) as its loop runs it: loss, backward, Adam."""
+    if aim_point is None:
+        scenario = chip_smoke.aim_point_scenario(
+            device, chip_smoke.AIM_HELIOSTATS, chip_smoke.AIM_SURFACE_POINTS, chip_smoke.AIM_RAYS
+        )
+        aim_point = chip_smoke.aim_point_optimizer(
+            scenario, chip_smoke.aim_point_ground_truth(chip_smoke.BITMAP, device), 0, candidates, chip_smoke.BITMAP,
+        )
     params, forward, loss_fn = aim_point.objective("kl_divergence")
     with torch.no_grad():
         flux, intercepts, _, _ = forward(params)
@@ -223,6 +237,10 @@ def main() -> int:
         step = kinematics_epoch(device, args.path.removeprefix("kinematics_"))
     elif args.path.startswith("aim_point"):
         step = aim_point_epoch(device, candidates)
+    elif args.path == "plant_aim_point":
+        step = aim_point_epoch(device, candidates, plant_scale_aim_points.make_optimizer(device=device))
+    elif args.path == "xl_step":
+        step = surface_step_of(chip_smoke.xl_inputs(device, True, candidates, chip_smoke.XL["heliostat_chunk"]))
     elif args.path == "surface_step_block_window":
         step = surface_step(device, False, candidates, **chip_smoke.BLOCK_WINDOW)
     else:

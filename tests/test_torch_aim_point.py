@@ -25,6 +25,7 @@ port follows, in interpret mode). Tolerances, each with its reason:
 """
 
 import dataclasses
+import logging
 
 import numpy as np
 import pytest
@@ -65,12 +66,12 @@ def _as_dict(x):
     return {f.name: np.asarray(getattr(x, f.name)) for f in dataclasses.fields(x)}
 
 
-def _jax_scenario():
+def _jax_scenario(heliostats: int = HELIOSTATS):
     scenario = jax_synthetic(
-        number_of_heliostats=HELIOSTATS, number_of_surface_points_per_facet=POINTS, number_of_rays=RAYS
+        number_of_heliostats=heliostats, number_of_surface_points_per_facet=POINTS, number_of_rays=RAYS
     )
     group = scenario.heliostat_groups[0]
-    positions = chip_smoke.row_positions(HELIOSTATS, chip_smoke.DENSE_ROW_SPACING)
+    positions = chip_smoke.row_positions(heliostats, chip_smoke.DENSE_ROW_SPACING)
     scenario.heliostat_groups[0] = group.replace(positions=jnp.asarray(positions))
     return scenario
 
@@ -108,8 +109,12 @@ def _configuration(max_epoch: int) -> dict:
 def _jax_distortions(jax_scenario):
     """The distortions JAX's optimizer samples for the scene's one group (seed 7)."""
     key = jax.random.split(jax.random.PRNGKey(SEED), 1)[0]
-    points = jax_scenario.heliostat_groups[0].surface_points.shape[1]
-    return tuple(np.asarray(x) for x in jax_scenario.light_sources[0].get_distortions(key, points, HELIOSTATS))
+    group = jax_scenario.heliostat_groups[0]
+    points = group.surface_points.shape[1]
+    return tuple(
+        np.asarray(x)
+        for x in jax_scenario.light_sources[0].get_distortions(key, points, group.number_of_heliostats)
+    )
 
 
 def _jax_objective(jax_scenario, distortions, ground_truth, method, candidates=16):
@@ -121,7 +126,7 @@ def _jax_objective(jax_scenario, distortions, ground_truth, method, candidates=1
     """
     group = jax_scenario.heliostat_groups[0]
     tower = jax_scenario.solar_tower
-    number = HELIOSTATS
+    number = group.number_of_heliostats
     targets = jnp.zeros(number, jnp.int32)
     incident = jnp.broadcast_to(jnp.asarray([0.0, 1.0, 0.0, 0.0], jnp.float32), (number, 4))
     active = jax_hg.gather_active(group, jnp.arange(number))
@@ -379,7 +384,109 @@ def test_aim_point_optimizer_flat_route_against_jax(scene):
     )
 
 
-@pytest.mark.parametrize("option", ["distributed_setup", "mesh", "checkpoint_dir", "heliostat_chunk"])
+def _chunk_kwargs(spot, **options):
+    return dict(
+        optimization_configuration=_configuration(1), incident_ray_direction=[0.0, 1.0, 0.0, 0.0],
+        target_area_index=0, ground_truth=spot, dni=DNI, bitmap_resolution=BITMAP, seed=SEED, **options,
+    )
+
+
+def _assert_runs_agree(ours, theirs, rtol, atol):
+    """Two optimize() results: every history entry (rtol, atol) and the intercept, on-target
+    and blocking factors (1e-4): the JAX package's tolerances for chunked against unchunked
+    (tests/optim/test_aim_point_optimizer.py:140-149)."""
+    for key in ours[1]:
+        np.testing.assert_allclose(ours[1][key], theirs[1][key], rtol=rtol, atol=atol, err_msg=key)
+    for mine, other in zip(ours[2:], theirs[2:]):
+        np.testing.assert_allclose(np.asarray(mine), np.asarray(other), rtol=0, atol=1e-4)
+
+
+def test_aim_point_optimizer_heliostat_chunk_against_jax():
+    """``heliostat_chunk=2`` of 4 heliostats (rows 3 m apart) in both packages, with the
+    same distortions injected: two epochs. JAX's CPU default blocks on its dense route,
+    the port on the compacted one; the histories agree to rtol 1e-4 plus three times the
+    two routes' epoch-0 loss gap, as the unchunked test above."""
+    heliostats = 4
+    jax_scenario = _jax_scenario(heliostats)
+    distortions = _jax_distortions(jax_scenario)
+    zeros = jnp.zeros((heliostats, 2))
+    epoch0 = {}
+    for method in ("xla", "pallas"):
+        forward, loss = _jax_objective(jax_scenario, distortions, np.ones(BITMAP[::-1], np.float32), method)
+        flux, intercepts = forward(zeros)
+        epoch0[method] = float(loss(zeros, (jnp.sum(flux), intercepts), (0.0, 0.0, 0.0)))
+    spot = (np.asarray(flux) > 0.05 * float(flux.max())).astype(np.float32)
+    gap = abs(epoch0["xla"] - epoch0["pallas"])
+    kwargs = _chunk_kwargs(spot, heliostat_chunk=2)
+    theirs = JaxAimPointOptimizer(scenario=jax_scenario, **kwargs).optimize("kl_divergence")
+    optimizer = AimPointOptimizer(scenario=_port_scenario(_jax_scenario(heliostats), distortions), **kwargs)
+    assert optimizer.heliostat_chunk == 2
+    ours = optimizer.optimize("kl_divergence")
+    assert len(ours[1]["total_loss"]) == 2
+    for key in ("total_loss", "flux_loss"):
+        np.testing.assert_allclose(ours[1][key], theirs[1][key], rtol=1e-4, atol=3 * gap, err_msg=key)
+    np.testing.assert_allclose(ours[2].numpy(), np.asarray(theirs[2]), rtol=0, atol=1e-4)  # intercepts
+
+
+@pytest.mark.parametrize("candidates", [16, None], ids=["compacted", "flat"])
+def test_heliostat_chunk_matches_unchunked(scene, candidates):
+    """Chunks of 3 of the 9 dense-row heliostats against the unchunked run, two epochs, on
+    the compacted and the flat route: JAX's tolerances for the same comparison."""
+    distortions, spot = scene
+    runs = {}
+    for chunk in (None, 3):
+        optimizer = AimPointOptimizer(
+            scenario=_port_scenario(_jax_scenario(), distortions),
+            **_chunk_kwargs(spot, heliostat_chunk=chunk, blocking_candidates=candidates),
+        )
+        runs[chunk] = optimizer.optimize("kl_divergence")
+    assert float(runs[3][4].min()) < 1.0  # blocking crosses the chunks
+    _assert_runs_agree(runs[3], runs[None], rtol=2e-4, atol=1e-6)
+
+
+def test_heliostat_chunk_that_does_not_divide_runs_unchunked_with_a_warning(scene, caplog):
+    distortions, spot = scene
+    runs = {}
+    for chunk in (None, 2, 9):
+        optimizer = AimPointOptimizer(
+            scenario=_port_scenario(_jax_scenario(), distortions), **_chunk_kwargs(spot, heliostat_chunk=chunk)
+        )
+        with caplog.at_level(logging.WARNING, logger="artist_tpu_torch.optim"):
+            caplog.clear()
+            runs[chunk] = optimizer.optimize("kl_divergence")
+        warned = [r for r in caplog.records if "does not divide" in r.getMessage()]
+        assert len(warned) == (1 if chunk == 2 else 0)
+    # Unchunked, all three: a chunk of 2 does not divide 9, one of 9 covers the group.
+    for chunk in (2, 9):
+        for key in runs[None][1]:
+            assert runs[chunk][1][key] == runs[None][1][key]
+
+
+def test_chunk_recompute_repeats_the_candidate_selection(scene):
+    """Each chunk's backward recomputes its forward: the corridor test's top-K and the
+    gathered columns come out the same, so each recomputed sigma call's inputs equal its
+    forward call's bit for bit."""
+    distortions, spot = scene
+    optimizer = AimPointOptimizer(
+        scenario=_port_scenario(_jax_scenario(), distortions), **_chunk_kwargs(spot, heliostat_chunk=3)
+    )
+    params, forward, loss_fn = optimizer.objective("kl_divergence")
+    with torch.no_grad():
+        flux, intercepts, _, _ = forward(params)
+    for param in params:
+        param.requires_grad_(True)
+    capture = chip_smoke.CaptureBlockingInputs()
+    with capture:
+        loss, _ = loss_fn(params, (flux.sum(), intercepts), (torch.zeros(()),) * 3)
+        calls_forward = len(capture.calls["blocking_sigma"])
+        loss.backward()
+    calls = capture.calls["blocking_sigma"]
+    assert calls_forward == 3 and len(calls) == 6
+    for first in calls[:3]:
+        assert any(all(torch.equal(a, b) for a, b in zip(first[:5], again[:5])) for again in calls[3:])
+
+
+@pytest.mark.parametrize("option", ["distributed_setup", "mesh", "checkpoint_dir"])
 def test_aim_point_optimizer_refuses_what_is_not_ported(option, tmp_path):
     """Every option but ``checkpoint_dir`` is refused; it is ported
     (``tests/test_torch_checkpointing.py`` resumes from it) and accepted."""

@@ -334,13 +334,3 @@ def test_checkpointed_chunks_save_sigma(dense_rows, monkeypatch):
     flux.square().sum().backward()
     assert calls == {"sigma_forward": RAYS, "sigma_backward": RAYS, "splat_forward": 2 * RAYS, "splat_backward": RAYS}
     assert float(leaf.grad.abs().max()) > 0
-
-
-@pytest.mark.parametrize("unported", ["lbvh"])
-def test_soft_ray_blocking_mask_refuses_what_is_not_ported(grazing_scene, unported):
-    (origins, directions, corners, spans, normals, t_target), own = grazing_scene
-    kwargs = dict(intersection_distances_target=torch.tensor(t_target), max_candidates=16, cull_method=unported)
-    with pytest.raises(NotImplementedError):
-        blocking.soft_ray_blocking_mask(
-            *(torch.tensor(x) for x in (origins, directions, corners, spans, normals)), **kwargs
-        )
