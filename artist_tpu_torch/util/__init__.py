@@ -1,1 +1,1 @@
-from artist_tpu_torch.util import constants, indices  # noqa: F401
+from artist_tpu_torch.util import config, constants, indices  # noqa: F401

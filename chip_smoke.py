@@ -103,6 +103,21 @@ exits non-zero without them. It imports only ``torch``, ``numpy`` and the
     chunk's shape against their plain versions, timed, and the sigma pair timed at
     K = 32. Every call's launch counts
     are asserted (:func:`plant_aim_point_launches`, :func:`xl_step_launches`).
+15. data ingress: a. three heliostats' STRAL deflectometry files (4 facets of
+    80,000 points on a paraboloid with a Gaussian dent of its own each) written
+    and read back with ``extract_stral_deflectometry_data``, each fitted on the
+    card with ``SurfaceGenerator.generate_fitted_surface_config`` at the
+    paint_plots example's configuration (20 x 20 control points, every 100th
+    point, the normals, 401 Adam epochs), timed with its epochs and host syncs:
+    finite, falling losses and fitted normals near the analytic ones; the first
+    also fitted on the CPU and held to the card's fit; b. the fits read by the
+    scenario loader's ``_read_heliostats`` from their in-memory scenario image
+    (:class:`InMemoryGroup`, no ``h5py``), one group assembled on the card by
+    ``_assemble_heliostat_groups`` (``sample_surface`` at 50 x 50 points a
+    facet), traced with ``trace_rays`` (1,000 rays a point, 30 M rays, onto
+    256 x 256) and against the analytic surfaces at the same grid, launch counts
+    asserted (:func:`ingress_launches`); c. the splat forward at that render's
+    shape against its plain version, timed.
 
 Phase 3 also holds the dynamic-window kernels (3d: on the block-window
 step's first chunk in place with the tile order, as that step splats it,
@@ -157,6 +172,7 @@ from artist_tpu_torch.geometry.coordinates import (  # noqa: E402
 )
 from artist_tpu_torch.examples import plant_scale_aim_points  # noqa: E402
 from artist_tpu_torch.io.calibration import CalibrationData  # noqa: E402
+from artist_tpu_torch.io.stral import extract_stral_deflectometry_data  # noqa: E402
 from artist_tpu_torch.kernels import blocking as blocking_kernels  # noqa: E402
 from artist_tpu_torch.kernels import lbvh as lbvh_kernels  # noqa: E402
 from artist_tpu_torch.kernels.build import build_all, build_library  # noqa: E402
@@ -183,9 +199,20 @@ from artist_tpu_torch.raytracing.blocking import (  # noqa: E402
     soft_ray_blocking_mask,
 )
 from artist_tpu_torch.raytracing.render import RenderConfig, point_permutation, ray_splat_inputs, trace_rays  # noqa: E402
+from artist_tpu_torch.scenario.scenario import _assemble_heliostat_groups, _read_heliostats  # noqa: E402
+from artist_tpu_torch.scenario.surface_generator import SurfaceGenerator  # noqa: E402
 from artist_tpu_torch.scenario.synthetic import SyntheticCalibrationParser, make_synthetic_scenario  # noqa: E402
+from artist_tpu_torch.scene.sun import Sun  # noqa: E402
 from artist_tpu_torch.tools import sass_counts, splat_formulation_bench  # noqa: E402
 from artist_tpu_torch.util import constants  # noqa: E402
+from artist_tpu_torch.util.config import (  # noqa: E402
+    ActuatorConfig,
+    ActuatorListConfig,
+    ActuatorParameters,
+    HeliostatConfig,
+    KinematicsConfig,
+    PrototypeConfig,
+)
 from artist_tpu_torch.util.indices import actuator_max_motor_position, actuator_min_motor_position  # noqa: E402
 
 # The flagship configuration of bench.py's differentiable step.
@@ -4070,6 +4097,518 @@ def drive_formulation_tool(device: torch.device) -> dict:
     return dict(launches=launches, **result)
 
 
+# --------------------------------------------------------------------------- #
+# Data ingress (phase 15): STRAL deflectometry fitted to NURBS on the card, the
+# fits assembled into a heliostat group by the scenario loader, and rendered.
+# --------------------------------------------------------------------------- #
+
+# examples/paint_plots: the three heliostats_for_raytracing of paint_plot_config.yaml,
+# the fit of flux_prediction_scenario.py:104-111 (20 x 20 control points, degrees 3,
+# every 100th point, the normals, lr 1e-3, tolerance 1e-10, max_epoch 400) and the
+# trace of flux_prediction_raytracing.py:48-49 (256 x 256 pixels, 1,000 rays a point)
+# at the loader's default 50 x 50 points a facet. 80,000 points a facet is this
+# phase's own choice. The gates: the last fit loss below the first by loss_factor;
+# the mean angle between the fitted and the analytic normals at every 8th point of
+# the cloud below mean_angle (rad); the fitted and the analytic fluxes within flux_l1
+# (relative L1). The last is loose for a reason: 800 points a facet leave the border
+# of each facet's NURBS unconstrained, and its outer rows and columns of samples, 8% of
+# the points, lie several times further from the analytic normals than the rest
+# (phase 15b prints both means).
+INGRESS_HELIOSTATS = ("AA39", "AY26", "BC34")
+INGRESS = dict(
+    facet_points=80_000, control_points=(20, 20), step=100, max_epoch=400, surface_points=(50, 50),
+    rays=1000, bitmap=(256, 256), ray_chunk=None, loss_factor=100.0, mean_angle=5e-4, flux_l1=0.25,
+)
+INGRESS_FIT = dict(initial_learning_rate=1e-3, fit_method=constants.fit_nurbs_from_normals, tolerance=1e-10)
+INGRESS_FOCAL_LENGTH = 50.0  # m, the paraboloid z = (e^2 + n^2) / (4 f)
+INGRESS_DENT = (1.5e-3, 0.25)  # m: the amplitude and width of each heliostat's Gaussian dent
+# A fit on the card against the same fit on the CPU. Adam's steps of +-lr part two
+# fp32 (or an fp32 and an fp64) trajectories once the loss nears 1e-9, around epoch
+# 90, after which their losses wander within a factor ~2 of each other. So: the same
+# epochs, the first CPU_FIT_EARLY_EPOCHS losses within CPU_FIT_EARLY_RTOL (relative),
+# the last losses within a factor CPU_FIT_LAST_LOSS_FACTOR, and the normals on the
+# loader's grid within CPU_FIT_NORMAL_MEAN_ANGLE (rad) on average.
+# tests/test_torch_surface_generator.py holds the port's CPU fit to the JAX package's
+# at this configuration to the same bounds.
+CPU_FIT_EARLY_EPOCHS = 50
+CPU_FIT_EARLY_RTOL = 1e-4
+CPU_FIT_LAST_LOSS_FACTOR = 4.0
+CPU_FIT_NORMAL_MEAN_ANGLE = 3e-4
+# The 4 facets of a 3.2 x 2.56 m concentrator (the synthetic field's, AA39-like).
+INGRESS_FACET_HALF = (0.8025, 0.6375)
+INGRESS_FACET_SIGNS = ((-1, 1), (1, 1), (-1, -1), (1, -1))
+
+
+def ingress_facets() -> tuple[np.ndarray, np.ndarray]:
+    """Facet translations ``[4, 4]`` and canting vectors ``[4, 2, 4]``."""
+    half_e, half_n = INGRESS_FACET_HALF
+    translations = np.zeros((4, 4), np.float32)
+    canting = np.zeros((4, 2, 4), np.float32)
+    for i, (sign_e, sign_n) in enumerate(INGRESS_FACET_SIGNS):
+        translations[i, :3] = (sign_e * 0.8075, sign_n * 0.6425, 0.0402)
+        canting[i, 0, :3] = (half_e, 0.0, -sign_e * 4.98e-3)
+        canting[i, 1, :3] = (0.0, half_n, -sign_n * 3.15e-3)
+    return translations, canting
+
+
+def dented_paraboloid(e: np.ndarray, n: np.ndarray, dent: tuple[float, float]) -> tuple[np.ndarray, np.ndarray]:
+    """Height ``[N]`` and unit normals ``[N, 3]`` (float64) at heliostat-frame (e, n): the
+    paraboloid of focal length INGRESS_FOCAL_LENGTH plus a Gaussian dent centred at ``dent``."""
+    amplitude, width = INGRESS_DENT
+    f = INGRESS_FOCAL_LENGTH
+    bump = amplitude * np.exp(-((e - dent[0]) ** 2 + (n - dent[1]) ** 2) / (2 * width**2))
+    z = (e**2 + n**2) / (4 * f) + bump
+    slope_e = e / (2 * f) - bump * (e - dent[0]) / width**2
+    slope_n = n / (2 * f) - bump * (n - dent[1]) / width**2
+    normals = np.stack([-slope_e, -slope_n, np.ones_like(e)], axis=-1)
+    return z, normals / np.linalg.norm(normals, axis=-1, keepdims=True)
+
+
+def ingress_dents(count: int) -> np.ndarray:
+    """Each heliostat's dent centre ``[count, 2]`` (m), from the seed."""
+    rng = np.random.RandomState(SEED + 15)
+    return np.stack([rng.uniform(-1.2, 1.2, count), rng.uniform(-0.9, 0.9, count)], axis=1)
+
+
+def facet_local_surface(e: np.ndarray, n: np.ndarray, facet: int, dent) -> tuple[np.ndarray, np.ndarray]:
+    """The dented paraboloid in facet ``facet``'s frame: points ``[N, 3]`` about its
+    centre (height 0 there) and normals ``[N, 3]``, float64."""
+    translations, _ = ingress_facets()
+    te, tn = float(translations[facet, 0]), float(translations[facet, 1])
+    z, normals = dented_paraboloid(e + te, n + tn, dent)
+    centre, _ = dented_paraboloid(np.array([te]), np.array([tn]), dent)
+    return np.stack([e, n, z - centre[0]], axis=-1), normals
+
+
+def write_stral(path, translations: np.ndarray, canting: np.ndarray, points: list, normals: list) -> None:
+    """A STRAL deflectometry binary: the surface header (a 2 x 2 facet grid), then per
+    facet its header (translation, canting vectors, point count) and its records of
+    point, normal and one unused float, the layout ``io/stral.py`` reads."""
+    import struct
+
+    with open(path, "wb") as file:
+        file.write(struct.pack("=5f2I2f", 1.0, 2.0, 3.0, 4.0, 5.0, 2, 2, 0.1, 0.2))
+        for i, (p, nrm) in enumerate(zip(points, normals)):
+            file.write(
+                struct.pack("=i9fI", i, *translations[i, :3], *canting[i, 0, :3], *canting[i, 1, :3], p.shape[0])
+            )
+            records = np.concatenate([p, nrm, np.zeros((p.shape[0], 1))], axis=1).astype(np.float32)
+            file.write(records.tobytes())
+
+
+def write_ingress_stral(path, heliostat: int, facet_points: int, dent) -> None:
+    """Heliostat ``heliostat``'s STRAL file: ``facet_points`` points a facet, uniform on
+    each facet from the seed, on the dented paraboloid."""
+    rng = np.random.RandomState(SEED + 150 + heliostat)
+    translations, canting = ingress_facets()
+    half_e, half_n = INGRESS_FACET_HALF
+    points, normals = [], []
+    for facet in range(4):
+        e = rng.uniform(-half_e, half_e, facet_points)
+        n = rng.uniform(-half_n, half_n, facet_points)
+        p, nrm = facet_local_surface(e, n, facet, dent)
+        points.append(p)
+        normals.append(nrm)
+    write_stral(path, translations, canting, points, normals)
+
+
+def counted_syncs(fn, device: torch.device):
+    """``fn()`` and the synchronising CUDA calls it made, as torch's sync debug mode
+    warns of them (None on the CPU)."""
+    if device.type != "cuda":
+        return fn(), None
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            result = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return result, sum("synchroniz" in str(w.message) for w in caught)
+
+
+def fit_stral_heliostat(device: torch.device, name: str, cloud, size: dict) -> dict:
+    """``generate_fitted_surface_config`` of one STRAL cloud on ``device``, timed, with
+    its loss history and host syncs."""
+    generator = SurfaceGenerator(number_of_control_points=size["control_points"], degrees=(3, 3))
+    translations, canting, points, normals = cloud
+
+    def fit():
+        return generator.generate_fitted_surface_config(
+            heliostat_name=name, facet_translation_vectors=translations, canting=canting,
+            surface_points_with_facets_list=points, surface_normals_with_facets_list=normals,
+            deflectometry_step_size=size["step"], max_epoch=size["max_epoch"], device=device, **INGRESS_FIT,
+        )
+
+    synchronize(device)
+    start = time.perf_counter()
+    surface, syncs = counted_syncs(fit, device)
+    seconds = time.perf_counter() - start
+    history = np.asarray(generator.loss_history)
+    return dict(surface=surface, history=history, seconds=seconds, syncs=syncs)
+
+
+def fit_parameters(points: list[np.ndarray], step: int, every: int) -> tuple[np.ndarray, np.ndarray]:
+    """Every ``every``-th point of each facet's cloud ``[F, N', 3]`` and its NURBS
+    parameters ``[F, N', 2]``: its (e, n) normalised by the fit's own normalisation (the
+    extent of every ``step``-th point), clipped into the open unit square."""
+    count = min(p.shape[0] for p in points)
+    cloud = np.stack([p[:count] for p in points])
+    fitted = cloud[:, ::step, :2]
+    low = fitted.min(axis=1, keepdims=True)
+    extent = fitted.max(axis=1, keepdims=True) - low
+    parameters = (cloud[:, ::every, :2] - low + 1e-5) / (extent + 2e-5)
+    return cloud[:, ::every], np.clip(parameters, 1e-6, 1 - 1e-6)
+
+
+def surface_normals_at(surface, parameters: np.ndarray, device: torch.device) -> torch.Tensor:
+    """A fitted surface's normals ``[F, N, 3]`` at NURBS parameters ``[F, N, 2]``."""
+    control_points = torch.tensor(np.stack([f.control_points for f in surface.facet_list]), device=device)
+    degrees = tuple(int(d) for d in surface.facet_list[0].degrees)
+    _, normals = evaluate_nurbs_surfaces(
+        control_points[None], degrees, torch.tensor(parameters, dtype=torch.float32, device=device)[None]
+    )
+    return normals[0, ..., :3]
+
+
+def angles(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """The angles (rad) between vectors ``[..., 3]``, in float64 as atan2(|a x b|, a . b),
+    which stays exact near 0 where arccos of an fp32 unit vector's dot does not."""
+    a, b = a.double(), b.double()
+    return torch.atan2(torch.linalg.vector_norm(torch.linalg.cross(a, b, dim=-1), dim=-1), torch.sum(a * b, dim=-1))
+
+
+def fit_gaps(fit: dict, other: dict, surface_points: tuple[int, int]) -> dict:
+    """How far two fits of one cloud (:func:`fit_stral_heliostat`) are apart: their epochs,
+    the largest relative gap of their first CPU_FIT_EARLY_EPOCHS losses, the ratio of
+    their last losses (the larger over the smaller), and the mean and largest angle
+    between their normals on the loader's grid."""
+    first, second = fit["history"], other["history"]
+    early = min(CPU_FIT_EARLY_EPOCHS, len(first), len(second))
+    grid = create_nurbs_evaluation_grid(surface_points, device="cpu").numpy()
+    grid = np.broadcast_to(grid, (len(fit["surface"].facet_list),) + grid.shape)
+    normal_angles = angles(surface_normals_at(fit["surface"], grid, torch.device("cpu")),
+                           surface_normals_at(other["surface"], grid, torch.device("cpu")))
+    return dict(
+        epochs=[len(first), len(second)],
+        early_rtol=float(np.max(np.abs(first[:early] - second[:early]) / np.abs(second[:early]))),
+        last_loss_ratio=float(max(first[-1], second[-1]) / min(first[-1], second[-1])),
+        normal_mean_angle=float(normal_angles.mean()),
+        normal_max_angle=float(normal_angles.max()),
+    )
+
+
+def check_fit_gaps(label: str, gaps: dict) -> None:
+    """Raise unless :func:`fit_gaps` lie within the CPU_FIT_* bounds."""
+    if not (gaps["epochs"][0] == gaps["epochs"][1] and gaps["early_rtol"] <= CPU_FIT_EARLY_RTOL
+            and gaps["last_loss_ratio"] <= CPU_FIT_LAST_LOSS_FACTOR
+            and gaps["normal_mean_angle"] <= CPU_FIT_NORMAL_MEAN_ANGLE):
+        raise AssertionError(f"{label}: {gaps}")
+
+
+class InMemoryGroup:
+    """A nested dict read through the part of ``h5py``'s interface that the scenario
+    readers use (``[key]``, ``in``, ``keys`` in h5py's name order, ``items``, ``get``;
+    a dataset's ``[()]``, strings as bytes), so that they read a scenario image built
+    from the config dataclasses' ``create_*_dict`` methods without a file."""
+
+    def __init__(self, mapping: dict):
+        self.mapping = mapping
+
+    def __getitem__(self, key: str):
+        value = self.mapping[key]
+        return InMemoryGroup(value) if isinstance(value, dict) else InMemoryDataset(value)
+
+    def __contains__(self, key: str) -> bool:
+        return key in self.mapping
+
+    def keys(self):
+        return sorted(self.mapping)
+
+    def items(self):
+        return [(key, self[key]) for key in self.keys()]
+
+    def get(self, key: str, default=None):
+        return self[key] if key in self.mapping else default
+
+
+class InMemoryDataset:
+    def __init__(self, value):
+        self.value = value
+
+    def __getitem__(self, index):
+        return self.value.encode("utf-8") if isinstance(self.value, str) else np.asarray(self.value)
+
+
+def ingress_scenario_image(surfaces: list, positions: np.ndarray) -> dict:
+    """The prototype and heliostat sections of a scenario file holding the fitted
+    ``surfaces`` (one a heliostat, named INGRESS_HELIOSTATS) at ``positions``, with the
+    default kinematics and AA39-like linear actuators as prototypes."""
+    actuators = ActuatorListConfig(
+        actuator_list=[
+            ActuatorConfig(
+                actuator_key=f"actuator_{i}",
+                actuator_type=constants.linear_actuator_key,
+                clockwise_axis_movement=bool(i),
+                min_max_motor_positions=np.array([0, 70000]),
+                parameters=ActuatorParameters(
+                    increment=154166.67, initial_stroke_length=0.075, offset=0.34, pivot_radius=0.32,
+                    initial_angle=0.5,
+                ),
+            )
+            for i in range(2)
+        ]
+    )
+    prototype = PrototypeConfig(
+        surface_prototype=surfaces[0], kinematics_prototype=KinematicsConfig(), actuators_prototype=actuators
+    )
+    heliostats = [
+        HeliostatConfig(name=name, heliostat_id=i, position=positions[i], surface=surface)
+        for i, (name, surface) in enumerate(zip(INGRESS_HELIOSTATS, surfaces))
+    ]
+    return {
+        constants.prototype_key: prototype.create_prototype_dict(),
+        constants.heliostat_key: {h.name: h.create_heliostat_dict() for h in heliostats},
+    }
+
+
+def analytic_group_surfaces(clouds: list, dents: np.ndarray, step: int, surface_points: tuple[int, int],
+                            device: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+    """The analytic (dented paraboloid) surfaces of the fitted heliostats at the loader's
+    sampling grid, mapped onto each facet as the fit maps its parameters (the extent of
+    every ``step``-th point of its cloud) and translated as the fitted control points
+    are: points and normals ``[H, F * P, 4]`` on ``device``."""
+    grid = create_nurbs_evaluation_grid(surface_points, device="cpu").double().numpy()
+    translations, _ = ingress_facets()
+    all_points, all_normals = [], []
+    for (_, _, points, _), dent in zip(clouds, dents):
+        count = min(p.shape[0] for p in points)
+        heliostat_points, heliostat_normals = [], []
+        for facet, p in enumerate(points):
+            fitted = p[:count:step, :2].astype(np.float64)
+            low, high = fitted.min(axis=0), fitted.max(axis=0)
+            e = low[0] + grid[:, 0] * (high[0] - low[0])
+            n = low[1] + grid[:, 1] * (high[1] - low[1])
+            local, normals = facet_local_surface(e, n, facet, dent)
+            heliostat_points.append(np.concatenate([local + translations[facet, :3], np.ones((len(e), 1))], axis=1))
+            heliostat_normals.append(np.concatenate([normals, np.zeros((len(e), 1))], axis=1))
+        all_points.append(np.concatenate(heliostat_points))
+        all_normals.append(np.concatenate(heliostat_normals))
+    return tuple(torch.tensor(np.stack(x), dtype=torch.float32, device=device) for x in (all_points, all_normals))
+
+
+def ingress_alignment(group, tower: SolarTower):
+    """Target 0 for every heliostat, light from the south horizon, and the group's
+    surfaces aligned to the target's centre: (targets, incident directions, points,
+    normals)."""
+    device = group.positions.device
+    num = group.number_of_heliostats
+    targets = torch.zeros(num, dtype=torch.long, device=device)
+    incident = torch.tensor([0.0, 1.0, 0.0, 0.0], device=device).expand(num, 4)
+    points, normals = hg.align_surfaces_with_incident_ray_directions(
+        group, get_centers_of_target_areas(tower, targets), incident
+    )[:2]
+    return targets, incident, points, normals
+
+
+@torch.no_grad()
+def ingress_render(group, tower: SolarTower, distortions, size: dict) -> torch.Tensor:
+    """The group's flux ``[H, height, width]`` from ``trace_rays``."""
+    targets, incident, points, normals = ingress_alignment(group, tower)
+    return trace_rays(
+        tower, points, normals, incident, targets, *distortions,
+        config=RenderConfig(bitmap_resolution=size["bitmap"], ray_chunk=size["ray_chunk"]),
+    )[0]
+
+
+@torch.no_grad()
+def ingress_rays(group, tower: SolarTower, distortions, size: dict):
+    """The splat's inputs of the render's first ray chunk (all rays without chunks),
+    ``[H, rays * P]`` each."""
+    targets, incident, points, normals = ingress_alignment(group, tower)
+    chunk = size["ray_chunk"] or size["rays"]
+    rays = ray_splat_inputs(
+        tower, geometry.reflect(incident[:, None, :], normals), points, targets,
+        distortions[0][:, :chunk], distortions[1][:, :chunk], 1.0,
+        RenderConfig(bitmap_resolution=size["bitmap"], ray_chunk=size["ray_chunk"]),
+    )
+    num = group.number_of_heliostats
+    return tuple(x.reshape(num, -1).contiguous() for x in (rays.bitmap_e, rays.bitmap_u, rays.final_intensities))
+
+
+def ingress_launches(size: dict) -> dict[str, int]:
+    """Phase 15's launches: one splat forward a ray chunk in each of its three renders
+    (a warm-up and the timed one of the fits, one of the analytic surfaces; no
+    gradient, so no backward and no recompute); the fits launch no kernel."""
+    chunks = 1 if size["ray_chunk"] is None else size["rays"] // size["ray_chunk"]
+    return launches(splat_forward=3 * chunks)
+
+
+def drive_data_ingress(device: torch.device, size: dict = INGRESS):
+    """Phase 15. a: INGRESS_HELIOSTATS' STRAL files written and read back with
+    ``extract_stral_deflectometry_data``, each heliostat fitted on ``device`` with
+    ``generate_fitted_surface_config`` (timed, its epochs and host syncs), the losses
+    finite and falling by ``loss_factor``, the fitted normals at the clouds' points
+    within ``mean_angle`` of the analytic ones; the first heliostat also fitted on the
+    CPU, where the card's fit must take as many epochs and agree (CPU_FIT_*).
+    b: the fits turned into the loader's heliostat records by ``_read_heliostats`` on
+    their scenario image, one group assembled on ``device`` by
+    ``_assemble_heliostat_groups`` (``sample_surface`` at ``surface_points``), traced
+    with ``trace_rays`` (``rays`` a point onto ``bitmap``; a warm-up, then timed), and
+    so the analytic surfaces at the same grid; the fluxes finite, non-zero and within
+    ``flux_l1``; the launches those of :func:`ingress_launches`. Returns the path's
+    numbers, the group, the tower and the render's distortions."""
+    names = INGRESS_HELIOSTATS
+    dents = ingress_dents(len(names))
+    synchronize(device)
+    reset_launch_counts()
+    start = time.perf_counter()
+    with tempfile.TemporaryDirectory() as directory:
+        clouds = []
+        for i, name in enumerate(names):
+            path = pathlib.Path(directory) / f"{name}.binp"
+            write_ingress_stral(path, i, size["facet_points"], dents[i])
+            clouds.append(extract_stral_deflectometry_data(path))
+    read_seconds = time.perf_counter() - start
+    fits = [fit_stral_heliostat(device, name, cloud, size) for name, cloud in zip(names, clouds)]
+
+    synthetic = make_synthetic_scenario(
+        number_of_heliostats=len(names), number_of_surface_points_per_facet=(2, 2), device=device
+    )
+    positions, tower = synthetic.heliostat_groups[0].positions.cpu().numpy(), synthetic.solar_tower
+    synchronize(device)
+    start = time.perf_counter()
+    records = _read_heliostats(InMemoryGroup(ingress_scenario_image([f["surface"] for f in fits], positions)))
+    (group,), group_names = _assemble_heliostat_groups(records, size["surface_points"], None, device)
+    synchronize(device)
+    assembly_seconds = time.perf_counter() - start
+
+    sun = Sun(number_of_rays=size["rays"])
+    generator = torch.Generator(device=device).manual_seed(SEED + 15)
+    distortions = sun.get_distortions(generator, group.surface_points.shape[1], len(names))
+    ingress_render(group, tower, distortions, size)  # warm-up: the first render pays the allocations
+    reset_peak_memory(device)
+    synchronize(device)
+    start = time.perf_counter()
+    flux = ingress_render(group, tower, distortions, size)
+    synchronize(device)
+    render_seconds = time.perf_counter() - start
+    peak = max_memory(device)
+    points, normals = analytic_group_surfaces(clouds, dents, size["step"], size["surface_points"], device)
+    analytic = ingress_render(group.replace(surface_points=points, surface_normals=normals), tower, distortions, size)
+    synchronize(device)
+    counts = launch_counts()
+
+    phase = "phase 15"
+    expected = ingress_launches(size)
+    if device.type == "cuda" and counts != expected:
+        raise AssertionError(f"{phase} launched {counts}, expected {expected}")
+    normal_angles = []
+    for i, (fit, cloud) in enumerate(zip(fits, clouds)):
+        history = fit["history"]
+        if not (len(history) and np.isfinite(history).all()):
+            raise AssertionError(f"{phase}a {names[i]}: losses {history}")
+        if not history[-1] * size["loss_factor"] < history[0]:
+            raise AssertionError(f"{phase}a {names[i]}: loss {history[0]} -> {history[-1]}, not by {size['loss_factor']}")
+        cloud_points, parameters = fit_parameters(cloud[2], size["step"], 8)
+        fitted_normals = surface_normals_at(fit["surface"], parameters, device)
+        analytic_normals = torch.tensor(
+            np.stack([facet_local_surface(p[:, 0].astype(np.float64), p[:, 1].astype(np.float64), f, dents[i])[1]
+                      for f, p in enumerate(cloud_points)]),
+            device=device,
+        )
+        normal_angles.append(float(angles(fitted_normals, analytic_normals).mean()))
+        if not normal_angles[-1] < size["mean_angle"]:
+            raise AssertionError(f"{phase}a {names[i]}: fitted normals {normal_angles[-1]} rad from the analytic ones")
+    if not (torch.isfinite(flux).all() and torch.isfinite(analytic).all() and float(flux.sum()) > 0):
+        raise AssertionError(f"{phase}b: flux not finite or all zero")
+    flux_l1 = float((flux - analytic).abs().sum() / analytic.abs().sum())
+    # Where the fluxes part: the fitted normals on the sampling grid, each facet's border
+    # row and column against its interior.
+    grid_angles = angles(group.surface_normals[..., :3], normals[..., :3]).reshape(
+        len(names), -1, *size["surface_points"]
+    )
+    border = torch.ones(size["surface_points"], dtype=torch.bool, device=device)
+    border[1:-1, 1:-1] = False
+    grid_border_angle, grid_interior_angle = (float(grid_angles[..., m].mean()) for m in (border, ~border))
+    if not flux_l1 < size["flux_l1"]:
+        raise AssertionError(f"{phase}b: fitted and analytic fluxes {flux_l1} apart (relative L1)")
+
+    cpu = fit_stral_heliostat(torch.device("cpu"), names[0], clouds[0], size)
+    gaps = fit_gaps(fits[0], cpu, size["surface_points"])
+    check_fit_gaps(f"{phase}a {names[0]} on {device} against the cpu", gaps)
+
+    rays = len(names) * size["rays"] * group.surface_points.shape[1]
+    result = dict(
+        launches=counts,
+        fit_seconds=[f["seconds"] for f in fits],
+        epochs=[len(f["history"]) for f in fits],
+        syncs=[f["syncs"] for f in fits],
+        first_losses=[float(f["history"][0]) for f in fits],
+        last_losses=[float(f["history"][-1]) for f in fits],
+        normal_mean_angles=normal_angles,
+        cpu_fit_seconds=cpu["seconds"],
+        cpu_gaps=gaps,
+        read_seconds=read_seconds,
+        assembly_seconds=assembly_seconds,
+        render_seconds=render_seconds,
+        rays=rays,
+        rays_per_s=rays / render_seconds,
+        max_memory_allocated=peak,
+        flux_l1=flux_l1,
+        grid_border_angle=grid_border_angle,
+        grid_interior_angle=grid_interior_angle,
+        group_names=group_names,
+    )
+    _log(
+        f"{phase}a data ingress: {len(names)} STRAL files of 4 x {size['facet_points']} points written and read in "
+        f"{read_seconds:.3f} s; fits at {size['control_points']} control points, every {size['step']}th point, "
+        f"max_epoch {size['max_epoch']} on {device}: "
+        + "; ".join(
+            f"{name} {f['seconds']:.3f} s, {len(f['history'])} epochs ({len(f['history']) / f['seconds']:.1f}/s), "
+            f"{f['syncs']} host syncs, loss {f['history'][0]:.4g} -> {f['history'][-1]:.4g}, normals {a:.3g} rad "
+            "from the analytic"
+            for name, f, a in zip(names, fits, normal_angles)
+        )
+        + f"; {names[0]} on the cpu {cpu['seconds']:.3f} s against {device}: {json.dumps(gaps)}"
+    )
+    _log(
+        f"{phase}b data ingress: one group ({group_names}) assembled on {device} in {assembly_seconds:.3f} s at "
+        f"{size['surface_points']} points a facet; render of {rays} rays ({size['rays']} a point, ray chunks "
+        f"{size['ray_chunk'] or 'none'}) onto {size['bitmap']} in {render_seconds:.4f} s, "
+        f"{result['rays_per_s']:.4g} rays/s, peak {peak} bytes; fitted against analytic flux {flux_l1:.4g} "
+        f"(relative L1), the fitted normals on the grid {grid_border_angle:.3g} rad from the analytic on the facets' "
+        f"border rows and columns ({border.double().mean():.3g} of the points), {grid_interior_angle:.3g} inside "
+        f"(means); launches {counts}"
+    )
+    return result, group, tower, distortions
+
+
+def check_ingress_kernels(group, tower: SolarTower, distortions, size: dict = INGRESS) -> dict[str, dict]:
+    """Phase 15c: the splat forward at the render's shape (``[3, 10 M]`` rays onto
+    ``[3, 256, 256]``) against its plain version, timed beside ``index_add_`` and its
+    bound. Returns its timings under "data_ingress"."""
+    height, width = size["bitmap"][1], size["bitmap"][0]
+    rays = ingress_rays(group, tower, distortions, size)
+    error, share = check_forward(
+        "splat_forward", splat_forward_cuda(*rays, height, width), splat_forward_plain(*rays, height, width),
+        rays, height, width,
+    )
+    timings, work = time_splat_pair(rays, None, height, width, iterations=5)
+    t = timings["splat_forward"]
+    shape = list(rays[0].shape)
+    _log(
+        f"phase 15c splat forward at the render's shape: {shape} rays ({work['valid']} valid, {work['touched']} "
+        f"pixels touched) -> [{shape[0]}, {height}, {width}], max_abs_err {error:.3g} ({share:.3g} of its tolerance), "
+        f"kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, index_add_ {t['library_ms']:.4f} ms, bound "
+        f"{t['bound'][0]:.4f} ms ({t['bound'][1]})"
+    )
+    return {"splat_forward": {"data_ingress": dict(
+        shape=shape, ms=t["ms"], plain_ms=t["plain_ms"], library_ms=t["library_ms"], bound_ms=t["bound"][0],
+        bound_by=t["bound"][1], max_abs_err=error,
+    )}}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU", file=sys.stderr)
@@ -4178,11 +4717,16 @@ def main() -> int:
     torch.cuda.empty_cache()
     for kernel_name, shape_timings in check_plant_kernels(device).items():
         timings[kernel_name].update(shape_timings)
+    torch.cuda.empty_cache()
+    paths["data_ingress"], ingress_group, ingress_tower, ingress_distortions = drive_data_ingress(device)
+    for kernel_name, shape_timings in check_ingress_kernels(ingress_group, ingress_tower, ingress_distortions).items():
+        timings[kernel_name].update(shape_timings)
+    del ingress_group, ingress_distortions
 
     case_keys = {key for _, key, *_ in SIGMA_CASES[1:] + FLAT_CASES[1:]} | {
         "kept_primitives", "fit_fraction", "full_splat_ms", "graph_ms", "zero_pairs", "surface_reconstruction_chunk",
         "kinematics_train", "kinematics_validation", "plant_chunk", "plant_chunk_k32", "with_build_ms", "cull_ms",
-        "visits",
+        "visits", "data_ingress",
     }
     kernels = []
     for kernel_name, t in timings.items():

@@ -1,9 +1,12 @@
-"""The port and its scripts import no JAX, flax, optax, h5py or JAX-package module.
+"""The port and its scripts import no JAX, flax, optax or JAX-package module.
 
-The machine with the card has none of them. Each source is parsed (AST, not
-text search) and every ``import`` / ``from ... import`` is checked; a second
-test imports every module of the port in a fresh interpreter in which those
-packages cannot be imported at all.
+The machine with the card has none of them, nor ``h5py`` or ``PIL``. Those two
+may appear only as imports inside the functions of the four ingress modules
+that read or write HDF5 or PNG files. Each source is parsed (AST, not text
+search) and every ``import`` / ``from ... import`` is checked; a second test
+imports every module of the port in a fresh interpreter in which all of these
+packages cannot be imported at all, and the file readers and writers, called
+there, raise ``ImportError``.
 """
 
 import ast
@@ -14,25 +17,54 @@ from pathlib import Path
 import pytest
 
 REPO = Path(__file__).resolve().parent.parent
-FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "h5py", "artist_tpu"}
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "artist_tpu"}
+# Packages for files, allowed only inside the functions of the ingress modules.
+FILE_PACKAGES = {"h5py", "PIL"}
+INGRESS_MODULES = {
+    "artist_tpu_torch/scenario/scenario.py",
+    "artist_tpu_torch/scenario/h5_generator.py",
+    "artist_tpu_torch/io/paint_scenario_parser.py",
+    "artist_tpu_torch/io/calibration.py",
+}
 SOURCES = sorted((REPO / "artist_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py", REPO / "profile_torch_step.py"]
 
 
-def _imported_roots(path: Path) -> set[str]:
-    roots = set()
-    for node in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+def _imported_roots(path: Path) -> dict[str, bool]:
+    """Each imported top-level package, and whether every import of it lies inside a function."""
+    roots: dict[str, bool] = {}
+
+    def visit(node: ast.AST, in_function: bool) -> None:
+        names = []
         if isinstance(node, ast.Import):
-            roots.update(alias.name.split(".")[0] for alias in node.names)
+            names = [alias.name for alias in node.names]
         elif isinstance(node, ast.ImportFrom):
             if node.level:
                 raise AssertionError(f"{path}: relative import; the port imports by absolute name")
-            roots.add(node.module.split(".")[0])
+            names = [node.module]
+        for name in names:
+            root = name.split(".")[0]
+            roots[root] = roots.get(root, True) and in_function
+        in_function = in_function or isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef, ast.Lambda))
+        for child in ast.iter_child_nodes(node):
+            visit(child, in_function)
+
+    visit(ast.parse(path.read_text(), filename=str(path)), False)
     return roots
 
 
 @pytest.mark.parametrize("path", SOURCES, ids=[str(p.relative_to(REPO)) for p in SOURCES])
 def test_source_imports_nothing_forbidden(path):
-    assert not _imported_roots(path) & FORBIDDEN
+    roots = _imported_roots(path)
+    assert not roots.keys() & FORBIDDEN
+    file_imports = {root: local for root, local in roots.items() if root in FILE_PACKAGES}
+    if str(path.relative_to(REPO)) in INGRESS_MODULES:
+        assert all(file_imports.values()), f"{path}: {file_imports} imported outside a function"
+    else:
+        assert not file_imports, f"{path}: imports {sorted(file_imports)}"
+
+
+def test_ingress_modules_exist():
+    assert all((REPO / module).is_file() for module in INGRESS_MODULES)
 
 
 def test_every_port_module_imports_without_jax():
@@ -43,7 +75,7 @@ def test_every_port_module_imports_without_jax():
     ]
     program = (
         "import sys\n"
-        f"for name in {sorted(FORBIDDEN)!r}:\n"
+        f"for name in {sorted(FORBIDDEN | FILE_PACKAGES)!r}:\n"
         "    sys.modules[name] = None\n"
         "import importlib\n"
         f"for module in {modules!r}:\n"
@@ -56,3 +88,53 @@ def test_every_port_module_imports_without_jax():
     )
     assert done.returncode == 0, done.stderr
     assert "imported" in done.stdout
+
+
+# Each file reader or writer of the ingress modules, called where its package is
+# blocked: the call raises ImportError and swaps in no other format.
+BLOCKED_CALLS = {
+    "load_scenario_from_hdf5": (
+        "h5py",
+        "from artist_tpu_torch.scenario.scenario import load_scenario_from_hdf5\n"
+        "load_scenario_from_hdf5('scenario.h5', device='cpu')\n",
+    ),
+    "get_number_of_heliostat_groups_from_hdf5": (
+        "h5py",
+        "from artist_tpu_torch.scenario.scenario import get_number_of_heliostat_groups_from_hdf5\n"
+        "get_number_of_heliostat_groups_from_hdf5('scenario.h5')\n",
+    ),
+    "generate_scenario": (
+        "h5py",
+        "import pathlib, tempfile\n"
+        "from artist_tpu_torch.scenario.h5_generator import H5ScenarioGenerator\n"
+        "H5ScenarioGenerator.generate_scenario(type('G', (), {'file_path': pathlib.Path(tempfile.gettempdir()) / 'x.h5'})())\n",
+    ),
+    "extract_paint_deflectometry_data": (
+        "h5py",
+        "from artist_tpu_torch.io.paint_scenario_parser import extract_paint_deflectometry_data\n"
+        "extract_paint_deflectometry_data('deflectometry.h5', 4)\n",
+    ),
+    "load_flux_from_png": (
+        "PIL",
+        "from artist_tpu_torch.io.calibration import load_flux_from_png\n"
+        "load_flux_from_png([('H', ['flux.png'])], ('H',))\n",
+    ),
+}
+
+
+@pytest.mark.parametrize("call", sorted(BLOCKED_CALLS))
+def test_file_readers_raise_import_error_without_their_package(call):
+    package, body = BLOCKED_CALLS[call]
+    program = (
+        f"import sys\nsys.modules[{package!r}] = None\n"
+        "try:\n"
+        + "".join(f"    {line}\n" for line in body.splitlines())
+        + "except ImportError as error:\n"
+        "    print('ImportError:', error)\n"
+        "    sys.exit(3)\n"
+    )
+    done = subprocess.run(
+        [sys.executable, "-c", program], cwd=REPO, capture_output=True, text=True, timeout=300
+    )
+    assert done.returncode == 3, done.stderr
+    assert f"ImportError: import of {package} halted" in done.stdout
