@@ -78,6 +78,23 @@ def translate_enu(e: torch.Tensor, n: torch.Tensor, u: torch.Tensor) -> torch.Te
     )
 
 
+def rotate_distortions(e: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
+    """The combined up-then-east rotation matrices of sun distortions, ``rotate_e(e) @
+    rotate_u(u)``, ``[...] -> [..., 4, 4]``. The render applies them with
+    :func:`apply_distortion_rotation`, which builds no matrix."""
+    cos_e, sin_e = torch.cos(e), torch.sin(e)
+    cos_u, sin_u = torch.cos(u), torch.sin(u)
+    one, zero = torch.ones_like(e), torch.zeros_like(e)
+    return _assemble(
+        [
+            [cos_u, -sin_u, zero, zero],
+            [cos_e * sin_u, cos_e * cos_u, -sin_e, zero],
+            [sin_e * sin_u, sin_e * cos_u, cos_e, zero],
+            [zero, zero, zero, one],
+        ]
+    )
+
+
 def apply_distortion_rotation(
     e: torch.Tensor, u: torch.Tensor, directions: torch.Tensor
 ) -> torch.Tensor:

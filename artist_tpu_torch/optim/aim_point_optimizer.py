@@ -33,8 +33,25 @@ drop, and no pixel may exceed the maximum flux density.
   group of at most ``heliostat_chunk`` heliostats, or one the chunk does not
   divide (with a warning), runs unchunked.
 
-Not ported yet, and refused with ``NotImplementedError``: ``distributed_setup``
-and ``mesh``.
+- ``distributed_setup`` (:func:`~artist_tpu_torch.parallel.setup_distributed_environment`),
+  group-parallel mode (no more ranks than groups): each rank optimizes and
+  traces its round-robin groups alone. Every epoch the ranks exchange the
+  blocking primitives of their heliostats (so each traces against the whole
+  field) and sum their flux contributions on the target; in the backward each
+  rank's cotangent of a primitive is summed back to the rank that owns it. So a
+  rank's gradient is that of one process, blocking across ranks included (the
+  JAX package exchanges motor positions, re-aligns every group on every rank and
+  holds the other ranks' flux constant in the backward). Tolerance, the
+  plateau scheduler and early stopping read rank 0's loss. Checkpoints are per
+  rank, under ``aim_point_rank{r}``. At the end every rank takes every group's
+  motor positions.
+- Nested mode (more ranks than groups), or a ``mesh`` given: every rank
+  optimizes every group on its slice of each group's heliostats and of the
+  rays (:class:`~artist_tpu_torch.parallel.mesh.ShardPlan`): the primitives are
+  gathered over the heliostat slices, the flux maps summed over every slice,
+  the factors combined, and the parameters' gradient summed over the ranks.
+  ``heliostat_chunk`` is ignored on a mesh of more than one rank, with a
+  warning: the mesh splits the heliostat axis instead.
 """
 
 from __future__ import annotations
@@ -48,6 +65,9 @@ import torch
 from artist_tpu_torch.field import heliostat_group as hg
 from artist_tpu_torch.field.solar_tower import get_centers_of_target_areas
 from artist_tpu_torch.optim import checkpointing, losses, training
+from artist_tpu_torch.parallel import collectives
+from artist_tpu_torch.parallel.env import is_group_parallel, resolve_mesh, runs_group
+from artist_tpu_torch.parallel.mesh import ShardPlan
 from artist_tpu_torch.parallel.microbatch import chunked_map, chunked_sum_and_map
 from artist_tpu_torch.raytracing.blocking import create_blocking_primitives_rectangles_by_index
 from artist_tpu_torch.raytracing.render import (
@@ -100,6 +120,11 @@ class AimPointOptimizer:
         Heliostats a chunk of each group's checkpointed align-and-trace
         (None: no chunks); a group whose heliostat count it does not divide
         runs unchunked, with a warning.
+    distributed_setup : DistributedSetup | None
+        The run's ranks; group-parallel or nested, as its ``is_nested`` says.
+    mesh : DeviceMesh | None
+        Splits every group's heliostats and rays over the ranks, which all run
+        every group; defaults to ``distributed_setup.mesh`` in the nested mode.
     """
 
     def __init__(
@@ -120,13 +145,18 @@ class AimPointOptimizer:
         blocking_candidates: int | None = 16,
         heliostat_chunk: int | None = None,
     ) -> None:
-        for name, value in (("distributed_setup", distributed_setup), ("mesh", mesh)):
-            if value is not None:
-                raise NotImplementedError(f"{name} is not ported yet")
+        self.mesh = mesh = resolve_mesh(mesh, distributed_setup)
+        self.distributed_setup = distributed_setup
         self.scenario = scenario
         self.device = scenario.heliostat_groups[0].positions.device
         self.blocking_candidates = int(blocking_candidates) if blocking_candidates else None
         self.heliostat_chunk = int(heliostat_chunk) if heliostat_chunk else None
+        if self.heliostat_chunk and mesh is not None and mesh.size() > 1:
+            log.warning(
+                "heliostat_chunk is ignored on a mesh of %d ranks: the mesh splits the heliostat axis instead.",
+                mesh.size(),
+            )
+            self.heliostat_chunk = None
         self.optimizer_dict = optimization_configuration[constants.optimization]
         self.scheduler_dict = optimization_configuration[constants.scheduler]
         self.constraint_dict = optimization_configuration[constants.constraints]
@@ -159,10 +189,13 @@ class AimPointOptimizer:
         )
 
     @torch.no_grad()
-    def _initialize_group_parameters(self):
-        """Pre-align all groups: initial motor positions, tanh scales and per-group inputs."""
-        initial_motor_positions, scales, params, targets, incident = [], [], [], [], []
-        for group in self.scenario.heliostat_groups:
+    def _initialize_group_parameters(self, owned: list[int]):
+        """Pre-align the groups ``owned``: their initial motor positions, tanh scales and
+        per-group inputs, in lists over every group (None where not owned)."""
+        count = len(self.scenario.heliostat_groups)
+        initial_motor_positions, scales, params, targets, incident = ([None] * count for _ in range(5))
+        for g in owned:
+            group = self.scenario.heliostat_groups[g]
             num = group.number_of_heliostats
             target_indices = torch.full(
                 (num,), self.target_area_index, dtype=torch.long, device=self.device
@@ -175,56 +208,69 @@ class AimPointOptimizer:
             )[3]
             minimum = group.actuator_non_optimizable[:, indices.actuator_min_motor_position]
             maximum = group.actuator_non_optimizable[:, indices.actuator_max_motor_position]
-            scale = torch.clamp(
+            initial_motor_positions[g] = motor_positions
+            scales[g] = torch.clamp(
                 torch.minimum(motor_positions - minimum, maximum - motor_positions), min=1.0
             )
-            initial_motor_positions.append(motor_positions)
-            scales.append(scale)
-            params.append(torch.zeros_like(motor_positions))
-            targets.append(target_indices)
-            incident.append(directions)
+            params[g] = torch.zeros_like(motor_positions)
+            targets[g] = target_indices
+            incident[g] = directions
         return params, scales, initial_motor_positions, targets, incident
 
     def objective(self, loss_definition: str = "kl_divergence"):
         """The optimization problem, from the scenario's current state.
 
-        Pre-aligns every group (initial motor positions and tanh scales, also
-        kept as ``initial_motor_positions_all_groups`` and
-        ``scales_all_groups``) and samples the sun distortions.
+        Pre-aligns the groups this rank optimizes (every group, but only its own in
+        the group-parallel mode; their initial motor positions and tanh scales are
+        also kept as ``initial_motor_positions_all_groups`` and
+        ``scales_all_groups``, None for the others) and samples the sun
+        distortions of every group in order, keeping this rank's.
 
         Returns
         -------
         tuple
-            ``params``: a zero ``[H_g, 2]`` tanh parameter per group;
-            ``forward(params)``: the target's total flux ``[height_u,
-            width_e]`` and the intercept, on-target and blocking factors of
-            every heliostat; ``loss_fn(params, references, lambdas)``: the
-            loss and a dict of its parts, with ``references`` = (flux
-            integral, intercepts) of epoch 0 and ``lambdas`` the three
-            multipliers (integral, intercept, local flux).
+            ``params``: a zero ``[H_g, 2]`` tanh parameter per group this rank
+            optimizes; ``forward(params)``: the target's total flux ``[height_u,
+            width_e]`` and the intercept, on-target and blocking factors of every
+            heliostat of the field; ``loss_fn(params, references, lambdas)``: the
+            loss and a dict of its parts, with ``references`` = (flux integral,
+            intercepts) of epoch 0 and ``lambdas`` the three multipliers
+            (integral, intercept, local flux). Every rank gets the same flux,
+            factors and loss.
         """
         if loss_definition not in ("kl_divergence", "pixel"):
             raise ValueError(f"Unknown loss for aim point optimization: {loss_definition}")
         groups = list(self.scenario.heliostat_groups)
         tower = self.scenario.solar_tower
         sun = self.scenario.light_sources[0]
-        params, scales, initial_motor_positions, target_indices, incident_dirs = (
-            self._initialize_group_parameters()
+        setup = self.distributed_setup
+        group_parallel = is_group_parallel(setup)
+        owned = [g for g in range(len(groups)) if runs_group(setup, g)]
+        all_params, scales, initial_motor_positions, target_indices, incident_dirs = (
+            self._initialize_group_parameters(owned)
         )
+        params = [all_params[g] for g in owned]
         # Exposed for inspection.
         self.initial_motor_positions_all_groups = initial_motor_positions
         self.scales_all_groups = scales
 
+        # This rank's heliostats and rays of each group it traces (all of them
+        # without a mesh), the group's inputs sliced alike.
+        plans = {g: ShardPlan(self.mesh, groups[g].number_of_heliostats, sun.number_of_rays) for g in owned}
+        local_indices = {
+            g: torch.arange(groups[g].number_of_heliostats, device=self.device)[plans[g].sample_slice] for g in owned
+        }
+        targets_local = {g: plans[g].take(target_indices[g]) for g in owned}
+        incident_local = {g: plans[g].take(incident_dirs[g]) for g in owned}
         generator = torch.Generator(device=self.device).manual_seed(self.seed)
-        distortions, ray_magnitudes = [], []
-        for group in groups:
+        distortions, ray_magnitudes = {}, {}
+        for g, group in enumerate(groups):
             num_points = group.surface_points.shape[1]
-            distortions.append(
-                sun.get_distortions(generator, num_points, group.number_of_heliostats)
-            )
-            ray_magnitudes.append(
-                compute_ray_magnitude(self.dni, group.canting, num_points, sun.number_of_rays)
-            )
+            pair = sun.get_distortions(generator, num_points, group.number_of_heliostats)
+            if g in plans:
+                distortions[g] = tuple(plans[g].distortions(d) for d in pair)
+                ray_magnitudes[g] = compute_ray_magnitude(self.dni, group.canting, num_points, sun.number_of_rays)
+            del pair
 
         max_flux_density_per_pixel = float(
             np.prod(self._target_plane_dimensions())
@@ -240,9 +286,26 @@ class AimPointOptimizer:
             blocking_candidates=self.blocking_candidates,
         )
         number_of_target_areas = tower.number_of_target_areas
-        group_offsets = np.concatenate(
-            [[0], np.cumsum([g.number_of_heliostats for g in groups])[:-1]]
-        )
+        group_sizes = [g.number_of_heliostats for g in groups]
+        group_offsets = np.concatenate([[0], np.cumsum(group_sizes)[:-1]])
+
+        # The group-parallel exchange: each rank's block holds its groups' heliostats
+        # in group order; ``field_order`` puts the blocks' rows in field order.
+        world = collectives.world_group() if group_parallel else None
+        if group_parallel:
+            ranks = range(setup.world_size)
+            block_groups = [g for rank in ranks for g in sorted(setup.groups_to_ranks_mapping[rank])]
+            block_sizes = [sum(group_sizes[g] for g in setup.groups_to_ranks_mapping[rank]) for rank in ranks]
+            block_offsets = dict(zip(block_groups, np.cumsum([0] + [group_sizes[g] for g in block_groups])))
+            field_order = torch.cat(
+                [torch.arange(group_sizes[g], device=self.device) + int(block_offsets[g]) for g in range(len(groups))]
+            )
+
+        def field_wide(tensor: torch.Tensor, exchange) -> torch.Tensor:
+            """Every heliostat's rows, in field order, from this rank's groups' rows."""
+            if not group_parallel:
+                return tensor
+            return exchange(tensor, world, block_sizes).index_select(0, field_order)
 
         def chunking(group) -> int | None:
             """The group's heliostat chunk, or None to run it unchunked."""
@@ -258,46 +321,51 @@ class AimPointOptimizer:
                 return None
             return chunk
 
-        chunks = [chunking(group) for group in groups]
+        chunks = {g: chunking(groups[g]) for g in owned}
+
+        def primitives_of(points: torch.Tensor) -> torch.Tensor:
+            """The blocking primitives of aligned surfaces, flattened to ``[B, 28]`` rows
+            (corners, spans, normals), so that one collective exchanges them."""
+            corners, spans, normals = create_blocking_primitives_rectangles_by_index(points)
+            return torch.cat([x.reshape(x.shape[0], -1) for x in (corners, spans, normals)], dim=1)
 
         def forward(group_params):
-            """Align all groups, trace with field-wide blocking, sum the target's flux.
+            """Align this rank's groups, trace with field-wide blocking, sum the target's flux.
 
             A chunked group is aligned chunk by chunk inside the checkpointed
             functions of both phases (so a chunk's gathered state and aligned
             surfaces are recomputed in the backward, not kept); an unchunked
-            group is aligned once and its surfaces serve both phases.
+            group is aligned once and its surfaces serve both phases. Every rank
+            traces against every heliostat's primitives: those of the heliostats it
+            does not align are gathered from the ranks that do, and each rank's
+            cotangent of them is summed back to their owner.
             """
-            motors = [
-                initial_motor_positions[g] + torch.tanh(group_params[g]) * scales[g]
-                for g in range(len(groups))
-            ]
+            motors = {
+                g: initial_motor_positions[g] + torch.tanh(plans[g].params(p)) * scales[g]
+                for g, p in zip(owned, group_params)
+            }
 
             def aligned_chunk(g, idx):
                 active = hg.gather_active(groups[g], idx)
                 return hg.align_surfaces_with_motor_positions(active, motors[g].index_select(0, idx))[:2]
 
-            corners, spans, prim_normals, aligned_full = [], [], [], {}
-            for g, group in enumerate(groups):
-                chunk = chunks[g]
-                every = torch.arange(group.number_of_heliostats, device=self.device)
-                if chunk:
-                    c, s, n = chunked_map(
-                        lambda idx, g=g: create_blocking_primitives_rectangles_by_index(aligned_chunk(g, idx)[0]),
-                        every,
-                        chunk,
+            blocks, aligned_full = [], {}
+            for g in owned:
+                if chunks[g]:
+                    block = chunked_map(
+                        lambda idx, g=g: primitives_of(aligned_chunk(g, idx)[0]), local_indices[g], chunks[g]
                     )
                 else:
-                    aligned_full[g] = aligned_chunk(g, every)
-                    c, s, n = create_blocking_primitives_rectangles_by_index(aligned_full[g][0])
-                corners.append(c)
-                spans.append(s)
-                prim_normals.append(n)
-            primitives = (torch.cat(corners), torch.cat(spans), torch.cat(prim_normals))
+                    aligned_full[g] = aligned_chunk(g, local_indices[g])
+                    block = primitives_of(aligned_full[g][0])
+                blocks.append(collectives.gather_for_shards(block, plans[g].sample_group))
+            flat = field_wide(torch.cat(blocks), collectives.gather_for_shards)
+            primitives = (flat[:, :16].reshape(-1, 4, 4), flat[:, 16:24].reshape(-1, 2, 4), flat[:, 24:])
 
             total_flux = 0
             intercepts, on_targets, blockings = [], [], []
-            for g, group in enumerate(groups):
+            for g in owned:
+                num_points = groups[g].surface_points.shape[1]
 
                 def traced_chunk(idx, g=g, aligned=None):
                     # An unchunked group (aligned given) reads its tensors whole.
@@ -305,12 +373,12 @@ class AimPointOptimizer:
                         return x if aligned is not None else x.index_select(0, idx)
 
                     points, normals = aligned or aligned_chunk(g, idx)
-                    targets = take(target_indices[g])
+                    targets = take(targets_local[g])
                     flux, intercept, on_target, blocking = trace_rays(
                         tower=tower,
                         aligned_surface_points=points,
                         aligned_surface_normals=normals,
-                        incident_ray_directions=take(incident_dirs[g]),
+                        incident_ray_directions=take(incident_local[g]),
                         target_area_indices=targets,
                         distortions_u=take(distortions[g][0]),
                         distortions_e=take(distortions[g][1]),
@@ -324,18 +392,21 @@ class AimPointOptimizer:
                     ]
                     return flux_on_target, (intercept, on_target, blocking)
 
-                every = torch.arange(group.number_of_heliostats, device=self.device)
                 if chunks[g]:
-                    group_flux, (intercept, on_target, blocking) = chunked_sum_and_map(
-                        traced_chunk, every, chunks[g]
-                    )
+                    group_flux, factors = chunked_sum_and_map(traced_chunk, local_indices[g], chunks[g])
                 else:
-                    group_flux, (intercept, on_target, blocking) = traced_chunk(every, aligned=aligned_full[g])
-                total_flux = total_flux + group_flux
+                    group_flux, factors = traced_chunk(local_indices[g], aligned=aligned_full[g])
+                total_flux = total_flux + plans[g].sum(group_flux)
+                intercept, on_target, blocking = (plans[g].factors(f, num_points) for f in factors)
                 intercepts.append(intercept)
                 on_targets.append(on_target)
                 blockings.append(blocking)
-            return total_flux, torch.cat(intercepts), torch.cat(on_targets), torch.cat(blockings)
+            if group_parallel:
+                total_flux = collectives.sum_for_replicated(total_flux, world)
+            return (
+                total_flux,
+                *(field_wide(torch.cat(x), collectives.all_gather_blocks) for x in (intercepts, on_targets, blockings)),
+            )
 
         def loss_fn(group_params, references, lambdas):
             total_flux, intercepts, on_targets, blockings = forward(group_params)
@@ -410,13 +481,20 @@ class AimPointOptimizer:
             (final loss, loss history dict, intercept factors, on-target
             factors, blocking factors), the factors from the last epoch's
             forward. The scenario's heliostat groups get the optimized motor
-            positions.
+            positions (on every rank, every group's).
         """
         log.info("Start the aim point optimization.")
         params, forward, loss_fn = self.objective(loss_definition)
         use_constraints = loss_definition == "kl_divergence"
         rho_local, rho_integral, rho_intercept = self._rhos()
         groups = list(self.scenario.heliostat_groups)
+        setup = self.distributed_setup
+        owned = [g for g in range(len(groups)) if runs_group(setup, g)]
+        # Each rank of a group-parallel run keeps its own groups' loop state.
+        if is_group_parallel(setup):
+            label, labels = f"aim_point_rank{setup.rank}", {f"aim_point_rank{r}" for r in range(setup.world_size)}
+        else:
+            label, labels = "aim_point", {"aim_point"}
 
         # Epoch-0 references (the constraint terms are exactly zero there).
         with torch.no_grad():
@@ -447,8 +525,9 @@ class AimPointOptimizer:
 
         checkpointer = None
         if self.checkpoint_dir is not None:
+            checkpointing.refuse_other_worlds(self.checkpoint_dir, labels, "aim_point")
             checkpointer = checkpointing.LoopCheckpointer(
-                self.checkpoint_dir, "aim_point", every=self.checkpoint_every
+                self.checkpoint_dir, label, every=self.checkpoint_every, **checkpointing.world_options(setup)
             )
             restored = checkpointer.restore_loop(optimizer, scheduler, early_stopper, history)
             if restored is not None:
@@ -490,6 +569,10 @@ class AimPointOptimizer:
             # One host transfer per epoch for the loss and the history.
             fetched = torch.stack([loss.detach()] + [aux[k].detach() for k in scalars]).tolist()
             loss_value, values = fetched[0], dict(zip(scalars, fetched[1:]))
+            if collectives.is_multiprocess():
+                # Every rank takes the decisions below on rank 0's loss, so that none
+                # stops while another waits in the next epoch's collectives.
+                loss_value = collectives.broadcast_object(loss_value, 0)
             if isinstance(scheduler, training.ReduceOnPlateau):
                 scheduler.step(loss_value)
             if epoch % log_step == 0:
@@ -518,12 +601,17 @@ class AimPointOptimizer:
             epoch += 1
 
         with torch.no_grad():
-            for g, group in enumerate(groups):
-                motor = (
-                    self.initial_motor_positions_all_groups[g]
-                    + torch.tanh(params[g]) * self.scales_all_groups[g]
-                )
-                self.scenario.heliostat_groups[g] = group.replace(motor_positions=motor.clone())
+            motors = {
+                g: self.initial_motor_positions_all_groups[g] + torch.tanh(param) * self.scales_all_groups[g]
+                for g, param in zip(owned, params)
+            }
+        if is_group_parallel(setup):
+            for rank_motors in collectives.all_gather_object(
+                {g: motor.cpu().numpy() for g, motor in motors.items()}
+            ):
+                motors.update({g: torch.as_tensor(m, device=self.device) for g, m in rank_motors.items() if g not in motors})
+        for g, group in enumerate(groups):
+            self.scenario.heliostat_groups[g] = group.replace(motor_positions=motors[g].clone())
         log.info("Aim points optimized.")
         if aux is None:
             return loss_value, history, None, None, None

@@ -165,6 +165,36 @@ def restore_history(history: dict[str, list[float]] | list[float], state: Any) -
         history[:] = np.asarray(state).tolist()
 
 
+def world_options(distributed_setup) -> dict[str, Any]:
+    """:class:`LoopCheckpointer`'s ``world_size`` and ``writer`` for a run: each rank of
+    a group-parallel run writes its own groups; of the ranks of a nested run, which
+    hold the same state, rank 0 writes."""
+    from artist_tpu_torch.parallel import collectives
+    from artist_tpu_torch.parallel.env import is_group_parallel
+
+    return {
+        "world_size": collectives.world_size(),
+        "writer": is_group_parallel(distributed_setup) or collectives.rank() == 0,
+    }
+
+
+def refuse_other_worlds(directory: pathlib.Path | str, labels: set[str], prefix: str) -> None:
+    """Raise ``ValueError`` where ``directory`` holds a saved step under a label that
+    starts with ``prefix`` and is not one of ``labels``: a loop whose labels depend
+    on the world size (``aim_point`` alone, ``aim_point_rank{r}`` on each rank of a
+    group-parallel run) was written by another world, and would otherwise restart
+    from epoch 0 without a word."""
+    root = pathlib.Path(directory)
+    if not root.is_dir():
+        return
+    for path in sorted(root.glob(f"{prefix}*")):
+        if path.is_dir() and path.name not in labels and CheckpointManager(path).latest_step is not None:
+            raise ValueError(
+                f"{path} holds a checkpoint of another world size (this run's: {sorted(labels)}): "
+                "resume it with the world size that wrote it"
+            )
+
+
 class LoopCheckpointer:
     """Periodic checkpoints of one optimization loop.
 
@@ -179,23 +209,44 @@ class LoopCheckpointer:
         Save every ``every`` epochs (epoch 0 never; 0 saves nothing).
     max_to_keep : int
         Steps kept; at least 1.
+    world_size : int
+        Processes of the run. Each save records it, and a checkpoint written by
+        another world size raises on restore: a loop's state (its groups, its
+        share of the parameters) belongs to the world that wrote it, and a fresh
+        start from epoch 0 would silently drop it.
+    writer : bool
+        Whether this process writes. The ranks of a nested run hold the same state,
+        and only one of them saves it.
     """
 
     def __init__(
-        self, directory: pathlib.Path | str, label: str, every: int = 25, max_to_keep: int = 3
+        self, directory: pathlib.Path | str, label: str, every: int = 25, max_to_keep: int = 3,
+        world_size: int = 1, writer: bool = True,
     ) -> None:
         self.every = int(every)
+        self.label = label
+        self.world_size = int(world_size)
+        self.writer = writer
         self._manager = CheckpointManager(pathlib.Path(directory) / label, max_to_keep=max_to_keep)
 
     def restore_latest(self) -> dict[str, Any] | None:
-        """The latest saved state, or None for a fresh start."""
-        return self._manager.restore()
+        """The latest saved state, or None for a fresh start. Raises ``ValueError``
+        for a state that another world size wrote."""
+        restored = self._manager.restore()
+        if restored is not None:
+            written_by = int(restored.get("world_size", 1))
+            if written_by != self.world_size:
+                raise ValueError(
+                    f"the checkpoint {self.label} was written by a run of {written_by} process(es); "
+                    f"this run has {self.world_size}: resume it with the world size that wrote it"
+                )
+        return restored
 
     def should_save(self, epoch: int) -> bool:
-        return self.every > 0 and epoch > 0 and epoch % self.every == 0
+        return self.writer and self.every > 0 and epoch > 0 and epoch % self.every == 0
 
     def save(self, epoch: int, state: dict[str, Any]) -> None:
-        self._manager.save(epoch, dict(state, epoch=np.int64(epoch)))
+        self._manager.save(epoch, dict(state, epoch=np.int64(epoch), world_size=np.int64(self.world_size)))
 
     def save_loop(self, epoch: int, optimizer: torch.optim.Optimizer, scheduler, stopper: training.EarlyStopping,
                   history, last_loss: float, **state) -> None:

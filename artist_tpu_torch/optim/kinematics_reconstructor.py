@@ -37,8 +37,14 @@ the measured one in fp32.
   (:mod:`~artist_tpu_torch.optim.checkpointing`).
 - The configuration's ``batch_size`` is not read, as in the JAX package.
 
-Not ported yet, and refused with ``NotImplementedError``: ``mesh`` and
-``distributed_setup``.
+- ``distributed_setup``: in the group-parallel mode each rank reconstructs its
+  round-robin groups alone, and the groups' results, losses and rotation
+  deviations are merged on every rank afterwards. In the nested mode, or with a
+  ``mesh`` given, every rank runs every group on its slice of the samples and
+  rays: the ray slices' flux maps are summed, every sample's loss is gathered
+  before the per-heliostat reduction (the median needs them all), and the
+  deviations' gradient is summed over the ranks
+  (:class:`~artist_tpu_torch.parallel.mesh.ShardPlan`).
 """
 
 from __future__ import annotations
@@ -54,6 +60,9 @@ from artist_tpu_torch.field import heliostat_group as hg
 from artist_tpu_torch.field import kinematics_rigid_body as rigid_body
 from artist_tpu_torch.geometry.transforms import _normalize
 from artist_tpu_torch.optim import checkpointing, losses, training
+from artist_tpu_torch.parallel import collectives
+from artist_tpu_torch.parallel.env import resolve_mesh
+from artist_tpu_torch.parallel.mesh import ShardPlan
 from artist_tpu_torch.raytracing.render import RenderConfig, compute_ray_magnitude, trace_rays
 from artist_tpu_torch.scenario.scenario import Scenario
 from artist_tpu_torch.util import constants
@@ -111,6 +120,11 @@ class KinematicsReconstructor:
         Root of the loops' checkpoints; None saves nothing.
     checkpoint_every : int
         Epochs between checkpoints.
+    mesh : DeviceMesh | None
+        Splits every group's samples and rays over the ranks, which all run
+        every group; defaults to ``distributed_setup.mesh`` in the nested mode.
+    distributed_setup : DistributedSetup | None
+        The run's ranks; group-parallel or nested, as its ``is_nested`` says.
     """
 
     def __init__(
@@ -127,9 +141,8 @@ class KinematicsReconstructor:
         checkpoint_dir=None,
         checkpoint_every: int = 25,
     ) -> None:
-        for name, value in (("mesh", mesh), ("distributed_setup", distributed_setup)):
-            if value is not None:
-                raise NotImplementedError(f"{name} is not ported yet")
+        self.mesh = resolve_mesh(mesh, distributed_setup)
+        self.distributed_setup = distributed_setup
         if reconstruction_method not in (
             constants.kinematics_reconstruction_raytracing,
             constants.kinematics_reconstruction_alignment,
@@ -162,17 +175,19 @@ class KinematicsReconstructor:
     # ------------------------------------------------------------------ #
 
     def _active(self, rotation_deviations: torch.Tensor, batch: dict) -> hg.HeliostatGroupState:
-        """The batch's per-sample group with the samples' rows of ``rotation_deviations``."""
+        """The batch's per-sample group (this rank's samples) with the samples' rows of
+        ``rotation_deviations``, read through the batch's plan."""
         return batch["active"].replace(
-            rotation_deviations=torch.index_select(rotation_deviations, 0, batch["active_indices"])
+            rotation_deviations=torch.index_select(batch["plan"].params(rotation_deviations), 0, batch["active_indices"])
         )
 
     def _trace_flux(self, rotation_deviations: torch.Tensor, batch: dict) -> torch.Tensor:
-        """Align each sample with its measured motor positions and trace its flux ``[S, H, W]``."""
+        """Align each of this rank's samples with its measured motor positions and trace
+        its flux ``[S, H, W]`` from all of its rays."""
         points, normals, _ = hg.align_surfaces_with_motor_positions(
             self._active(rotation_deviations, batch), batch["motor_positions"]
         )
-        return trace_rays(
+        flux = trace_rays(
             tower=self.scenario.solar_tower,
             aligned_surface_points=points,
             aligned_surface_normals=normals,
@@ -183,6 +198,7 @@ class KinematicsReconstructor:
             ray_magnitude=batch["ray_magnitude"],
             config=RenderConfig(bitmap_resolution=self.bitmap_resolution, blocking_active=False),
         )[0]
+        return batch["plan"].flux(flux)
 
     def _flux_loss_per_sample(self, loss_name: str, flux: torch.Tensor, batch: dict) -> torch.Tensor:
         if loss_name == "kl_divergence":
@@ -229,7 +245,7 @@ class KinematicsReconstructor:
                     per_sample = losses.angle_loss(normals, measured)
                 else:
                     per_sample = losses.cosine_similarity_loss(normals[:, :3], measured[:, :3])
-            loss_per_heliostat = per_heliostat(per_sample, batch)
+            loss_per_heliostat = per_heliostat(batch["plan"].per_sample(per_sample), batch)
             return torch.mean(loss_per_heliostat), loss_per_heliostat
 
         def scrubbed(gradients: torch.Tensor) -> torch.Tensor:
@@ -259,7 +275,7 @@ class KinematicsReconstructor:
         def validate_step(rotation_deviations: torch.Tensor, batch: dict) -> dict[str, torch.Tensor]:
             flux = self._trace_flux(rotation_deviations, batch)
             return {
-                key: per_heliostat(self._flux_loss_per_sample(loss, flux, batch), batch)
+                key: per_heliostat(batch["plan"].per_sample(self._flux_loss_per_sample(loss, flux, batch)), batch)
                 for key, loss in VALIDATION_LOSSES.items()
             }
 
@@ -270,30 +286,38 @@ class KinematicsReconstructor:
     @torch.no_grad()
     def _make_batch(self, group: hg.HeliostatGroupState, split, part: str, generator, unique: np.ndarray,
                     traced: bool) -> dict:
-        """The device tensors of one split (``part``: "train" or "test"): the samples,
-        their per-sample copy of the group, the measured normals, the sun
-        distortions (drawn from ``generator``; kept only where ``traced``) and
-        the ragged reduction's matrix over the heliostats ``unique``."""
+        """The device tensors of one split (``part``: "train" or "test"): this rank's
+        samples, their per-sample copy of the group, the measured normals and sun
+        distortions (the whole split's drawn from ``generator``, then sliced; kept
+        only where ``traced``), the split's plan and the ragged reduction's matrix over
+        the heliostats ``unique``."""
         device = self.device
         mask = getattr(split, f"active_heliostats_mask_{part}")
         active_indices = torch.as_tensor(hg.active_indices_from_mask(mask), dtype=torch.long, device=device)
         num_points = group.surface_points.shape[1]
         sun = self.scenario.light_sources[0]
+        # This rank's samples and rays (all of them without a mesh). A batch that is not
+        # traced has no rays to split: the ranks of a ray slice share its samples' work.
+        plan = ShardPlan(self.mesh, active_indices.shape[0], sun.number_of_rays if traced else 1)
         distortions_u, distortions_e = sun.get_distortions(generator, num_points, active_indices.shape[0])
-        if not traced:
+        if traced:
+            distortions_u, distortions_e = plan.distortions(distortions_u), plan.distortions(distortions_e)
+        else:
             distortions_u = distortions_e = None
+        active_indices = plan.take(active_indices)
         if self.dni is not None:
             ray_magnitude = compute_ray_magnitude(self.dni, group.canting, num_points, sun.number_of_rays)
         else:
             ray_magnitude = 1.0
 
         def tensor(name: str, dtype=torch.float32) -> torch.Tensor:
-            return torch.as_tensor(np.asarray(getattr(split, f"{name}_{part}")), dtype=dtype, device=device)
+            return plan.take(torch.as_tensor(np.asarray(getattr(split, f"{name}_{part}")), dtype=dtype, device=device))
 
         active = hg.gather_active(group, active_indices)
         incident = tensor("incident_ray_directions")
         padded, valid = losses.build_sample_index_matrix(np.asarray(mask)[unique])
         return {
+            "plan": plan,
             "active_indices": active_indices,
             "active": active,
             "incident_ray_directions": incident,
@@ -328,7 +352,9 @@ class KinematicsReconstructor:
         loss_definition = self._default_loss(loss_definition)
         outputs: dict[int, dict[str, np.ndarray]] = {}
         for group_index, group in enumerate(self.scenario.heliostat_groups):
-            group_data = training.group_calibration_split(self.data, self.scenario, group, self.bitmap_resolution)
+            group_data = training.group_calibration_split(
+                self.data, self.scenario, group, self.bitmap_resolution, group_index, self.distributed_setup
+            )
             if group_data is None:
                 continue
             unique, split = group_data
@@ -336,7 +362,7 @@ class KinematicsReconstructor:
             _, _, gradient_step = self._build_step_functions(loss_definition)
             loss, gradients, _ = gradient_step(group.rotation_deviations, train_batch)
             outputs[group_index] = {"loss": loss.cpu().numpy(), "gradients": gradients.cpu().numpy()}
-        return outputs
+        return collectives.merge_group_outputs(self.distributed_setup, outputs)
 
     def reconstruct_kinematics(
         self,
@@ -371,9 +397,12 @@ class KinematicsReconstructor:
         log_step = int(self.optimizer_dict.get(constants.log_step, 0)) or max_epoch
         initial_lr = float(self.optimizer_dict[constants.initial_learning_rate_rotation_deviation])
 
+        reconstructed_deviations: dict[int, np.ndarray] = {}
         offset = 0
         for group_index, group in enumerate(list(groups)):
-            group_data = training.group_calibration_split(self.data, self.scenario, group, self.bitmap_resolution)
+            group_data = training.group_calibration_split(
+                self.data, self.scenario, group, self.bitmap_resolution, group_index, self.distributed_setup
+            )
             if group_data is None:
                 offset += group.number_of_heliostats
                 continue
@@ -400,7 +429,8 @@ class KinematicsReconstructor:
             checkpointer = None
             if self.checkpoint_dir is not None:
                 checkpointer = checkpointing.LoopCheckpointer(
-                    self.checkpoint_dir, f"kinematics_group_{group_index}", every=self.checkpoint_every
+                    self.checkpoint_dir, f"kinematics_group_{group_index}", every=self.checkpoint_every,
+                    **checkpointing.world_options(self.distributed_setup),
                 )
                 restored = checkpointer.restore_loop(optimizer, scheduler, early_stopper, history)
                 if restored is not None:
@@ -439,6 +469,7 @@ class KinematicsReconstructor:
                 epoch += 1
 
             groups[group_index] = group.replace(rotation_deviations=rotation_deviations.detach())
+            reconstructed_deviations[group_index] = rotation_deviations.detach().cpu().numpy()
             per_heliostat_np = (
                 per_heliostat.cpu().numpy()
                 if per_heliostat is not None
@@ -456,4 +487,13 @@ class KinematicsReconstructor:
             )
             offset += group.number_of_heliostats
             log.info("Kinematics reconstructed for group %d.", group_index)
+
+        final_loss, results, merged = collectives.synchronize_group_results(
+            self.distributed_setup, final_loss, results, reconstructed_deviations
+        )
+        for group_index, deviations in merged.items():
+            if group_index not in reconstructed_deviations:
+                groups[group_index] = groups[group_index].replace(
+                    rotation_deviations=torch.as_tensor(deviations, device=self.device)
+                )
         return final_loss, results

@@ -27,9 +27,19 @@ update. Validation on the held-out samples at the logged epochs.
   ``surface_group_{i}``, and a new run with the same directory resumes from
   the latest (:mod:`~artist_tpu_torch.optim.checkpointing`).
 
-Not ported yet, and refused with ``NotImplementedError``: ``mesh`` and
-``distributed_setup``. With no distributed setup the JAX package's result
-synchronisation returns the local results, as this does.
+- ``distributed_setup`` (:func:`~artist_tpu_torch.parallel.setup_distributed_environment`):
+  in the group-parallel mode (no more ranks than groups) each rank reconstructs
+  its round-robin groups alone; afterwards the groups' results, losses and
+  control points are merged on every rank
+  (:func:`~artist_tpu_torch.parallel.collectives.synchronize_group_results`) and
+  each group reconstructed elsewhere is refreshed from its control points. In the
+  nested mode (more ranks than groups), or with a ``mesh`` given, every rank runs
+  every group on its slice of the samples (the mesh's ``heliostats`` dim) and of
+  the rays (its ``rays`` dim): the ray slices' flux maps are summed before the
+  crop, the per-sample losses and flux integrals gathered before the reduction,
+  and the control points' gradient summed over the ranks, so every rank takes the
+  same step as one process (:class:`~artist_tpu_torch.parallel.mesh.ShardPlan`).
+  Each rank draws the whole batch's distortions and keeps its slice.
 """
 
 from __future__ import annotations
@@ -47,6 +57,9 @@ from artist_tpu_torch.flux.bitmap import crop_flux_distributions_around_center
 from artist_tpu_torch.nurbs import create_nurbs_evaluation_grid, evaluate_nurbs_surfaces
 from artist_tpu_torch.optim import checkpointing, losses, training
 from artist_tpu_torch.optim.regularizers import ideal_surface_regularizer, smoothness_regularizer
+from artist_tpu_torch.parallel import collectives
+from artist_tpu_torch.parallel.env import resolve_mesh
+from artist_tpu_torch.parallel.mesh import ShardPlan
 from artist_tpu_torch.raytracing.render import RenderConfig, compute_ray_magnitude, trace_rays
 from artist_tpu_torch.scenario.scenario import Scenario, update_surfaces
 from artist_tpu_torch.util import constants
@@ -122,7 +135,12 @@ class SurfaceReconstructor:
     ray_chunk : int | None
         Chunk of the ray axis of the trace (``RenderConfig.ray_chunk``): each
         chunk is recomputed in the backward, which bounds the step's
-        activation memory at production shapes.
+        activation memory at production shapes. It must divide each rank's rays.
+    mesh : DeviceMesh | None
+        Splits every group's samples and rays over the ranks, which all run
+        every group; defaults to ``distributed_setup.mesh`` in the nested mode.
+    distributed_setup : DistributedSetup | None
+        The run's ranks; group-parallel or nested, as its ``is_nested`` says.
     """
 
     def __init__(
@@ -141,9 +159,8 @@ class SurfaceReconstructor:
         checkpoint_every: int = 25,
         ray_chunk: int | None = None,
     ) -> None:
-        for name, value in (("mesh", mesh), ("distributed_setup", distributed_setup)):
-            if value is not None:
-                raise NotImplementedError(f"{name} is not ported yet")
+        self.distributed_setup = distributed_setup
+        self.mesh = resolve_mesh(mesh, distributed_setup)
         self.scenario = scenario
         self.device = scenario.heliostat_groups[0].positions.device
         self.data = data
@@ -180,8 +197,10 @@ class SurfaceReconstructor:
         weight_ideal = float(self.constraint_dict[constants.weight_ideal_surface])
 
         def predict_cropped_flux(control_points: torch.Tensor, batch: dict) -> torch.Tensor:
+            """This rank's samples' cropped flux, from all of its rays."""
+            plan = batch["plan"]
             points, normals = evaluate_nurbs_surfaces(
-                torch.index_select(control_points, 0, batch["active_indices"]),
+                torch.index_select(plan.params(control_points), 0, batch["active_indices"]),
                 group.nurbs_degrees,
                 evaluation_points,
                 canting=batch["canting"],
@@ -204,12 +223,16 @@ class SurfaceReconstructor:
                 ray_magnitude=batch["ray_magnitude"],
                 config=render_config,
             )[0]
-            return crop_flux_distributions_around_center(flux, tower, batch["target_area_indices"])
+            return crop_flux_distributions_around_center(plan.flux(flux), tower, batch["target_area_indices"])
 
         def per_heliostat(loss_per_sample: torch.Tensor, batch: dict) -> torch.Tensor:
             return losses.reduce_loss_per_heliostat(
                 loss_per_sample, batch["padded_sample_indices"], batch["sample_valid"], "mean"
             )
+
+        def gathered(local_loss: Callable, cropped: torch.Tensor, batch: dict) -> torch.Tensor:
+            """Every sample's ``local_loss`` from each rank's cropped flux."""
+            return batch["plan"].per_sample(local_loss(cropped, batch["flux_measured"]))
 
         def loss_terms(
             control_points: torch.Tensor,
@@ -219,10 +242,10 @@ class SurfaceReconstructor:
             original_control_points: torch.Tensor,
         ):
             cropped = predict_cropped_flux(control_points, batch)
-            flux_loss_per_heliostat = per_heliostat(flux_loss_fn(cropped, batch["flux_measured"]), batch)
+            flux_loss_per_heliostat = per_heliostat(gathered(flux_loss_fn, cropped, batch), batch)
 
             # Augmented-Lagrangian flux-integral (energy) constraint.
-            flux_integrals = torch.sum(cropped, dim=(1, 2))
+            flux_integrals = batch["plan"].per_sample(torch.sum(cropped, dim=(1, 2)))
             relative_differences = (flux_integrals - flux_integrals_reference) / (
                 flux_integrals_reference + epsilon
             )
@@ -295,15 +318,13 @@ class SurfaceReconstructor:
         def validate_step(control_points: torch.Tensor, batch: dict) -> dict[str, torch.Tensor]:
             cropped = predict_cropped_flux(control_points, batch)
             return {
-                "test_loss_pixel": per_heliostat(losses.pixel_loss(cropped, batch["flux_measured"]), batch),
-                "test_loss_kl_divergence": per_heliostat(
-                    losses.kl_divergence_loss(cropped, batch["flux_measured"]), batch
-                ),
+                "test_loss_pixel": per_heliostat(gathered(losses.pixel_loss, cropped, batch), batch),
+                "test_loss_kl_divergence": per_heliostat(gathered(losses.kl_divergence_loss, cropped, batch), batch),
             }
 
         @torch.no_grad()
         def reference_integrals(control_points: torch.Tensor, batch: dict) -> torch.Tensor:
-            return torch.sum(predict_cropped_flux(control_points, batch), dim=(1, 2))
+            return batch["plan"].per_sample(torch.sum(predict_cropped_flux(control_points, batch), dim=(1, 2)))
 
         return train_step, validate_step, reference_integrals, gradient_step
 
@@ -321,8 +342,9 @@ class SurfaceReconstructor:
         sun,
         row_heliostats: np.ndarray,
     ) -> dict:
-        """The device tensors of one split: samples, their orientations, sun
-        distortions (drawn from ``generator``) and the ragged reduction's matrix.
+        """The device tensors of one split: this rank's samples, their orientations and
+        sun distortions (the whole split's drawn from ``generator``, then sliced), the
+        split's :class:`ShardPlan` and the ragged reduction's matrix over all samples.
 
         ``row_heliostats`` (group-local indices of the calibration-active
         heliostats) fixes the per-heliostat rows, so the reduction stays
@@ -337,18 +359,22 @@ class SurfaceReconstructor:
             * self.number_of_surface_points[1]
             * group.number_of_facets_per_heliostat
         )
-        distortions_u, distortions_e = sun.get_distortions(generator, num_points, num_samples)
+        # This rank's samples and rays (all of them without a mesh).
+        plan = ShardPlan(self.mesh, num_samples, sun.number_of_rays)
+        distortions_u, distortions_e = map(plan.distortions, sun.get_distortions(generator, num_points, num_samples))
         if self.dni is not None:
             ray_magnitude = compute_ray_magnitude(self.dni, group.canting, num_points, sun.number_of_rays)
         else:
             ray_magnitude = 1.0
-        target_indices = torch.as_tensor(np.asarray(targets), dtype=torch.long, device=device)
+        active_indices = plan.take(active_indices)
+        target_indices = plan.take(torch.as_tensor(np.asarray(targets), dtype=torch.long, device=device))
         aim_points = get_centers_of_target_areas(self.scenario.solar_tower, target_indices)
-        incident_directions = torch.as_tensor(np.asarray(incident, dtype=np.float32), device=device)
+        incident_directions = plan.take(torch.as_tensor(np.asarray(incident, dtype=np.float32), device=device))
         active = hg.gather_active(group, active_indices)
         orientations = hg.align_surfaces_with_incident_ray_directions(active, aim_points, incident_directions)[2]
         padded, valid = losses.build_sample_index_matrix(np.asarray(mask)[row_heliostats])
         return {
+            "plan": plan,
             "active_indices": active_indices,
             "canting": active.canting,
             "facet_translations": active.facet_translations,
@@ -357,7 +383,7 @@ class SurfaceReconstructor:
             "target_area_indices": target_indices,
             "distortions_u": distortions_u,
             "distortions_e": distortions_e,
-            "flux_measured": torch.as_tensor(np.asarray(flux, dtype=np.float32), device=device),
+            "flux_measured": plan.take(torch.as_tensor(np.asarray(flux, dtype=np.float32), device=device)),
             "ray_magnitude": ray_magnitude,
             "unique_heliostats": torch.as_tensor(row_heliostats, dtype=torch.long, device=device),
             "padded_sample_indices": torch.as_tensor(padded, dtype=torch.long, device=device),
@@ -401,7 +427,9 @@ class SurfaceReconstructor:
         """
         outputs: dict[int, dict[str, np.ndarray]] = {}
         for group_index, group in enumerate(self.scenario.heliostat_groups):
-            group_data = training.group_calibration_split(self.data, self.scenario, group, self.bitmap_resolution)
+            group_data = training.group_calibration_split(
+                self.data, self.scenario, group, self.bitmap_resolution, group_index, self.distributed_setup
+            )
             if group_data is None:
                 continue
             unique, split = group_data
@@ -430,7 +458,7 @@ class SurfaceReconstructor:
                 "flux_integrals": aux["flux_integrals"].cpu().numpy(),
                 "lambda_flux_integral": lambda_flux.cpu().numpy(),
             }
-        return outputs
+        return collectives.merge_group_outputs(self.distributed_setup, outputs)
 
     def reconstruct_surfaces(
         self,
@@ -464,9 +492,12 @@ class SurfaceReconstructor:
         log_step = int(self.optimizer_dict.get(constants.log_step, 0)) or max_epoch
         initial_lr = float(self.optimizer_dict[constants.initial_learning_rate])
 
+        reconstructed_control_points: dict[int, np.ndarray] = {}
         offset = 0
         for group_index, group in enumerate(list(groups)):
-            group_data = training.group_calibration_split(self.data, self.scenario, group, self.bitmap_resolution)
+            group_data = training.group_calibration_split(
+                self.data, self.scenario, group, self.bitmap_resolution, group_index, self.distributed_setup
+            )
             if group_data is None:
                 offset += group.number_of_heliostats
                 continue
@@ -496,7 +527,8 @@ class SurfaceReconstructor:
             checkpointer = None
             if self.checkpoint_dir is not None:
                 checkpointer = checkpointing.LoopCheckpointer(
-                    self.checkpoint_dir, f"surface_group_{group_index}", every=self.checkpoint_every
+                    self.checkpoint_dir, f"surface_group_{group_index}", every=self.checkpoint_every,
+                    **checkpointing.world_options(self.distributed_setup),
                 )
                 restored = checkpointer.restore_loop(optimizer, scheduler, early_stopper, history)
                 if restored is not None:
@@ -548,6 +580,7 @@ class SurfaceReconstructor:
             groups[group_index] = update_surfaces(
                 group.replace(nurbs_control_points=control_points.detach()), self.number_of_surface_points
             )
+            reconstructed_control_points[group_index] = control_points.detach().cpu().numpy()
             per_heliostat = (
                 total_per_heliostat.cpu().numpy()
                 if total_per_heliostat is not None
@@ -565,4 +598,14 @@ class SurfaceReconstructor:
             )
             offset += group.number_of_heliostats
             log.info("Surfaces reconstructed for group %d.", group_index)
+
+        final_loss, results, merged = collectives.synchronize_group_results(
+            self.distributed_setup, final_loss, results, reconstructed_control_points
+        )
+        for group_index, control_points in merged.items():
+            if group_index not in reconstructed_control_points:
+                groups[group_index] = update_surfaces(
+                    groups[group_index].replace(nurbs_control_points=torch.as_tensor(control_points, device=self.device)),
+                    self.number_of_surface_points,
+                )
         return final_loss, results

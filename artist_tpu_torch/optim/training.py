@@ -207,11 +207,16 @@ def train_test_split(
 
 
 def group_calibration_split(
-    data: dict, scenario, group, bitmap_resolution: tuple[int, int]
+    data: dict, scenario, group, bitmap_resolution: tuple[int, int], group_index: int = 0, distributed_setup=None
 ) -> tuple[np.ndarray, TrainTestSplit] | None:
-    """The calibration data of one heliostat group, from ``data``'s parser, and its
-    train/test split: (the group-local indices of the heliostats with data, the
-    split), or None where the group has no sample."""
+    """The calibration data of heliostat group ``group_index``, from ``data``'s
+    parser, and its train/test split: (the group-local indices of the heliostats
+    with data, the split), or None where the group has no sample or another rank of
+    a group-parallel ``distributed_setup`` reconstructs it."""
+    from artist_tpu_torch.parallel.env import runs_group
+
+    if not runs_group(distributed_setup, group_index):
+        return None
     calibration = data[constants.data_parser].parse_data_for_reconstruction(
         heliostat_data_mapping=data[constants.heliostat_data_mapping],
         heliostat_names=group.names,

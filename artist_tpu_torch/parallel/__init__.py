@@ -1,10 +1,37 @@
-"""Heliostat-axis microbatching (:mod:`~artist_tpu_torch.parallel.microbatch`).
+"""Processes, their meshes and collectives, and heliostat-axis microbatching.
 
-The JAX package's ``env``, ``collectives`` and ``mesh`` (processes, device
-meshes and their collectives) are not ported yet.
+Counterpart of ``artist_tpu/parallel``: :mod:`~artist_tpu_torch.parallel.env`
+(the process group and :class:`DistributedSetup`),
+:mod:`~artist_tpu_torch.parallel.mesh` (the ``("heliostats", "rays")`` mesh and
+the slices it shards), :mod:`~artist_tpu_torch.parallel.collectives` (result
+merges and differentiable exchanges) and
+:mod:`~artist_tpu_torch.parallel.microbatch`.
 """
 
-from artist_tpu_torch.parallel import microbatch
+from artist_tpu_torch.parallel import collectives, microbatch
+from artist_tpu_torch.parallel.env import DistributedSetup, setup_distributed_environment
+from artist_tpu_torch.parallel.mesh import (
+    distribute_groups_among_ranks,
+    make_mesh,
+    put_global,
+    ray_sharding,
+    replicated_sharding,
+    sample_sharding,
+)
 from artist_tpu_torch.parallel.microbatch import chunked_map, chunked_sum, chunked_sum_and_map
 
-__all__ = ["chunked_map", "chunked_sum", "chunked_sum_and_map", "microbatch"]
+__all__ = [
+    "DistributedSetup",
+    "collectives",
+    "setup_distributed_environment",
+    "distribute_groups_among_ranks",
+    "make_mesh",
+    "put_global",
+    "sample_sharding",
+    "ray_sharding",
+    "replicated_sharding",
+    "microbatch",
+    "chunked_map",
+    "chunked_sum",
+    "chunked_sum_and_map",
+]

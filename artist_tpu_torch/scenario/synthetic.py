@@ -1,14 +1,17 @@
 """Synthetic scenario and calibration data for the benchmark step, the chip smoke run and tests.
 
-Counterpart of ``make_synthetic_scenario`` and ``SyntheticCalibrationParser``
-in ``artist_tpu/scenario/synthetic.py``: a physically plausible solar-tower
-field built in memory (no HDF5) - heliostats on a grid south of a planar
-receiver, AA39-like linear actuators and 4-facet canted surfaces (parameter
-values of the PAINT Juelich single-heliostat test scenario) - and
-deterministic focal-spot bitmaps to reconstruct surfaces from.
+Counterpart of ``make_synthetic_scenario``, ``split_into_groups`` and
+``SyntheticCalibrationParser`` in ``artist_tpu/scenario/synthetic.py``: a
+physically plausible solar-tower field built in memory (no HDF5) - heliostats
+on a grid south of a planar receiver, AA39-like linear actuators and 4-facet
+canted surfaces (parameter values of the PAINT Juelich single-heliostat test
+scenario) -, the same field split into several groups, and deterministic
+focal-spot bitmaps to reconstruct surfaces from.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
@@ -156,6 +159,35 @@ def make_synthetic_scenario(
         light_sources=[Sun(number_of_rays=number_of_rays)],
         heliostat_groups=[group],
         heliostat_group_names=[f"{constants.rigid_body_key}_{actuator_type}"],
+    )
+
+
+def split_into_groups(scenario: Scenario, number_of_groups: int) -> Scenario:
+    """A single-group scenario split into ``number_of_groups`` contiguous groups of
+    equal size (views of its tensors), for multi-group runs and tests."""
+    if len(scenario.heliostat_groups) != 1:
+        raise ValueError("split_into_groups expects a single-group scenario")
+    group = scenario.heliostat_groups[0]
+    total = group.number_of_heliostats
+    if total % number_of_groups:
+        raise ValueError(f"{total} heliostats do not split evenly into {number_of_groups} groups")
+    size = total // number_of_groups
+    groups = []
+    for start in range(0, total, size):
+        replacements = {}
+        for field in dataclasses.fields(group):
+            value = getattr(group, field.name)
+            if (isinstance(value, torch.Tensor) and value.ndim >= 1 and value.shape[0] == total) or (
+                field.name == "names"
+            ):
+                replacements[field.name] = value[start : start + size]
+        groups.append(group.replace(**replacements))
+    return Scenario(
+        power_plant_position=scenario.power_plant_position,
+        solar_tower=scenario.solar_tower,
+        light_sources=scenario.light_sources,
+        heliostat_groups=groups,
+        heliostat_group_names=[f"{scenario.heliostat_group_names[0]}_{i}" for i in range(number_of_groups)],
     )
 
 

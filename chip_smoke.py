@@ -118,6 +118,17 @@ exits non-zero without them. It imports only ``torch``, ``numpy`` and the
     256 x 256) and against the analytic surfaces at the same grid, launch counts
     asserted (:func:`ingress_launches`); c. the splat forward at that render's
     shape against its plain version, timed.
+16. multi-process runs (``artist_tpu_torch.parallel``): the three optimizers at
+    the widths of phases 12, 13 (both methods) and 14 (the plant field), a few
+    epochs each, on the field as one group and split into two
+    (``split_into_groups``): in a world of one without a setup and with an NCCL
+    setup, which must agree; then in a world of two gloo ranks spawned on the one
+    card (:func:`world_of_two`), group-parallel on the two-group field and nested
+    on the one-group field, each held against the world of one (losses,
+    parameters, the aim point's factors and each optimizer's first gradient) and
+    the ranks against each other, bit for bit. It prints each run's epoch
+    seconds, the seconds in collectives, the peak memory of each rank and the
+    launches of each rank, asserted against :func:`distributed_launches`.
 
 Phase 3 also holds the dynamic-window kernels (3d: on the block-window
 step's first chunk in place with the tile order, as that step splats it,
@@ -139,9 +150,12 @@ just after. Then one JSON line of per-kernel numbers and, last, the
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import pathlib
+import pickle
+import socket
 import subprocess
 import sys
 import tempfile
@@ -192,6 +206,8 @@ from artist_tpu_torch.optim.aim_point_optimizer import AimPointOptimizer  # noqa
 from artist_tpu_torch.optim.kinematics_reconstructor import VALIDATION_LOSSES, KinematicsReconstructor  # noqa: E402
 from artist_tpu_torch.optim.losses import kl_divergence_loss  # noqa: E402
 from artist_tpu_torch.optim.surface_reconstructor import SurfaceReconstructor  # noqa: E402
+from artist_tpu_torch.parallel import collectives, setup_distributed_environment  # noqa: E402
+from artist_tpu_torch.parallel.env import runs_group  # noqa: E402
 from artist_tpu_torch.parallel.microbatch import chunked_map, chunked_sum  # noqa: E402
 from artist_tpu_torch.raytracing import geometry, lbvh  # noqa: E402
 from artist_tpu_torch.raytracing.blocking import (  # noqa: E402
@@ -201,7 +217,11 @@ from artist_tpu_torch.raytracing.blocking import (  # noqa: E402
 from artist_tpu_torch.raytracing.render import RenderConfig, point_permutation, ray_splat_inputs, trace_rays  # noqa: E402
 from artist_tpu_torch.scenario.scenario import _assemble_heliostat_groups, _read_heliostats  # noqa: E402
 from artist_tpu_torch.scenario.surface_generator import SurfaceGenerator  # noqa: E402
-from artist_tpu_torch.scenario.synthetic import SyntheticCalibrationParser, make_synthetic_scenario  # noqa: E402
+from artist_tpu_torch.scenario.synthetic import (  # noqa: E402
+    SyntheticCalibrationParser,
+    make_synthetic_scenario,
+    split_into_groups,
+)
 from artist_tpu_torch.scene.sun import Sun  # noqa: E402
 from artist_tpu_torch.tools import sass_counts, splat_formulation_bench  # noqa: E402
 from artist_tpu_torch.util import constants  # noqa: E402
@@ -3113,13 +3133,29 @@ def kinematics_configuration(max_epoch: int) -> dict:
 
 
 class CalibrationSamples:
-    """A calibration parser that returns the given ``CalibrationData`` (of one group)."""
+    """A calibration parser over the given ``CalibrationData`` of a synthetic field's
+    heliostats ``H0000``, ``H0001``, ... (each heliostat's samples consecutive): a
+    group gets its own heliostats' samples, found by name (the whole data for the
+    whole field), so a field split into groups reads the same samples."""
 
     def __init__(self, data: CalibrationData):
         self.data = data
 
-    def parse_data_for_reconstruction(self, **kwargs) -> CalibrationData:
-        return self.data
+    def parse_data_for_reconstruction(self, heliostat_names, **kwargs) -> CalibrationData:
+        heliostats = np.array([int(name[1:]) for name in heliostat_names])
+        counts = np.asarray(self.data.active_heliostats_mask)
+        if np.array_equal(heliostats, np.arange(len(counts))):
+            return self.data
+        starts = np.concatenate([[0], np.cumsum(counts)[:-1]])
+        rows = np.concatenate([np.arange(starts[h], starts[h] + counts[h]) for h in heliostats])
+        return CalibrationData(
+            flux_measured=self.data.flux_measured[rows],
+            focal_spots=self.data.focal_spots[rows],
+            incident_ray_directions=self.data.incident_ray_directions[rows],
+            motor_positions=self.data.motor_positions[rows],
+            active_heliostats_mask=counts[heliostats],
+            target_area_indices=self.data.target_area_indices[rows],
+        )
 
 
 def known_rotation_deviations(heliostats: int, seed: int = SEED + 11, magnitudes=KNOWN_DEVIATIONS) -> np.ndarray:
@@ -4068,6 +4104,381 @@ def check_plant_kernels(device: torch.device, **size) -> dict[str, dict]:
 # the formulation tool (phase 11) for its kernels; the LBVH mask at the plant
 # chunk (phase 14c) for the LBVH traversal. "launches_by_path" gives every path's,
 # the plant-scale example's (phase 14a) and the XL steps' (14b) among them.
+# --------------------------------------------------------------------------- #
+# Multi-process runs (phase 16).
+# --------------------------------------------------------------------------- #
+
+# Each optimizer at the widths of its production phase (surface: phase 12; kinematics:
+# phase 13, both methods; aim point: phase 14's plant field), for DISTRIBUTED_EPOCHS
+# (max_epoch) on a fresh field. A world of one runs each twice on the field as one
+# group and twice split into two groups (split_into_groups), without a setup and
+# with an NCCL setup of one rank; a world of two gloo ranks, both on the card, runs
+# the two-group field group-parallel and the one-group field nested (mesh (2, 1):
+# the samples, or the aim point's heliostats, split over the ranks).
+RAYTRACING = constants.kinematics_reconstruction_raytracing
+ALIGNMENT = constants.kinematics_reconstruction_alignment
+DISTRIBUTED_OPTIMIZERS = ("surface", RAYTRACING, ALIGNMENT, "aim_point")
+DISTRIBUTED_EPOCHS = {"surface": 3, RAYTRACING: 2, ALIGNMENT: 20, "aim_point": 2}
+# Samples a heliostat of the kinematics runs (phase 13's 20; cut here, never the rays,
+# the bitmap or the surface points, if two ranks do not fit on the card).
+DISTRIBUTED_KINEMATICS_SAMPLES = KINEMATICS["samples"]
+DISTRIBUTED_PLANT_CHUNK = plant_scale_aim_points.CHUNK
+DISTRIBUTED_TIMEOUT = 300.0  # seconds a collective waits for the other rank
+# World two against world one: the JAX package's tolerances
+# (tests/parallel/test_distributed.py:80-190), losses relative, parameters absolute,
+# except two that ask for bit equality, which the card does not give: row 1 orders a
+# pixel's deposits differently in each launch, so two runs of one process part by
+# rounding, and Adam turns a rounding-level change of a small gradient entry into a
+# visible change of its step. Motor positions (~6.5e4 steps, float32 spacing 0.0039
+# there; JAX's 1e-3 is below it) are held to MOTOR_STEPS, about three times the largest
+# gap read between two runs that should agree (0.027 steps between two world-one runs,
+# 0.031 between world two and world one, on an H100 80GB HBM3 at 700 W); factors (ray
+# counts over rays x points) to FACTOR_RAYS rays of a heliostat, where the same runs
+# parted by one ray (5e-5). The first gradients are held to GRADIENT_SHARE of their largest entry: a
+# backward that sums a replicated cotangent doubles them, and Adam's scale-free step
+# hides that from the parameters.
+GROUP_PARALLEL_TOLERANCE = dict(loss=1e-5, aim_point_loss=1e-4, parameters=1e-6)
+NESTED_TOLERANCE = dict(loss=1e-4, aim_point_loss=1e-4, parameters=1e-5)
+MOTOR_STEPS = 0.1
+FACTOR_RAYS = 2
+GRADIENT_SHARE = 1e-3
+
+
+def distributed_optimizer(device: torch.device, name: str, groups: int, setup, data: CalibrationData | None):
+    """A fresh field of ``groups`` groups and ``name``'s optimizer on it, at its production widths."""
+    if name == "surface":
+        scenario = make_synthetic_scenario(
+            number_of_heliostats=RECON_HELIOSTATS, number_of_control_points_per_facet=RECON_CONTROL_POINTS,
+            number_of_surface_points_per_facet=RECON_SURFACE_POINTS, number_of_rays=RECON_RAYS, device=device,
+        )
+        return SurfaceReconstructor(
+            scenario=split_into_groups(scenario, groups) if groups > 1 else scenario,
+            data={constants.data_parser: SyntheticCalibrationParser(samples_per_heliostat=RECON_SAMPLES),
+                  constants.heliostat_data_mapping: []},
+            optimization_configuration=reconstruction_configuration(DISTRIBUTED_EPOCHS[name]),
+            number_of_surface_points=RECON_SURFACE_POINTS, bitmap_resolution=BITMAP, ray_chunk=RECON_RAY_CHUNK,
+            seed=SEED, distributed_setup=setup,
+        )
+    if name in (RAYTRACING, ALIGNMENT):
+        scenario = kinematics_scenario(device, KINEMATICS)
+        return KinematicsReconstructor(
+            scenario=split_into_groups(scenario, groups) if groups > 1 else scenario,
+            data={constants.data_parser: CalibrationSamples(data), constants.heliostat_data_mapping: []},
+            optimization_configuration=kinematics_configuration(DISTRIBUTED_EPOCHS[name]),
+            reconstruction_method=name, bitmap_resolution=KINEMATICS["bitmap"], seed=SEED, distributed_setup=setup,
+        )
+    scenario = make_synthetic_scenario(
+        number_of_heliostats=plant_scale_aim_points.HELIOSTATS,
+        number_of_surface_points_per_facet=(plant_scale_aim_points.POINTS,) * 2,
+        number_of_rays=plant_scale_aim_points.RAYS, device=device,
+    )
+    return AimPointOptimizer(
+        scenario=split_into_groups(scenario, groups) if groups > 1 else scenario,
+        optimization_configuration=plant_scale_aim_points.configuration(DISTRIBUTED_EPOCHS[name]),
+        incident_ray_direction=np.array([0.0, 1.0, 0.0, 0.0], np.float32),
+        target_area_index=0,
+        ground_truth=plant_scale_aim_points.ground_truth(),
+        dni=DNI,
+        bitmap_resolution=plant_scale_aim_points.RESOLUTION,
+        blocking_candidates=plant_scale_aim_points.CANDIDATES,
+        # The one-group field of the world of one runs unchunked, as the nested
+        # ranks do (a mesh of two ranks ignores the chunk, with a warning).
+        heliostat_chunk=DISTRIBUTED_PLANT_CHUNK if groups > 1 or setup is not None and setup.is_nested else None,
+        distributed_setup=setup,
+    )
+
+
+def distributed_launches(name: str, groups_run: int, epochs: list[int], chunks: int) -> dict[str, int]:
+    """The launches of one phase-16 call that ran ``groups_run`` groups, the epochs of
+    each in ``epochs`` (each group's run from 0), ``chunks`` heliostat chunks in all
+    (aim point)."""
+    max_epoch = DISTRIBUTED_EPOCHS[name]
+    if name == "surface":
+        return {k: v * groups_run for k, v in reconstruction_launches(max_epoch).items()}
+    if name == "aim_point":
+        return plant_aim_point_launches(max_epoch + 1, chunks)
+    starts = [i for i, epoch in enumerate(epochs) if epoch == 0] + [len(epochs)]
+    total = launches()
+    log_step = kinematics_configuration(max_epoch)[constants.optimization][constants.log_step]
+    for start, end in zip(starts[:-1], starts[1:]):
+        run = epochs[start:end]
+        for kernel, count in kinematics_launches(name, run, max_epoch, log_step, run[-1] < max_epoch).items():
+            total[kernel] += count
+    return total
+
+
+def run_distributed(device: torch.device, name: str, groups: int, setup, data: CalibrationData | None) -> dict:
+    """One phase-16 call of ``name``'s optimizer on a fresh field of ``groups`` groups
+    under ``setup`` (None: no setup): its losses, parameters (and the aim point's
+    factors) in numpy, the seconds and collective seconds of each epoch, the launches
+    (asserted against :func:`distributed_launches`) and the peak memory."""
+    optimizer = distributed_optimizer(device, name, groups, setup, data)
+    epochs, ends, collective = [], [], []
+
+    def on_epoch(epoch: int, loss: float) -> None:
+        epochs.append(epoch)
+        ends.append(time.perf_counter())
+        collective.append(collectives.STATISTICS["seconds"])
+
+    synchronize(device)
+    empty_cache(device)
+    reset_peak_memory(device)
+    reset_launch_counts()
+    collectives.reset_statistics()
+    start = time.perf_counter()
+    out: dict = {}
+    if name in (RAYTRACING, ALIGNMENT):
+        # The gradient's index_add_ sums a heliostat's samples in a fixed order, as in
+        # phase 13c: the alignment loss turns the atomics' rounding into a trajectory of
+        # its own (two runs of one process parted by 23% of the loss in 21 epochs).
+        with deterministic_algorithms():
+            out["final_loss"], results = optimizer.reconstruct_kinematics(on_epoch=on_epoch)
+        out["histories"] = {r.group_index: np.asarray(r.loss_history) for r in results}
+        parameters = [g.rotation_deviations for g in optimizer.scenario.heliostat_groups]
+    elif name == "surface":
+        out["final_loss"], results = optimizer.reconstruct_surfaces("kl_divergence", on_epoch=on_epoch)
+        out["histories"] = {r.group_index: np.asarray(r.loss_history["total_loss"]) for r in results}
+        parameters = [g.nurbs_control_points for g in optimizer.scenario.heliostat_groups]
+    elif name == "aim_point":
+        loss, history, *factors = optimizer.optimize("kl_divergence", on_epoch=on_epoch)
+        out["final_loss"] = np.asarray([loss])
+        out["histories"] = {key: np.asarray(history[key]) for key in ("total_loss", "flux_loss")}
+        out["factors"] = np.stack([f.cpu().numpy() for f in factors])
+        parameters = [g.motor_positions for g in optimizer.scenario.heliostat_groups]
+    synchronize(device)
+    out["seconds"] = time.perf_counter() - start
+    out["parameters"] = [p.detach().cpu().numpy() for p in parameters]
+    out["epoch_seconds"] = np.diff([start] + ends).tolist()
+    out["collective_seconds"] = np.diff([0.0] + collective).tolist()
+    out["collective_calls"] = collectives.STATISTICS["calls"]
+    out["launches"] = launch_counts()
+    out["max_memory_allocated"] = max_memory(device)
+    groups_run = sum(runs_group(setup, g) for g in range(groups))
+    chunks = 1
+    if name == "aim_point" and optimizer.heliostat_chunk:
+        chunks = sum(optimizer.scenario.heliostat_groups[g].number_of_heliostats // optimizer.heliostat_chunk
+                     for g in range(groups) if runs_group(setup, g))
+    out["expected_launches"] = distributed_launches(name, groups_run, epochs, chunks)
+    del optimizer
+    empty_cache(device)
+    out["gradients"] = first_gradients(device, name, groups, setup, data)
+    empty_cache(device)
+    return out
+
+
+def first_gradients(device: torch.device, name: str, groups: int, setup, data: CalibrationData | None) -> list:
+    """The first epoch's gradient of every group's parameters (every group's on every rank),
+    of a fresh optimizer: ``single_step_gradients`` of the reconstructors, the aim point's
+    objective differentiated once."""
+    optimizer = distributed_optimizer(device, name, groups, setup, data)
+    if name == "aim_point":
+        params, forward, loss_fn = optimizer.objective("kl_divergence")
+        with torch.no_grad():
+            flux, intercepts, _, _ = forward(params)
+        zero = torch.zeros((), device=device)
+        for param in params:
+            param.requires_grad_(True)
+        loss, _ = loss_fn(params, (torch.sum(flux), intercepts), (zero, zero, zero))
+        loss.backward()
+        owned = [g for g in range(groups) if runs_group(setup, g)]
+        gradients = collectives.merge_group_outputs(
+            setup, {g: p.grad.cpu().numpy() for g, p in zip(owned, params)}
+        )
+    else:
+        with deterministic_algorithms():
+            gradients = {g: out["gradients"] for g, out in optimizer.single_step_gradients().items()}
+    return [gradients[g] for g in sorted(gradients)]
+
+
+@contextlib.contextmanager
+def deterministic_algorithms():
+    """torch's deterministic algorithms, warning only where an operation has none."""
+    enabled = torch.are_deterministic_algorithms_enabled()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            yield
+        finally:
+            torch.use_deterministic_algorithms(enabled)
+
+
+def save_calibration(path: pathlib.Path, data: CalibrationData) -> None:
+    np.savez(path, **dataclasses.asdict(data))
+
+
+def load_calibration(path: pathlib.Path) -> CalibrationData:
+    with np.load(path) as arrays:
+        return CalibrationData(**{key: arrays[key] for key in arrays.files})
+
+
+def distributed_rank(rank: int, port: int, directory: str) -> None:
+    """One of phase 16's two gloo ranks on the card: every optimizer group-parallel on the
+    two-group field, then nested on the one-group field; pickles the results."""
+    device = torch.device("cuda", 0)
+    torch.cuda.set_device(device)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    warnings.filterwarnings("ignore", message="heliostat_chunk is ignored")
+    data = load_calibration(pathlib.Path(directory) / "calibration.npz")
+    results = {}
+    with setup_distributed_environment(
+        2, coordinator_address=f"127.0.0.1:{port}", num_processes=2, process_id=rank, device="cuda",
+        backend="gloo", timeout=DISTRIBUTED_TIMEOUT,
+    ) as group_parallel:
+        if not (group_parallel.is_distributed and not group_parallel.is_nested):
+            raise AssertionError(f"rank {rank}: not a group-parallel setup: {group_parallel}")
+        results["group_parallel"] = {
+            name: run_distributed(device, name, 2, group_parallel, data) for name in DISTRIBUTED_OPTIMIZERS
+        }
+        with setup_distributed_environment(1, device="cuda", backend="gloo") as nested:
+            if not nested.is_nested:
+                raise AssertionError(f"rank {rank}: not a nested setup: {nested}")
+            results["nested"] = {name: run_distributed(device, name, 1, nested, data) for name in DISTRIBUTED_OPTIMIZERS}
+    with open(pathlib.Path(directory) / f"rank{rank}.pkl", "wb") as handle:
+        pickle.dump(results, handle)
+
+
+def world_of_two(data: CalibrationData) -> list[dict]:
+    """Phase 16's two ranks, spawned and joined (a rank that fails fails the phase, and
+    the other is stopped): each rank's results."""
+    import torch.multiprocessing as mp
+
+    with tempfile.TemporaryDirectory() as directory:
+        save_calibration(pathlib.Path(directory) / "calibration.npz", data)
+        with socket.socket() as probe:
+            probe.bind(("127.0.0.1", 0))
+            port = probe.getsockname()[1]
+        mp.start_processes(distributed_rank, args=(port, directory), nprocs=2, join=True, start_method="spawn")
+        ranks = []
+        for rank in range(2):
+            with open(pathlib.Path(directory) / f"rank{rank}.pkl", "rb") as handle:
+                ranks.append(pickle.load(handle))
+    return ranks
+
+
+def distributed_gaps(ours: dict, reference: dict) -> dict[str, float]:
+    """The largest gaps of a run to its reference: losses relative, parameters and factors absolute."""
+    losses = [ours["final_loss"], *ours["histories"].values()]
+    references = [reference["final_loss"], *reference["histories"].values()]
+    gaps = {
+        "loss": max(float(np.max(np.abs(a - b) / np.maximum(np.abs(b), 1e-30))) for a, b in zip(losses, references)),
+        "parameters": max(float(np.max(np.abs(a - b))) for a, b in zip(ours["parameters"], reference["parameters"])),
+        "gradients": max(float(np.max(np.abs(a - b)) / np.max(np.abs(b)))
+                         for a, b in zip(ours["gradients"], reference["gradients"])),
+    }
+    if "factors" in ours:
+        gaps["factors"] = float(np.max(np.abs(ours["factors"] - reference["factors"])))
+    return gaps
+
+
+def distributed_limits(name: str, tolerance: dict) -> dict[str, float]:
+    """The tolerance of each gap of a run of ``name`` to the run it is held against."""
+    limits = {
+        "loss": tolerance["aim_point_loss" if name == "aim_point" else "loss"],
+        "parameters": tolerance["parameters"],
+        "gradients": GRADIENT_SHARE,
+    }
+    if name == "aim_point":
+        limits["parameters"] = MOTOR_STEPS
+        rays = plant_scale_aim_points.RAYS * 4 * plant_scale_aim_points.POINTS ** 2
+        limits["factors"] = FACTOR_RAYS / rays
+    return limits
+
+
+def distributed_gap_failures(label: str, name: str, gaps: dict, limits: dict) -> list[str]:
+    """Each gap above its limit, described."""
+    return [f"phase 16 {label} {name}: {key} {gap:.6g} > {limits[key]:.6g}"
+            for key, gap in gaps.items() if not gap <= limits[key]]
+
+
+def describe_run(run: dict) -> str:
+    seconds = run["epoch_seconds"]
+    steady = seconds[1:] or seconds
+    return (
+        f"{len(seconds)} epochs in {run['seconds']:.3f} s (median epoch after the first "
+        f"{float(np.median(steady)):.6f} s), collectives {sum(run['collective_seconds']):.6f} s "
+        f"({run['collective_calls']} calls; median an epoch after the first "
+        f"{float(np.median(run['collective_seconds'][1:] or run['collective_seconds'])):.6f} s), "
+        f"max_memory_allocated {run['max_memory_allocated']} B"
+    )
+
+
+def drive_distributed(device: torch.device, data: CalibrationData) -> dict:
+    """Phase 16: the three optimizers in a world of one on NCCL, then in a world of two
+    gloo ranks on the card, group-parallel and nested, each held against the world of
+    one. Returns the path's launches (each rank's, summed over the optimizers) and
+    the measurements."""
+    import torch.distributed as dist
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip().splitlines()[0]
+    _log(f"phase 16 multi-process runs on {smi}; kinematics samples a heliostat: {DISTRIBUTED_KINEMATICS_SAMPLES} "
+         f"({'no cut' if DISTRIBUTED_KINEMATICS_SAMPLES == KINEMATICS['samples'] else 'cut from ' + str(KINEMATICS['samples'])})")
+    # Every check's failure is collected and raised at the phase's end, after every gap is printed.
+    failures: list[str] = []
+    world_one: dict = {}
+    for groups in (2, 1):
+        plain = {name: run_distributed(device, name, groups, None, data) for name in DISTRIBUTED_OPTIMIZERS}
+        with setup_distributed_environment(groups, num_processes=1, device="cuda") as setup:
+            if dist.get_backend() != "nccl" or setup.is_distributed:
+                raise AssertionError(f"phase 16: the world of one is {dist.get_backend()}, {setup}")
+            probe = torch.arange(4.0, device=device)
+            dist.all_reduce(probe)
+            gathered = [None]
+            dist.all_gather_object(gathered, {"rank": setup.rank})
+            if not (torch.equal(probe, torch.arange(4.0, device=device)) and gathered == [{"rank": 0}]):
+                raise AssertionError(f"phase 16: NCCL world of one gave {probe}, {gathered}")
+            nccl = {name: run_distributed(device, name, groups, setup, data) for name in DISTRIBUTED_OPTIMIZERS}
+        world_one[groups] = {"plain": plain, "nccl": nccl}
+        for name in DISTRIBUTED_OPTIMIZERS:
+            for label, run in (("without a setup", plain[name]), ("NCCL world of one", nccl[name])):
+                if run["launches"] != run["expected_launches"]:
+                    failures.append(f"phase 16 {name}, {groups} group(s), {label}: launched {run['launches']}, "
+                                    f"expected {run['expected_launches']}")
+            gaps = distributed_gaps(nccl[name], plain[name])
+            limits = distributed_limits(name, NESTED_TOLERANCE)
+            _log(f"phase 16 {name}, {groups} group(s), world of one: without a setup {describe_run(plain[name])}; "
+                 f"NCCL setup {describe_run(nccl[name])}; gaps {json.dumps(gaps)}, limits {json.dumps(limits)}")
+            failures += distributed_gap_failures(f"NCCL world of one, {groups} group(s)", name, gaps, limits)
+    start = time.perf_counter()
+    ranks = world_of_two(data)
+    spawned = time.perf_counter() - start
+    result = dict(world_one=world_one, ranks=ranks, world_of_two_seconds=spawned)
+    for mode, groups, tolerance in (("group_parallel", 2, GROUP_PARALLEL_TOLERANCE), ("nested", 1, NESTED_TOLERANCE)):
+        for name in DISTRIBUTED_OPTIMIZERS:
+            reference = world_one[groups]["plain"][name]
+            for rank, results in enumerate(ranks):
+                run = results[mode][name]
+                if run["launches"] != run["expected_launches"]:
+                    failures.append(f"phase 16 {mode} {name} rank {rank}: launched {run['launches']}, "
+                                    f"expected {run['expected_launches']}")
+            gaps = [distributed_gaps(results[mode][name], reference) for results in ranks]
+            between = distributed_gaps(ranks[1][mode][name], ranks[0][mode][name])
+            limits = distributed_limits(name, tolerance)
+            _log(f"phase 16 {mode} {name}: world of one {describe_run(reference)}; "
+                 + "; ".join(f"rank {rank} {describe_run(results[mode][name])}, launches "
+                             f"{ {k: v for k, v in results[mode][name]['launches'].items() if v} }"
+                             for rank, results in enumerate(ranks))
+                 + f"; gaps to the world of one {json.dumps(gaps)}, limits {json.dumps(limits)}, between the ranks "
+                   f"{json.dumps(between)}")
+            for rank_gaps in gaps:
+                failures += distributed_gap_failures(mode, name, rank_gaps, limits)
+            if any(between.values()):
+                failures.append(f"phase 16 {mode} {name}: the ranks disagree {between}")
+    _log(f"phase 16 world of two: spawned, ran and joined in {spawned:.3f} s")
+    if failures:
+        raise AssertionError("; ".join(failures))
+    for mode in ("group_parallel", "nested"):
+        for rank, results in enumerate(ranks):
+            result[f"{mode}_rank{rank}"] = {"launches": {
+                kernel: sum(run["launches"][kernel] for run in results[mode].values()) for kernel in KERNELS
+            }}
+    return result
+
+
 MAIN_PATH = {
     "blocking_sigma_forward": "aim_point",
     "blocking_sigma_backward": "aim_point",
@@ -4705,7 +5116,6 @@ def main() -> int:
         timings[kernel_name].update(shape_timings)
     torch.cuda.empty_cache()
     paths["kinematics_raytracing"] = drive_kinematics_raytracing(device, kinematics_data, known)
-    del kinematics_data
     torch.cuda.empty_cache()
     check_resume(device)
     torch.cuda.empty_cache()
@@ -4722,6 +5132,12 @@ def main() -> int:
     for kernel_name, shape_timings in check_ingress_kernels(ingress_group, ingress_tower, ingress_distortions).items():
         timings[kernel_name].update(shape_timings)
     del ingress_group, ingress_distortions
+    torch.cuda.empty_cache()
+    distributed = drive_distributed(device, kinematics_data)
+    del kinematics_data
+    for mode in ("group_parallel", "nested"):
+        for rank in range(2):
+            paths[f"distributed_{mode}_rank{rank}"] = distributed[f"{mode}_rank{rank}"]
 
     case_keys = {key for _, key, *_ in SIGMA_CASES[1:] + FLAT_CASES[1:]} | {
         "kept_primitives", "fit_fraction", "full_splat_ms", "graph_ms", "zero_pairs", "surface_reconstruction_chunk",

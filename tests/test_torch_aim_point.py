@@ -50,6 +50,7 @@ from artist_tpu_torch.field import heliostat_group as hg
 from artist_tpu_torch.flux.bitmap import trapezoid_distribution
 from artist_tpu_torch.optim import training
 from artist_tpu_torch.optim.aim_point_optimizer import AimPointOptimizer
+from artist_tpu_torch.parallel import DistributedSetup
 
 HELIOSTATS = 9  # three rows of three, 3 m apart
 POINTS = (5, 5)
@@ -486,10 +487,20 @@ def test_chunk_recompute_repeats_the_candidate_selection(scene):
         assert any(all(torch.equal(a, b) for a, b in zip(first[:5], again[:5])) for again in calls[3:])
 
 
+class OneRankMesh:
+    """A one-rank stand-in for a ``DeviceMesh``: it splits nothing."""
+
+    mesh_dim_names = ("heliostats", "rays")
+
+    def size(self, dim=None) -> int:
+        return 1
+
+
 @pytest.mark.parametrize("option", ["distributed_setup", "mesh", "checkpoint_dir"])
 def test_aim_point_optimizer_refuses_what_is_not_ported(option, tmp_path):
-    """Every option but ``checkpoint_dir`` is refused; it is ported
-    (``tests/test_torch_checkpointing.py`` resumes from it) and accepted."""
+    """Every option is ported and accepted: ``checkpoint_dir`` (``tests/test_torch_checkpointing.py``
+    resumes from it), ``distributed_setup`` and ``mesh`` (``tests/test_torch_distributed.py`` runs
+    them). What is refused is a mesh in the group-parallel mode, whose ranks run different groups."""
     scenario = _port_scenario(_jax_scenario(), (np.zeros(1), np.zeros(1)))
     arguments = dict(
         scenario=scenario, optimization_configuration=_configuration(1),
@@ -498,9 +509,15 @@ def test_aim_point_optimizer_refuses_what_is_not_ported(option, tmp_path):
     )
     if option == "checkpoint_dir":
         assert AimPointOptimizer(**arguments, checkpoint_dir=tmp_path).checkpoint_dir == tmp_path
+    elif option == "distributed_setup":
+        setup = DistributedSetup(False, False, 0, 1, {0: [0]}, {0: [0]})
+        assert AimPointOptimizer(**arguments, distributed_setup=setup).distributed_setup is setup
     else:
-        with pytest.raises(NotImplementedError):
-            AimPointOptimizer(**arguments, **{option: 2})
+        mesh = OneRankMesh()
+        assert AimPointOptimizer(**arguments, mesh=mesh).mesh is mesh
+        group_parallel = DistributedSetup(True, False, 0, 2, {0: [0], 1: []}, {0: [0]})
+        with pytest.raises(ValueError, match="group-parallel"):
+            AimPointOptimizer(**arguments, mesh=mesh, distributed_setup=group_parallel)
 
 
 def test_chip_smoke_aim_point_agreement_runs_on_the_cpu():

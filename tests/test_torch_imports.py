@@ -63,6 +63,23 @@ def test_source_imports_nothing_forbidden(path):
         assert not file_imports, f"{path}: imports {sorted(file_imports)}"
 
 
+# The multi-process modules and the ray type:
+# checked like every source above, named here so that a missing one fails.
+PARALLEL_MODULES = (
+    "artist_tpu_torch/parallel/env.py",
+    "artist_tpu_torch/parallel/mesh.py",
+    "artist_tpu_torch/parallel/collectives.py",
+    "artist_tpu_torch/scene/rays.py",
+)
+
+
+@pytest.mark.parametrize("module", PARALLEL_MODULES)
+def test_parallel_modules_and_rays_are_checked(module):
+    path = REPO / module
+    assert path in SOURCES
+    assert not _imported_roots(path).keys() & (FORBIDDEN | FILE_PACKAGES)
+
+
 def test_ingress_modules_exist():
     assert all((REPO / module).is_file() for module in INGRESS_MODULES)
 

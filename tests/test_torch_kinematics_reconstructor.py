@@ -73,6 +73,7 @@ from artist_tpu_torch.convert import scenario_from_numpy
 from artist_tpu_torch.geometry.transforms import _normalize
 from artist_tpu_torch.optim import kinematics_reconstructor as reconstructor
 from artist_tpu_torch.optim import losses, training
+from artist_tpu_torch.parallel import DistributedSetup
 from artist_tpu_torch.scenario.synthetic import SyntheticCalibrationParser
 
 HELIOSTATS = 4
@@ -444,9 +445,15 @@ def test_unknown_methods_losses_and_unported_options_are_refused():
     data = {constants.data_parser: SyntheticCalibrationParser(), constants.heliostat_data_mapping: []}
     with pytest.raises(ValueError, match="unknown"):
         reconstructor.KinematicsReconstructor(scenario, data, _configuration(), "least_squares")
-    for option in ("mesh", "distributed_setup"):
-        with pytest.raises(NotImplementedError, match=option):
-            reconstructor.KinematicsReconstructor(scenario, data, _configuration(), **{option: object()})
+    # mesh and distributed_setup are ported (tests/test_torch_distributed.py runs them): accepted,
+    # but a mesh in the group-parallel mode, whose ranks run different groups, is refused.
+    setup = DistributedSetup(False, False, 0, 1, {0: [0]}, {0: [0]})
+    assert reconstructor.KinematicsReconstructor(scenario, data, _configuration(), distributed_setup=setup).mesh is None
+    group_parallel = DistributedSetup(True, False, 0, 2, {0: [0], 1: []}, {0: [0]})
+    with pytest.raises(ValueError, match="group-parallel"):
+        reconstructor.KinematicsReconstructor(
+            scenario, data, _configuration(), mesh=object(), distributed_setup=group_parallel
+        )
     for method, loss in ((ALIGNMENT, "focal_spot"), (RAYTRACING, "angle"), (RAYTRACING, "l2")):
         with pytest.raises(ValueError, match="Unknown loss"):
             reconstructor.KinematicsReconstructor(scenario, data, _configuration(), method).reconstruct_kinematics(loss)

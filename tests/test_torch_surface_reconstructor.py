@@ -70,6 +70,7 @@ from artist_tpu_torch.flux import bitmap
 from artist_tpu_torch.nurbs import create_nurbs_evaluation_grid, evaluate_nurbs_surfaces
 from artist_tpu_torch.optim import losses, regularizers, training
 from artist_tpu_torch.optim import surface_reconstructor as reconstructor
+from artist_tpu_torch.parallel import DistributedSetup
 from artist_tpu_torch.scenario.scenario import update_surfaces
 from artist_tpu_torch.scenario.synthetic import SyntheticCalibrationParser
 
@@ -515,19 +516,37 @@ def test_ray_chunks_do_not_change_the_trajectory():
     np.testing.assert_allclose(histories[RAY_CHUNK], histories[None], rtol=1e-5, atol=0)
 
 
+class OneRankMesh:
+    """A one-rank stand-in for a ``DeviceMesh``: it splits nothing."""
+
+    mesh_dim_names = ("heliostats", "rays")
+
+    def size(self, dim=None) -> int:
+        return 1
+
+
 @pytest.mark.parametrize("option", ["mesh", "distributed_setup", "checkpoint_dir"])
 def test_unported_options_are_refused(option, tmp_path):
-    """``mesh`` and ``distributed_setup`` are refused; ``checkpoint_dir`` is ported
-    (``tests/test_torch_checkpointing.py`` resumes from it) and accepted."""
+    """Every option is ported and accepted: ``checkpoint_dir`` (``tests/test_torch_checkpointing.py``
+    resumes from it), ``mesh`` and ``distributed_setup`` (``tests/test_torch_distributed.py`` runs
+    them). A mesh in the group-parallel mode, whose ranks run different groups, and an unknown
+    loss are refused."""
     _, scenario = _scenarios()
     data = {constants.data_parser: SyntheticCalibrationParser(), constants.heliostat_data_mapping: []}
+    configuration = _configuration(constants.cyclic)
     if option == "checkpoint_dir":
-        configuration = _configuration(constants.cyclic)
         ours = reconstructor.SurfaceReconstructor(scenario, data, configuration, checkpoint_dir=tmp_path)
         assert ours.checkpoint_dir == tmp_path
+    elif option == "distributed_setup":
+        setup = DistributedSetup(False, False, 0, 1, {0: [0]}, {0: [0]})
+        ours = reconstructor.SurfaceReconstructor(scenario, data, configuration, distributed_setup=setup)
+        assert ours.distributed_setup is setup and ours.mesh is None
     else:
-        with pytest.raises(NotImplementedError, match=option):
-            reconstructor.SurfaceReconstructor(scenario, data, _configuration(constants.cyclic), **{option: object()})
+        mesh = OneRankMesh()
+        assert reconstructor.SurfaceReconstructor(scenario, data, configuration, mesh=mesh).mesh is mesh
+        group_parallel = DistributedSetup(True, False, 0, 2, {0: [0], 1: []}, {0: [0]})
+        with pytest.raises(ValueError, match="group-parallel"):
+            reconstructor.SurfaceReconstructor(scenario, data, configuration, mesh=mesh, distributed_setup=group_parallel)
     with pytest.raises(ValueError):
         reconstructor.SurfaceReconstructor(scenario, data, _configuration(constants.cyclic)).reconstruct_surfaces("l2")
 
