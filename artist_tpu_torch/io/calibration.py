@@ -2,9 +2,10 @@
 
 Counterpart of ``artist_tpu/io/calibration.py``: host numpy. The
 :class:`CalibrationData` container is what the inverse problems read;
-:class:`PaintCalibrationDataParser` fills it from PAINT files and
-:class:`~artist_tpu_torch.scenario.synthetic.SyntheticCalibrationParser` in
-memory. ``PIL`` is imported only by :func:`load_flux_from_png`, which resizes
+:class:`PaintCalibrationDataParser` fills it from PAINT files,
+:class:`CalibrationDataParser` from a ``CalibrationData`` already in memory and
+:class:`~artist_tpu_torch.scenario.synthetic.SyntheticCalibrationParser` from a
+seed. ``PIL`` is imported only by :func:`load_flux_from_png`, which resizes
 with PIL's bilinear filter as the JAX package does.
 """
 
@@ -81,6 +82,42 @@ class CalibrationData:
     motor_positions: np.ndarray  # [S, 2]
     active_heliostats_mask: np.ndarray  # [H] multiplicity
     target_area_indices: np.ndarray  # [S]
+
+
+class CalibrationDataParser:
+    """Calibration samples held in memory, handed to the reconstructors as a parser.
+
+    ``data`` holds the samples of the heliostats ``heliostat_names``, each
+    heliostat's samples consecutive and ``data.active_heliostats_mask`` counting
+    them. A group gets its own heliostats' first ``sample_limit`` samples (all with
+    None), in the group's order; a heliostat ``data`` lacks gets none.
+    """
+
+    def __init__(self, data: CalibrationData, heliostat_names, sample_limit: int | None = None) -> None:
+        counts = np.asarray(data.active_heliostats_mask)
+        if len(heliostat_names) != len(counts):
+            raise ValueError(f"{len(heliostat_names)} heliostat names for {len(counts)} sample counts")
+        starts = np.concatenate([[0], np.cumsum(counts)[:-1]]).astype(np.int64)
+        self.data = data
+        self.rows = {
+            name: np.arange(start, start + count) for name, start, count in zip(heliostat_names, starts, counts)
+        }
+        self.sample_limit = sample_limit
+
+    def parse_data_for_reconstruction(self, heliostat_names, **kwargs) -> CalibrationData:
+        """The samples of the group's ``heliostat_names``; the other arguments of the
+        parser protocol are not read."""
+        empty = np.zeros(0, np.int64)
+        rows = [self.rows.get(name, empty)[: self.sample_limit] for name in heliostat_names]
+        index = np.concatenate(rows) if rows else empty
+        return CalibrationData(
+            flux_measured=self.data.flux_measured[index],
+            focal_spots=self.data.focal_spots[index],
+            incident_ray_directions=self.data.incident_ray_directions[index],
+            motor_positions=self.data.motor_positions[index],
+            active_heliostats_mask=np.array([len(r) for r in rows], np.int32),
+            target_area_indices=self.data.target_area_indices[index],
+        )
 
 
 class PaintCalibrationDataParser:

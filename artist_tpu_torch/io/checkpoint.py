@@ -9,6 +9,9 @@ newest ``max_to_keep``.
 
 The files are this package's own: the JAX package does not read them, and
 this package does not read the JAX package's checkpoints.
+:func:`scenario_optimizable_state` and :func:`apply_optimizable_state` carry a
+scenario's optimizable tensors into such a state and back, under the JAX
+package's keys.
 """
 
 from __future__ import annotations
@@ -19,8 +22,42 @@ import pathlib
 from typing import Any
 
 import numpy as np
+import torch
 
 log = logging.getLogger("artist_tpu_torch.io")
+
+OPTIMIZABLE_KEYS = (
+    "nurbs_control_points",
+    "translation_deviations",
+    "rotation_deviations",
+    "actuator_optimizable",
+    "motor_positions",
+)
+
+
+def scenario_optimizable_state(scenario) -> dict[str, Any]:
+    """Every heliostat group's optimizable tensors, as host numpy arrays:
+    ``{"group_<i>": {key: array}}`` for the keys of :data:`OPTIMIZABLE_KEYS`."""
+    return {
+        f"group_{index}": {key: getattr(group, key).detach().cpu().numpy() for key in OPTIMIZABLE_KEYS}
+        for index, group in enumerate(scenario.heliostat_groups)
+    }
+
+
+def apply_optimizable_state(scenario, state: dict[str, Any]):
+    """Write a :func:`scenario_optimizable_state` back into ``scenario``'s groups, on
+    each group's device and in its dtype, and return the scenario. An empty array
+    replaces only an empty tensor (a group without actuator parameters), as in the
+    JAX package."""
+    for index, group in enumerate(scenario.heliostat_groups):
+        replacements = {
+            key: torch.as_tensor(np.asarray(value), dtype=getattr(group, key).dtype, device=group.positions.device)
+            for key, value in state[f"group_{index}"].items()
+            if np.asarray(value).size or getattr(group, key).numel() == 0
+        }
+        scenario.heliostat_groups[index] = group.replace(**replacements)
+    return scenario
+
 
 _KEY_SEPARATOR = "||"
 

@@ -2,7 +2,9 @@
 
 Counterpart of ``artist_tpu/scenario/h5_generator.py``: the same
 flattened-key layout, keys and dtypes, so either package loads the other's
-files. ``h5py`` is imported only by :meth:`H5ScenarioGenerator.generate_scenario`.
+files. ``h5py`` is imported only by :meth:`H5ScenarioGenerator.generate_scenario`;
+:meth:`H5ScenarioGenerator.scenario_image` gives the same content as a nested dict,
+which ``scenario.load_scenario_from_image`` loads without a file.
 """
 
 from __future__ import annotations
@@ -97,11 +99,27 @@ class H5ScenarioGenerator:
                 unique_groups.add((kinematics_type, actuator.actuator_type))
         return len(unique_groups)
 
-    @staticmethod
-    def _include_parameters(file, prefix: str, parameters: dict[str, Any]) -> None:
-        """Write each flattened parameter under ``prefix`` of the open ``h5py.File``."""
-        for key, value in parameters.items():
-            file[f"{prefix}/{key}"] = value
+    def scenario_image(self) -> dict[str, Any]:
+        """The scenario file's content as a nested dict of host values: a dict is an
+        HDF5 group, anything else a dataset."""
+        return {
+            constants.number_of_heliostat_groups: self._get_number_of_heliostat_groups(),
+            constants.power_plant_key: self.power_plant_config.create_power_plant_dict(),
+            constants.target_area_planar_key: {
+                t.target_area_key: t.create_target_area_dict() for t in self.target_area_list_planar_config
+            },
+            constants.target_area_cylindrical_key: {
+                t.target_area_key: t.create_target_area_dict() for t in self.target_area_list_cylindrical_config
+            },
+            constants.light_source_key: {
+                s.light_source_key: s.create_light_source_dict()
+                for s in self.light_source_list_config.light_source_list
+            },
+            constants.prototype_key: self.prototype_config.create_prototype_dict(),
+            constants.heliostat_key: {
+                h.name: h.create_heliostat_dict() for h in self.heliostat_list_config.heliostat_list
+            },
+        }
 
     def generate_scenario(self) -> pathlib.Path:
         """Generate the scenario and save it as an HDF5 file.
@@ -122,64 +140,14 @@ class H5ScenarioGenerator:
                 self.file_path.suffix,
             )
             save_name = self.file_path.with_suffix(".h5")
+        image = self.scenario_image()
         with h5py.File(save_name, "w") as f:
             f.attrs["version"] = self.version
-            f[constants.number_of_heliostat_groups] = (
-                self._get_number_of_heliostat_groups()
-            )
-            self._include_parameters(
-                f,
-                constants.power_plant_key,
-                _flatten(self.power_plant_config.create_power_plant_dict()),
-            )
             # Both target-area groups exist even when empty: a loader may
             # open them unconditionally.
             f.require_group(constants.target_area_planar_key)
             f.require_group(constants.target_area_cylindrical_key)
-            self._include_parameters(
-                f,
-                constants.target_area_planar_key,
-                _flatten(
-                    {
-                        t.target_area_key: t.create_target_area_dict()
-                        for t in self.target_area_list_planar_config
-                    }
-                ),
-            )
-            self._include_parameters(
-                f,
-                constants.target_area_cylindrical_key,
-                _flatten(
-                    {
-                        t.target_area_key: t.create_target_area_dict()
-                        for t in self.target_area_list_cylindrical_config
-                    }
-                ),
-            )
-            self._include_parameters(
-                f,
-                constants.light_source_key,
-                _flatten(
-                    {
-                        s.light_source_key: s.create_light_source_dict()
-                        for s in self.light_source_list_config.light_source_list
-                    }
-                ),
-            )
-            self._include_parameters(
-                f,
-                constants.prototype_key,
-                _flatten(self.prototype_config.create_prototype_dict()),
-            )
-            self._include_parameters(
-                f,
-                constants.heliostat_key,
-                _flatten(
-                    {
-                        h.name: h.create_heliostat_dict()
-                        for h in self.heliostat_list_config.heliostat_list
-                    }
-                ),
-            )
+            for key, value in _flatten(image).items():
+                f[key] = value
         log.info("Scenario generation complete.")
         return save_name

@@ -9,11 +9,14 @@ The loader reads the file on the host (:func:`_read_heliostats` and the
 ``_load_*`` readers, which take open ``h5py`` objects), then builds the
 groups on the device (:func:`_assemble_heliostat_groups`, which samples each
 distinct surface once with :func:`sample_surface`). ``h5py`` is imported only
-by the two functions that open a file.
+by the two functions that open a file. :func:`load_scenario_from_image` reads
+the same records from a scenario image in memory (the nested dict that
+``H5ScenarioGenerator.scenario_image`` gives), where there is no ``h5py``.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import logging
 import math
 import pathlib
@@ -50,6 +53,22 @@ class Scenario:
     @property
     def number_of_heliostat_groups(self) -> int:
         return len(self.heliostat_groups)
+
+    def to(self, device: torch.device | str) -> Scenario:
+        """Move the tower's and the groups' tensors to ``device``, in place (the list of
+        groups stays the same object); return the scenario."""
+
+        def moved(state):
+            tensors = {
+                f.name: getattr(state, f.name).to(device)
+                for f in dataclasses.fields(state)
+                if isinstance(getattr(state, f.name), torch.Tensor)
+            }
+            return dataclasses.replace(state, **tensors)
+
+        self.solar_tower = moved(self.solar_tower)
+        self.heliostat_groups[:] = [moved(group) for group in self.heliostat_groups]
+        return self
 
     def index_mapping(
         self,
@@ -592,6 +611,74 @@ def _assemble_heliostat_groups(
     return heliostat_groups, list(grouped)
 
 
+class InMemoryGroup:
+    """A nested dict read through the part of ``h5py``'s interface that the scenario
+    readers use (``[key]``, ``in``, ``keys`` in h5py's name order, ``items``, ``get``,
+    ``attrs``; a dataset's ``[()]``, strings as bytes)."""
+
+    def __init__(self, mapping: dict, attrs: dict | None = None):
+        self.mapping = mapping
+        self.attrs = attrs or {}
+
+    def __getitem__(self, key: str):
+        value = self.mapping[key]
+        return InMemoryGroup(value) if isinstance(value, dict) else InMemoryDataset(value)
+
+    def __contains__(self, key: str) -> bool:
+        return key in self.mapping
+
+    def keys(self):
+        return sorted(self.mapping)
+
+    def items(self):
+        return [(key, self[key]) for key in self.keys()]
+
+    def get(self, key: str, default=None):
+        return self[key] if key in self.mapping else default
+
+
+class InMemoryDataset:
+    def __init__(self, value):
+        self.value = value
+
+    def __getitem__(self, index):
+        return self.value.encode("utf-8") if isinstance(self.value, str) else np.asarray(self.value)
+
+
+def _load_scenario(
+    scenario_file,
+    number_of_surface_points_per_facet: tuple[int, int],
+    change_number_of_control_points_per_facet: tuple[int, int] | None,
+    device: torch.device | str,
+) -> Scenario:
+    """The scenario of an open file or an :class:`InMemoryGroup`: read on the host,
+    assembled on ``device``."""
+    log.info(
+        "Loading an ARTIST scenario HDF5 file. This scenario file is version %s.",
+        scenario_file.attrs.get("version"),
+    )
+    power_plant_position = np.asarray(
+        scenario_file[constants.power_plant_key][constants.power_plant_position][()],
+        np.float64,
+    )
+    solar_tower = _load_solar_tower(scenario_file, device)
+    light_sources = _load_light_sources(scenario_file)
+    heliostats = _read_heliostats(scenario_file)
+    heliostat_groups, heliostat_group_names = _assemble_heliostat_groups(
+        heliostats,
+        number_of_surface_points_per_facet,
+        change_number_of_control_points_per_facet,
+        device,
+    )
+    return Scenario(
+        power_plant_position=power_plant_position,
+        solar_tower=solar_tower,
+        light_sources=light_sources,
+        heliostat_groups=heliostat_groups,
+        heliostat_group_names=heliostat_group_names,
+    )
+
+
 def load_scenario_from_hdf5(
     scenario_path,
     number_of_surface_points_per_facet: tuple[int, int] = (50, 50),
@@ -616,35 +703,31 @@ def load_scenario_from_hdf5(
     """
     import h5py
 
-    own_handle = not isinstance(scenario_path, h5py.File)
-    scenario_file = h5py.File(scenario_path, "r") if own_handle else scenario_path
-    try:
-        log.info(
-            "Loading an ARTIST scenario HDF5 file. This scenario file is version %s.",
-            scenario_file.attrs.get("version"),
+    if isinstance(scenario_path, h5py.File):
+        return _load_scenario(
+            scenario_path, number_of_surface_points_per_facet, change_number_of_control_points_per_facet, device
         )
-        power_plant_position = np.asarray(
-            scenario_file[constants.power_plant_key][constants.power_plant_position][()],
-            np.float64,
+    with h5py.File(scenario_path, "r") as scenario_file:
+        return _load_scenario(
+            scenario_file, number_of_surface_points_per_facet, change_number_of_control_points_per_facet, device
         )
-        solar_tower = _load_solar_tower(scenario_file, device)
-        light_sources = _load_light_sources(scenario_file)
-        heliostats = _read_heliostats(scenario_file)
-    finally:
-        if own_handle:
-            scenario_file.close()
-    heliostat_groups, heliostat_group_names = _assemble_heliostat_groups(
-        heliostats,
+
+
+def load_scenario_from_image(
+    image: dict,
+    number_of_surface_points_per_facet: tuple[int, int] = (50, 50),
+    change_number_of_control_points_per_facet: tuple[int, int] | None = None,
+    device: torch.device | str = "cuda",
+    version: float = 1.0,
+) -> Scenario:
+    """:func:`load_scenario_from_hdf5` on a scenario image in memory: the nested dict of
+    host values that a scenario file holds (``H5ScenarioGenerator.scenario_image``).
+    Needs no ``h5py``."""
+    return _load_scenario(
+        InMemoryGroup(image, {"version": version}),
         number_of_surface_points_per_facet,
         change_number_of_control_points_per_facet,
         device,
-    )
-    return Scenario(
-        power_plant_position=power_plant_position,
-        solar_tower=solar_tower,
-        light_sources=light_sources,
-        heliostat_groups=heliostat_groups,
-        heliostat_group_names=heliostat_group_names,
     )
 
 

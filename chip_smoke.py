@@ -130,6 +130,24 @@ exits non-zero without them. It imports only ``torch``, ``numpy`` and the
     seconds, the seconds in collectives, the peak memory of each rank and the
     launches of each rank, asserted against :func:`distributed_launches`.
 
+17. the entry points (``artist_tpu_torch/tutorials``,
+    ``artist_tpu_torch/examples/field_optimizations``, the tools): a. tutorials 01-05
+    at their own widths and epochs (01: one heliostat, 50 x 50 points a facet, 256 x
+    256, held to the same call on the CPU; 02: four heliostats, 25 x 25 points, a
+    world of one without a process group; 03: 50 x 50 points, 7 x 7 control points, 50
+    epochs; 04: the alignment method, 100 epochs; 05: 40 epochs, K = 16), their
+    scenarios parsed from PAINT-format JSON written here and loaded from their images
+    in memory, 03 and 04 on calibration samples cast on the card from known rotation
+    deviations; b. ``generate_results``'s three stages in sequence on phase 13's field
+    at ``config.yaml``'s widths (kinematics: alignment, 20 samples, 19 rays, max_epoch
+    500; surfaces: 4 samples, 180 rays, 7 x 7 control points; aim points: 30 rays, K =
+    16; the last two cut to max_epoch 10), each stage on the scenario the last one
+    left, its files checked for the JAX pipeline's names and keys; c. the kinematics
+    stage twice more in the production mode and once under deterministic algorithms,
+    their spread; d. ``memory_report`` at the plant configuration, chunked and
+    unchunked, and ``ablate_step`` with and without the block window. Every call's
+    launches are asserted.
+
 Phase 3 also holds the dynamic-window kernels (3d: on the block-window
 step's first chunk in place with the tile order, as that step splats it,
 without the order, and at 3 rays a point, where blocks straddle points, with a
@@ -153,6 +171,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import logging
 import pathlib
 import pickle
 import socket
@@ -161,7 +180,6 @@ import sys
 import tempfile
 import time
 import warnings
-from dataclasses import dataclass
 
 import numpy as np
 import torch
@@ -185,7 +203,9 @@ from artist_tpu_torch.geometry.coordinates import (  # noqa: E402
     convert_3d_directions_to_4d_format,
 )
 from artist_tpu_torch.examples import plant_scale_aim_points  # noqa: E402
-from artist_tpu_torch.io.calibration import CalibrationData  # noqa: E402
+from artist_tpu_torch.examples.field_optimizations import generate_results  # noqa: E402
+from artist_tpu_torch.io.calibration import CalibrationData, CalibrationDataParser  # noqa: E402
+from artist_tpu_torch.io import paint_scenario_parser  # noqa: E402
 from artist_tpu_torch.io.stral import extract_stral_deflectometry_data  # noqa: E402
 from artist_tpu_torch.kernels import blocking as blocking_kernels  # noqa: E402
 from artist_tpu_torch.kernels import lbvh as lbvh_kernels  # noqa: E402
@@ -204,18 +224,21 @@ from artist_tpu_torch.nurbs import create_nurbs_evaluation_grid, evaluate_nurbs_
 from artist_tpu_torch.optim import training  # noqa: E402
 from artist_tpu_torch.optim.aim_point_optimizer import AimPointOptimizer  # noqa: E402
 from artist_tpu_torch.optim.kinematics_reconstructor import VALIDATION_LOSSES, KinematicsReconstructor  # noqa: E402
-from artist_tpu_torch.optim.losses import kl_divergence_loss  # noqa: E402
 from artist_tpu_torch.optim.surface_reconstructor import SurfaceReconstructor  # noqa: E402
 from artist_tpu_torch.parallel import collectives, setup_distributed_environment  # noqa: E402
 from artist_tpu_torch.parallel.env import runs_group  # noqa: E402
-from artist_tpu_torch.parallel.microbatch import chunked_map, chunked_sum  # noqa: E402
 from artist_tpu_torch.raytracing import geometry, lbvh  # noqa: E402
 from artist_tpu_torch.raytracing.blocking import (  # noqa: E402
     create_blocking_primitives_rectangles_by_index,
     soft_ray_blocking_mask,
 )
 from artist_tpu_torch.raytracing.render import RenderConfig, point_permutation, ray_splat_inputs, trace_rays  # noqa: E402
-from artist_tpu_torch.scenario.scenario import _assemble_heliostat_groups, _read_heliostats  # noqa: E402
+from artist_tpu_torch.scenario.scenario import (  # noqa: E402
+    InMemoryGroup,
+    _assemble_heliostat_groups,
+    _read_heliostats,
+    load_scenario_from_image,
+)
 from artist_tpu_torch.scenario.surface_generator import SurfaceGenerator  # noqa: E402
 from artist_tpu_torch.scenario.synthetic import (  # noqa: E402
     SyntheticCalibrationParser,
@@ -223,27 +246,48 @@ from artist_tpu_torch.scenario.synthetic import (  # noqa: E402
     split_into_groups,
 )
 from artist_tpu_torch.scene.sun import Sun  # noqa: E402
-from artist_tpu_torch.tools import sass_counts, splat_formulation_bench  # noqa: E402
+from artist_tpu_torch.tools import (  # noqa: E402
+    ablate_step,
+    memory_report,
+    sass_counts,
+    splat_formulation_bench,
+)
+from artist_tpu_torch.tools.flagship_step import (  # noqa: E402
+    BITMAP,
+    BLOCK_WINDOW,
+    CANDIDATES,
+    LEARNING_RATE,
+    RAY_CHUNK,
+    RAYS,
+    SEED,
+    SURFACE_POINTS,
+    StepInputs,
+    aligned_surfaces,
+    field_inputs,
+    flagship_inputs,
+    render,
+    step_inputs,
+    surface_loss,
+)
+from artist_tpu_torch.tutorials import (  # noqa: E402
+    aim_point_optimization,
+    field_raytracing_sharded,
+    generate_scenario_from_paint,
+    generate_scenario_from_stral,
+    kinematics_reconstruction,
+    single_heliostat_raytracing,
+    surface_reconstruction,
+)
 from artist_tpu_torch.util import constants  # noqa: E402
 from artist_tpu_torch.util.config import (  # noqa: E402
-    ActuatorConfig,
-    ActuatorListConfig,
-    ActuatorParameters,
     HeliostatConfig,
     KinematicsConfig,
     PrototypeConfig,
 )
 from artist_tpu_torch.util.indices import actuator_max_motor_position, actuator_min_motor_position  # noqa: E402
+from artist_tpu_torch.util.logging_utils import runtime_log  # noqa: E402
 
-# The flagship configuration of bench.py's differentiable step.
-HELIOSTATS = 100
-SURFACE_POINTS = (50, 50)  # per facet, x 4 facets
-RAYS = 32
-RAY_CHUNK = 4
-BITMAP = (256, 256)  # (width_e, height_u)
-SEED = 7
 STEPS = 3  # timed, after one warm-up
-LEARNING_RATE = 1e-4
 
 KERNELS = (
     "splat_forward", "splat_backward", "blocking_sigma_forward", "blocking_sigma_backward",
@@ -260,9 +304,6 @@ SOURCES = {
     "splat_dynamic_window_backward": "splat.cu",
     "lbvh_traverse": "lbvh.cu",
 }
-# The block-window step: bench.py's flagship step with BENCH_SPLAT_BLOCK_WINDOW=96,
-# whose ray blocks are cut point-major over 10 x 10 tiles of each facet's points.
-BLOCK_WINDOW = dict(splat_block_window=96, splat_point_layout=(50, 50, 4), splat_point_tile=10)
 
 
 def launches(**counts: int) -> dict[str, int]:
@@ -295,7 +336,7 @@ LAUNCHES_PER_BLOCK_WINDOW_STEP = launches(
 AIM_HELIOSTATS = 100
 AIM_SURFACE_POINTS = (50, 50)
 AIM_RAYS = 8  # 100 x 10,000 points x 8 = 8 M rays per epoch, no ray chunks
-AIM_CANDIDATES = 16
+AIM_CANDIDATES = CANDIDATES
 AIM_EPOCHS = 3  # timed, after one warm-up epoch
 DENSE_AIM_EPOCHS = 1  # timed, on the field with its rows 3 m apart (flat route)
 AIM_LEARNING_RATE = 1e-3
@@ -480,178 +521,6 @@ def row_positions(
     north = (index // columns) * row_spacing + first_row
     ones = np.ones(number_of_heliostats)
     return np.stack([east, north, 1.7 * ones, ones], axis=1).astype(np.float32)
-
-
-@dataclass
-class StepInputs:
-    """Everything the flagship step reads besides the control points."""
-
-    scenario: object
-    active_indices: torch.Tensor  # [M]
-    target_area_indices: torch.Tensor  # [M]
-    incident_ray_directions: torch.Tensor  # [M, 4]
-    aim_points: torch.Tensor  # [M, 4]
-    distortions_u: torch.Tensor  # [M, R, P]
-    distortions_e: torch.Tensor  # [M, R, P]
-    ground_truth: torch.Tensor  # [M, H, W]
-    surface_points_per_facet: tuple[int, int]
-    config: RenderConfig
-    # Heliostats a checkpointed chunk of the step (bench.py's heliostat_chunk); None: no chunks.
-    heliostat_chunk: int | None = None
-
-
-def step_inputs(
-    scenario,
-    distortions_u: torch.Tensor,
-    distortions_e: torch.Tensor,
-    surface_points_per_facet: tuple[int, int],
-    bitmap_resolution: tuple[int, int],
-    ray_chunk: int | None,
-    blocking: bool = False,
-    candidates: int | None = AIM_CANDIDATES,
-    heliostat_chunk: int | None = None,
-) -> StepInputs:
-    """The flagship step's inputs: every heliostat active, incident light from
-    the south horizon ``[0, 1, 0, 0]``, target 0, aim point the target's
-    centre, an all-ones ground truth; field-wide blocking if asked, on the
-    compacted route with ``candidates`` per heliostat or, with None, the flat
-    one; the heliostat axis in checkpointed chunks of ``heliostat_chunk``."""
-    group = scenario.heliostat_groups[0]
-    device = group.positions.device
-    num = group.number_of_heliostats
-    target_area_indices = torch.zeros(num, dtype=torch.long, device=device)
-    return StepInputs(
-        scenario=scenario,
-        active_indices=torch.arange(num, device=device),
-        target_area_indices=target_area_indices,
-        incident_ray_directions=torch.tensor([0.0, 1.0, 0.0, 0.0], device=device).expand(num, 4),
-        aim_points=get_centers_of_target_areas(scenario.solar_tower, target_area_indices),
-        distortions_u=distortions_u,
-        distortions_e=distortions_e,
-        ground_truth=torch.ones((num, bitmap_resolution[1], bitmap_resolution[0]), device=device),
-        surface_points_per_facet=surface_points_per_facet,
-        config=RenderConfig(
-            bitmap_resolution=bitmap_resolution, ray_chunk=ray_chunk, blocking_active=blocking,
-            blocking_candidates=candidates,
-        ),
-        heliostat_chunk=heliostat_chunk,
-    )
-
-
-def _take(x: torch.Tensor, indices: torch.Tensor | None) -> torch.Tensor:
-    """Rows ``indices`` of a per-heliostat tensor; all of it for None."""
-    return x if indices is None else x.index_select(0, indices)
-
-
-def aligned_surfaces(control_points: torch.Tensor, inputs: StepInputs, indices: torch.Tensor | None = None):
-    """Control points -> NURBS surfaces -> alignment: ``[M, P, 4]`` points and normals,
-    of the heliostats ``indices`` (positions in ``inputs.active_indices``; None: all)."""
-    group = inputs.scenario.heliostat_groups[0]
-    active = hg.gather_active(
-        group.replace(nurbs_control_points=control_points), _take(inputs.active_indices, indices)
-    )
-    count = active.positions.shape[0]
-    points, normals = evaluate_nurbs_surfaces(
-        active.nurbs_control_points,
-        group.nurbs_degrees,
-        create_nurbs_evaluation_grid(
-            inputs.surface_points_per_facet, device=control_points.device
-        ),
-        canting=active.canting,
-        facet_translations=active.facet_translations,
-    )
-    active = active.replace(
-        surface_points=points.reshape(count, -1, 4),
-        surface_normals=normals.reshape(count, -1, 4),
-    )
-    return hg.align_surfaces_with_incident_ray_directions(
-        active, _take(inputs.aim_points, indices), _take(inputs.incident_ray_directions, indices)
-    )[:2]
-
-
-def render(
-    control_points: torch.Tensor,
-    inputs: StepInputs,
-    indices: torch.Tensor | None = None,
-    primitives: tuple[torch.Tensor, ...] | None = None,
-):
-    """The step's forward render: ``trace_rays``'s flux and three factors, of the
-    heliostats ``indices`` (None: all).
-
-    With blocking on, every heliostat's aligned surface is a blocker (its
-    rectangle by corner index), as in ``bench.py:_build_step(blocking=True)``:
-    ``primitives`` are the whole field's when given, else those of the
-    heliostats rendered.
-    """
-    points, normals = aligned_surfaces(control_points, inputs, indices)
-    blocking = inputs.config.blocking_active
-    if blocking and primitives is None:
-        primitives = create_blocking_primitives_rectangles_by_index(points)
-    return trace_rays(
-        tower=inputs.scenario.solar_tower,
-        aligned_surface_points=points,
-        aligned_surface_normals=normals,
-        incident_ray_directions=_take(inputs.incident_ray_directions, indices),
-        target_area_indices=_take(inputs.target_area_indices, indices),
-        distortions_u=_take(inputs.distortions_u, indices),
-        distortions_e=_take(inputs.distortions_e, indices),
-        blocking_primitives=primitives if blocking else None,
-        ray_primitive_indices=_take(inputs.active_indices, indices) if blocking else None,
-        config=inputs.config,
-    )
-
-
-def surface_loss(control_points: torch.Tensor, inputs: StepInputs) -> torch.Tensor:
-    """The flagship step's loss: the summed KL divergence over heliostats, over M.
-
-    With ``inputs.heliostat_chunk`` it is ``bench.py:_build_step``'s chunked
-    loss: phase 1 maps each chunk to its 4-corner primitives (with blocking
-    on), phase 2 sums each chunk's KL sum, traced against the whole field's
-    primitives; each chunk runs under a checkpoint, NURBS and alignment
-    included.
-    """
-    num = inputs.active_indices.shape[0]
-    chunk = inputs.heliostat_chunk
-    if not chunk:
-        flux = render(control_points, inputs)[0]
-        return torch.sum(kl_divergence_loss(flux, inputs.ground_truth)) / num
-    positions = torch.arange(num, device=control_points.device)
-    primitives = None
-    if inputs.config.blocking_active:
-        primitives = chunked_map(
-            lambda idx: create_blocking_primitives_rectangles_by_index(
-                aligned_surfaces(control_points, inputs, idx)[0]
-            ),
-            positions,
-            chunk,
-        )
-
-    def kl_sum(idx: torch.Tensor) -> torch.Tensor:
-        flux = render(control_points, inputs, idx, primitives)[0]
-        return torch.sum(kl_divergence_loss(flux, inputs.ground_truth.index_select(0, idx)))
-
-    return chunked_sum(kl_sum, positions, chunk) / num
-
-
-def flagship_inputs(
-    device: torch.device, blocking: bool = False, candidates: int | None = AIM_CANDIDATES, **splat_options
-) -> StepInputs:
-    """The flagship step's inputs; ``splat_options`` (``BLOCK_WINDOW``) go into its RenderConfig."""
-    scenario = make_synthetic_scenario(
-        number_of_heliostats=HELIOSTATS,
-        number_of_surface_points_per_facet=SURFACE_POINTS,
-        number_of_rays=RAYS,
-        device=device,
-    )
-    group = scenario.heliostat_groups[0]
-    generator = torch.Generator(device=device).manual_seed(SEED)
-    distortions_u, distortions_e = scenario.light_sources[0].get_distortions(
-        generator, group.surface_points.shape[1], group.number_of_heliostats
-    )
-    inputs = step_inputs(
-        scenario, distortions_u, distortions_e, SURFACE_POINTS, BITMAP, RAY_CHUNK, blocking, candidates
-    )
-    return dataclasses.replace(inputs, config=dataclasses.replace(inputs.config, **splat_options))
 
 
 def point_major_copy(x: torch.Tensor, order: torch.Tensor | None) -> torch.Tensor:
@@ -3132,30 +3001,16 @@ def kinematics_configuration(max_epoch: int) -> dict:
     }
 
 
-class CalibrationSamples:
+class CalibrationSamples(CalibrationDataParser):
     """A calibration parser over the given ``CalibrationData`` of a synthetic field's
     heliostats ``H0000``, ``H0001``, ... (each heliostat's samples consecutive): a
     group gets its own heliostats' samples, found by name (the whole data for the
-    whole field), so a field split into groups reads the same samples."""
+    whole field), so a field split into groups reads the same samples; with
+    ``sample_limit``, each heliostat's first ``sample_limit``."""
 
-    def __init__(self, data: CalibrationData):
-        self.data = data
-
-    def parse_data_for_reconstruction(self, heliostat_names, **kwargs) -> CalibrationData:
-        heliostats = np.array([int(name[1:]) for name in heliostat_names])
-        counts = np.asarray(self.data.active_heliostats_mask)
-        if np.array_equal(heliostats, np.arange(len(counts))):
-            return self.data
-        starts = np.concatenate([[0], np.cumsum(counts)[:-1]])
-        rows = np.concatenate([np.arange(starts[h], starts[h] + counts[h]) for h in heliostats])
-        return CalibrationData(
-            flux_measured=self.data.flux_measured[rows],
-            focal_spots=self.data.focal_spots[rows],
-            incident_ray_directions=self.data.incident_ray_directions[rows],
-            motor_positions=self.data.motor_positions[rows],
-            active_heliostats_mask=counts[heliostats],
-            target_area_indices=self.data.target_area_indices[rows],
-        )
+    def __init__(self, data: CalibrationData, sample_limit: int | None = None):
+        names = tuple(f"H{i:04d}" for i in range(len(data.active_heliostats_mask)))
+        super().__init__(data, names, sample_limit)
 
 
 def known_rotation_deviations(heliostats: int, seed: int = SEED + 11, magnitudes=KNOWN_DEVIATIONS) -> np.ndarray:
@@ -3251,12 +3106,8 @@ def kinematics_launches(method: str, epochs: list[int], max_epoch: int, log_step
     validation (one splat forward) where ``epoch % log_step == 0``, at epoch
     ``max_epoch - 1`` and at an early stop; with the flux-driven method, one splat
     forward and one backward each epoch."""
-    validations = sum(
-        1 for epoch in epochs
-        if epoch % log_step == 0 or epoch == max_epoch - 1 or (stopped and epoch == epochs[-1])
-    )
     train = len(epochs) if method == constants.kinematics_reconstruction_raytracing else 0
-    return launches(splat_forward=train + validations, splat_backward=train)
+    return launches(splat_forward=train + validations(epochs, max_epoch, log_step, stopped), splat_backward=train)
 
 
 def run_kinematics(device: torch.device, size: dict, data: CalibrationData, method: str, max_epoch: int,
@@ -3784,18 +3635,10 @@ def xl_inputs(device: torch.device, blocking: bool, candidates: int | None, heli
     """bench.py's flagship step at the xl_field entry's size (``size``: heliostats, rays
     a point, ray chunk, and optionally surface points and bitmap), its heliostat axis
     in chunks of ``heliostat_chunk``."""
-    surface_points, bitmap = size.get("surface_points", SURFACE_POINTS), size.get("bitmap", BITMAP)
-    scenario = make_synthetic_scenario(
-        number_of_heliostats=size["heliostats"], number_of_surface_points_per_facet=surface_points,
-        number_of_rays=size["rays"], device=device,
+    return field_inputs(
+        device, size["heliostats"], size.get("surface_points", SURFACE_POINTS), size["rays"],
+        size.get("bitmap", BITMAP), size["ray_chunk"], blocking, candidates, heliostat_chunk,
     )
-    group = scenario.heliostat_groups[0]
-    generator = torch.Generator(device=device).manual_seed(SEED)
-    distortions_u, distortions_e = scenario.light_sources[0].get_distortions(
-        generator, group.surface_points.shape[1], group.number_of_heliostats
-    )
-    return step_inputs(scenario, distortions_u, distortions_e, surface_points, bitmap, size["ray_chunk"], blocking,
-                       candidates, heliostat_chunk)
 
 
 def xl_loss_and_gradient(inputs: StepInputs) -> tuple[float, torch.Tensor]:
@@ -4717,59 +4560,11 @@ def check_fit_gaps(label: str, gaps: dict) -> None:
         raise AssertionError(f"{label}: {gaps}")
 
 
-class InMemoryGroup:
-    """A nested dict read through the part of ``h5py``'s interface that the scenario
-    readers use (``[key]``, ``in``, ``keys`` in h5py's name order, ``items``, ``get``;
-    a dataset's ``[()]``, strings as bytes), so that they read a scenario image built
-    from the config dataclasses' ``create_*_dict`` methods without a file."""
-
-    def __init__(self, mapping: dict):
-        self.mapping = mapping
-
-    def __getitem__(self, key: str):
-        value = self.mapping[key]
-        return InMemoryGroup(value) if isinstance(value, dict) else InMemoryDataset(value)
-
-    def __contains__(self, key: str) -> bool:
-        return key in self.mapping
-
-    def keys(self):
-        return sorted(self.mapping)
-
-    def items(self):
-        return [(key, self[key]) for key in self.keys()]
-
-    def get(self, key: str, default=None):
-        return self[key] if key in self.mapping else default
-
-
-class InMemoryDataset:
-    def __init__(self, value):
-        self.value = value
-
-    def __getitem__(self, index):
-        return self.value.encode("utf-8") if isinstance(self.value, str) else np.asarray(self.value)
-
-
 def ingress_scenario_image(surfaces: list, positions: np.ndarray) -> dict:
     """The prototype and heliostat sections of a scenario file holding the fitted
     ``surfaces`` (one a heliostat, named INGRESS_HELIOSTATS) at ``positions``, with the
-    default kinematics and AA39-like linear actuators as prototypes."""
-    actuators = ActuatorListConfig(
-        actuator_list=[
-            ActuatorConfig(
-                actuator_key=f"actuator_{i}",
-                actuator_type=constants.linear_actuator_key,
-                clockwise_axis_movement=bool(i),
-                min_max_motor_positions=np.array([0, 70000]),
-                parameters=ActuatorParameters(
-                    increment=154166.67, initial_stroke_length=0.075, offset=0.34, pivot_radius=0.32,
-                    initial_angle=0.5,
-                ),
-            )
-            for i in range(2)
-        ]
-    )
+    default kinematics and tutorial 00b's AA39-like linear actuators as prototypes."""
+    actuators = generate_scenario_from_stral.stral_actuators()
     prototype = PrototypeConfig(
         surface_prototype=surfaces[0], kinematics_prototype=KinematicsConfig(), actuators_prototype=actuators
     )
@@ -5020,6 +4815,548 @@ def check_ingress_kernels(group, tower: SolarTower, distortions, size: dict = IN
     )}}
 
 
+# --------------------------------------------------------------------------- #
+# Phase 17: the entry points (tutorials, the field-optimization pipeline, the tools).
+# --------------------------------------------------------------------------- #
+
+PAINT_POWER_PLANT = (50.91342112259258, 6.387824755874856, 87.0)
+# The tutorials' field: the synthetic field's receiver (8 m x 7 m, centred 45 m up, 3 m
+# south of the tower's foot) and four heliostats with AA39's actuators on a grid north of
+# it, from which each aims at the receiver with the sun in the south.
+PAINT_RECEIVER = ((0.0, -3.0, 45.0), 8.0, 7.0)
+TUTORIAL_HELIOSTATS = ("AA39", "AB40", "AC41", "AD42")
+TUTORIAL_PLACES = ((-8.0, 40.0), (8.0, 40.0), (-8.0, 56.0), (8.0, 56.0))  # east, north (m)
+TUTORIAL_RAYS = 100  # the light source tutorial 00a writes
+TUTORIAL_SAMPLES = 3  # calibration samples a heliostat, as tutorials 03 and 04 read of AA39
+# Tutorial 01 on the card against the CPU: the fp32 geometry's gap is ~1.3e-4 of the peak.
+TUTORIAL_FLUX_SHARE = 2e-4
+AA39_ACTUATOR = dict(increment=154166.67, initial_stroke_length=0.075, offset=0.34, pivot_radius=0.32,
+                     initial_angle=0.5)
+# Phase 17b: the pipeline at config.yaml's widths on phase 13's field; the surface and
+# aim-point stages' max_epoch cut from 300 (PERF.md §4).
+PIPELINE_EPOCHS = dict(surface=10, aim_point=10)
+PIPELINE_SURFACE_RAY_CHUNK = 12  # phase 12's: 180 rays a point in 15 checkpointed chunks
+PIPELINE_STAGES = ("kinematics", "surface", "aim_point")
+# Each stage's files, with the JAX pipeline's names and keys (generate_results.py:121-134,188-197,261-291).
+PIPELINE_FILES = {
+    "kinematics": {
+        "kinematics_reconstruction.npz": {"final_loss", "group_0_rotation_deviations"},
+        "kinematics_loss_history.json": {"group_0"},
+    },
+    "surface": {
+        "surface_reconstruction.npz": {"final_loss", "group_0_control_points"},
+        "surface_loss_history.json": {"group_0"},
+    },
+    "aim_point": {
+        "aim_point_optimization.npz": {"final_loss", "intercepts", "on_targets", "blockings",
+                                       "group_0_motor_positions"},
+        "aim_point_loss_history.json": {"total_loss", "flux_loss", "flux_integral", "flux_integral_constraint",
+                                        "intercept_constraint", "local_flux_constraint"},
+    },
+}
+SPREAD_RUNS = ("production_1", "production_2", "deterministic")
+ABLATE_STEPS = 5  # timed calls of each of ablate_step's variants
+MEMORY_REPORT = dict(heliostats=4000, rays=2, surface_points=50, blocking=True)  # phase 14a's field
+MEMORY_REPORT_CHUNK = 500
+
+
+def paint_wgs84(east: float, north: float, up: float) -> list[float]:
+    """WGS84 (latitude, longitude, altitude) of the point ``(east, north, up)`` m from
+    :data:`PAINT_POWER_PLANT`, linearised."""
+    return [PAINT_POWER_PLANT[0] + north / 111_200.0, PAINT_POWER_PLANT[1] + east / 70_100.0,
+            PAINT_POWER_PLANT[2] + up]
+
+
+def write_paint_tower(path: pathlib.Path) -> pathlib.Path:
+    """A PAINT tower-measurements JSON with one planar target area, ``receiver``
+    (:data:`PAINT_RECEIVER`), facing north."""
+    (east, north, up), width, height = PAINT_RECEIVER
+    corners = {
+        f"{v}_{h}": paint_wgs84(east + sign_e * width / 2, north, up + sign_u * height / 2)
+        for v, sign_u in (("upper", 1), ("lower", -1)) for h, sign_e in (("left", -1), ("right", 1))
+    }
+    path.write_text(json.dumps({
+        "power_plant_properties": {"coordinates": list(PAINT_POWER_PLANT)},
+        "receiver": {
+            "type": "planar",
+            "coordinates": {"center": paint_wgs84(east, north, up), **corners},
+            "normal_vector": [0.0, 1.0, 0.0],
+        },
+    }))
+    return path
+
+
+def write_paint_heliostat(path: pathlib.Path, east: float, north: float, seed: int) -> pathlib.Path:
+    """A PAINT heliostat-properties JSON: the heliostat at ``(east, north)``, 1.7 m up,
+    phase 15's four canted facets, joint deviations of about a mm and AA39's linear
+    actuators (each parameter off by about 0.1%), from ``seed``."""
+    rng = np.random.RandomState(seed)
+    translations, canting = ingress_facets()
+    path.write_text(json.dumps({
+        "heliostat_position": paint_wgs84(east, north, 1.7),
+        "facet_properties": {
+            "number_of_facets": 4,
+            "facets": [
+                {"translation_vector": translations[i, :3].tolist(), "canting_e": canting[i, 0, :3].tolist(),
+                 "canting_n": canting[i, 1, :3].tolist()}
+                for i in range(4)
+            ],
+        },
+        "kinematics_properties": {
+            **{key: float(rng.normal(0, 1e-3)) for key in paint_scenario_parser._DEVIATION_KEYS.values()},
+            "actuators": [
+                {"type_axis": "linear", "clockwise_axis_movement": i, "min_increment": 0, "max_increment": 70000,
+                 **{key: value * (1 + rng.normal(0, 1e-3)) for key, value in AA39_ACTUATOR.items()}}
+                for i in range(2)
+            ],
+        },
+        "initial_orientation": [0.0, -1.0, 0.0],
+    }))
+    return path
+
+
+def tutorial_scenario(directory: pathlib.Path, names, surface_points: tuple[int, int], device,
+                      control_points: tuple[int, int] | None = None):
+    """Tutorial 00a's scenario of the heliostats ``names`` in ``directory``, loaded from its
+    image in memory onto ``device`` (no HDF5 file)."""
+    generator = generate_scenario_from_paint.paint_scenario_generator(
+        directory / "tower-measurements.json",
+        [(name, directory / f"{name}-heliostat-properties.json") for name in names],
+        directory / "scenario.h5",
+        number_of_rays=TUTORIAL_RAYS,
+    )
+    return load_scenario_from_image(generator.scenario_image(), surface_points, control_points, device)
+
+
+def validations(epochs: list[int], max_epoch: int, log_step: int, stopped: bool) -> int:
+    """The validations of a reconstructor's loop that ran ``epochs``: where ``epoch %
+    log_step == 0`` (``log_step`` 0 meaning ``max_epoch``), at ``max_epoch - 1`` and at an
+    early stop."""
+    log_step = log_step or max_epoch
+    return sum(
+        1 for epoch in epochs
+        if epoch % log_step == 0 or epoch == max_epoch - 1 or (stopped and epoch == epochs[-1])
+    )
+
+
+def surface_loop_launches(epochs: list[int], max_epoch: int, log_step: int, stopped: bool,
+                          chunks: int | None = None) -> dict[str, int]:
+    """The launches of a ``reconstruct_surfaces`` call that ran ``epochs``: the reference
+    integrals' forward, each epoch's forward and backward, each validation's forward;
+    with ray ``chunks``, each of them a chunk, and each epoch's forward twice (the
+    checkpoint's recompute)."""
+    count = validations(epochs, max_epoch, log_step, stopped)
+    if chunks is None:
+        return launches(splat_forward=1 + len(epochs) + count, splat_backward=len(epochs))
+    return launches(splat_forward=chunks * (1 + 2 * len(epochs) + count), splat_backward=chunks * len(epochs))
+
+
+def aim_point_loop_launches(epochs: int, candidates: int | None = AIM_CANDIDATES) -> dict[str, int]:
+    """The launches of an ``optimize`` call of ``epochs`` epochs, no heliostat chunks."""
+    return {
+        name: AIM_LAUNCHES_PER_CALL[candidates][name] + epochs * AIM_LAUNCHES_PER_EPOCH[candidates][name]
+        for name in KERNELS
+    }
+
+
+class EpochRecorder:
+    """An ``on_epoch`` callback: the epochs a loop ran and the times they ended."""
+
+    def __init__(self):
+        self.epochs: list[int] = []
+        self.ends: list[float] = []
+
+    def __call__(self, epoch: int, loss: float) -> None:
+        self.epochs.append(epoch)
+        self.ends.append(time.perf_counter())
+
+
+def run_entry_point(device: torch.device, label: str, fn, expected) -> dict:
+    """``fn(recorder)`` timed between synchronised ends, with its peak memory, launches
+    and epochs; ``expected(recorder, result)`` gives the launches it must show on the card."""
+    recorder = EpochRecorder()
+    synchronize(device)
+    reset_peak_memory(device)
+    reset_launch_counts()
+    start = time.perf_counter()
+    result = fn(recorder)
+    synchronize(device)
+    seconds = time.perf_counter() - start
+    counts = launch_counts()
+    wanted = expected(recorder, result)
+    if device.type == "cuda" and counts != wanted:
+        raise AssertionError(f"{label} launched {counts}, expected {wanted}")
+    # The first epoch carries the loop's set-up; the median of the others is its rate.
+    epoch_seconds = np.diff([start] + recorder.ends)[1:]
+    return dict(
+        result=result,
+        seconds=seconds,
+        epochs=len(recorder.epochs),
+        last_epoch=recorder.epochs[-1] if recorder.epochs else None,
+        epoch_seconds_median=float(np.median(epoch_seconds)) if len(epoch_seconds) else None,
+        max_memory_allocated=max_memory(device),
+        launches=counts,
+    )
+
+
+def falling(label: str, history: list[float]) -> list[float]:
+    """``history``'s first and last entries; it must be finite and fall."""
+    if len(history) < 2 or not np.isfinite(history).all() or not history[-1] < history[0]:
+        raise AssertionError(f"{label}: the loss does not fall: {history}")
+    return [history[0], history[-1]]
+
+
+def report_runs(phase: str, runs: dict[str, dict]) -> None:
+    for label, run in runs.items():
+        shown = {k: v for k, v in run.items() if k not in ("result", "launches", "seconds", "max_memory_allocated")}
+        _log(
+            f"{phase} {label}: {run['seconds']:.6f} s, max_memory_allocated {run['max_memory_allocated']} B, launches "
+            f"{ {k: v for k, v in run['launches'].items() if v} }, {json.dumps(shown)}"
+        )
+
+
+def drive_tutorials(device: torch.device) -> dict[str, dict]:
+    """Phase 17a: tutorials 01-05 at their own widths and epochs, on PAINT-format files
+    written here (:func:`write_paint_tower`, :func:`write_paint_heliostat`) whose scenarios
+    are loaded from their images onto ``device``; tutorials 03 and 04 on calibration
+    samples built on ``device`` from known rotation deviations
+    (:func:`kinematics_calibration`). Tutorial 01's flux is held to the same call on the
+    CPU with the same distortions; 03-05's losses must fall; every call's launches are
+    asserted."""
+    runs: dict[str, dict] = {}
+    cpu = torch.device("cpu")
+    with tempfile.TemporaryDirectory() as name:
+        directory = pathlib.Path(name)
+        write_paint_tower(directory / "tower-measurements.json")
+        for i, (heliostat, (east, north)) in enumerate(zip(TUTORIAL_HELIOSTATS, TUTORIAL_PLACES)):
+            write_paint_heliostat(directory / f"{heliostat}-heliostat-properties.json", east, north, SEED + 20 + i)
+
+        single = tutorial_scenario(directory, TUTORIAL_HELIOSTATS[:1], single_heliostat_raytracing.SURFACE_POINTS,
+                                   device)
+        points = single.heliostat_groups[0].surface_points.shape[1]
+        distortions = Sun(number_of_rays=TUTORIAL_RAYS).get_distortions(
+            torch.Generator(device="cpu").manual_seed(SEED), points, 1
+        )
+        run = run_entry_point(
+            device, "phase 17a tutorial 01",
+            lambda recorder: single_heliostat_raytracing.render_single_heliostat(single, distortions, device=device),
+            lambda recorder, result: launches(splat_forward=1),
+        )
+        on_cpu = single_heliostat_raytracing.render_single_heliostat(
+            tutorial_scenario(directory, TUTORIAL_HELIOSTATS[:1], single_heliostat_raytracing.SURFACE_POINTS, cpu),
+            distortions, device=cpu,
+        )
+        flux, flux_cpu = run["result"]["flux"].cpu(), on_cpu["flux"]
+        gap = float((flux - flux_cpu).abs().max() / flux_cpu.max())
+        if not (torch.isfinite(flux).all() and float(flux_cpu.max()) > 0 and gap <= TUTORIAL_FLUX_SHARE):
+            raise AssertionError(f"phase 17a tutorial 01: card against CPU {gap} of the flux peak")
+        run.update(flux_gap_to_cpu=gap, intercept=float(run["result"]["intercept"][0]))
+        runs["tutorial_01"] = run
+
+        field = tutorial_scenario(directory, TUTORIAL_HELIOSTATS, field_raytracing_sharded.SURFACE_POINTS, device)
+        run = run_entry_point(
+            device, "phase 17a tutorial 02",
+            lambda recorder: field_raytracing_sharded.render_field(field, device=device),
+            lambda recorder, result: launches(splat_forward=len(field.heliostat_groups)),
+        )
+        total = run["result"]["total_flux_per_target"]
+        if not (torch.isfinite(total).all() and float(total.sum()) > 0):
+            raise AssertionError("phase 17a tutorial 02: no finite flux on the targets")
+        run.update(mean_intercepts=run["result"]["mean_intercepts"])
+        runs["tutorial_02"] = run
+
+        known = known_rotation_deviations(len(TUTORIAL_HELIOSTATS))
+        surfaces = tutorial_scenario(directory, TUTORIAL_HELIOSTATS, surface_reconstruction.SURFACE_POINTS, device,
+                                     surface_reconstruction.CONTROL_POINTS)
+        data = CalibrationDataParser(
+            kinematics_calibration(surfaces, known, TUTORIAL_SAMPLES, surface_reconstruction.BITMAP),
+            TUTORIAL_HELIOSTATS,
+        )
+        surface_block = surface_reconstruction.optimization_configuration()[constants.optimization]
+
+        def surface_expected(recorder, result):
+            history = result[1][0].loss_history["total_loss"]
+            return surface_loop_launches(recorder.epochs, surface_block[constants.max_epoch],
+                                         surface_block[constants.log_step], len(history) == len(recorder.epochs) - 1)
+
+        run = run_entry_point(
+            device, "phase 17a tutorial 03",
+            lambda recorder: surface_reconstruction.reconstruct_surfaces(surfaces, data, device=device,
+                                                                         on_epoch=recorder),
+            surface_expected,
+        )
+        history = run["result"][1][0].loss_history
+        run.update(flux_loss_ends=falling("phase 17a tutorial 03 (flux loss)", history["flux_loss"]),
+                   total_loss_ends=[history["total_loss"][0], history["total_loss"][-1]])
+        runs["tutorial_03"] = run
+
+        kinematics = tutorial_scenario(directory, TUTORIAL_HELIOSTATS, kinematics_reconstruction.SURFACE_POINTS, device)
+        data = CalibrationDataParser(
+            kinematics_calibration(kinematics, known, TUTORIAL_SAMPLES, kinematics_reconstruction.BITMAP),
+            TUTORIAL_HELIOSTATS,
+        )
+        kinematics_block = kinematics_reconstruction.optimization_configuration()[constants.optimization]
+
+        def kinematics_expected(recorder, result):
+            stopped = len(result[1][0].loss_history) == len(recorder.epochs) - 1
+            return kinematics_launches(ALIGNMENT, recorder.epochs, kinematics_block[constants.max_epoch],
+                                       kinematics_block[constants.log_step], stopped)
+
+        run = run_entry_point(
+            device, "phase 17a tutorial 04",
+            lambda recorder: kinematics_reconstruction.reconstruct_kinematics(kinematics, data, device=device,
+                                                                              on_epoch=recorder),
+            kinematics_expected,
+        )
+        deviations = kinematics.heliostat_groups[0].rotation_deviations.cpu().numpy()
+        run.update(loss_ends=falling("phase 17a tutorial 04", run["result"][1][0].loss_history),
+                   distance_to_known=[float(np.linalg.norm(known)), float(np.linalg.norm(deviations - known))])
+        runs["tutorial_04"] = run
+
+        aim = tutorial_scenario(directory, TUTORIAL_HELIOSTATS, aim_point_optimization.SURFACE_POINTS, device)
+        run = run_entry_point(
+            device, "phase 17a tutorial 05",
+            lambda recorder: aim_point_optimization.optimize_aim_points(aim, device=device, on_epoch=recorder),
+            lambda recorder, result: aim_point_loop_launches(len(recorder.epochs)),
+        )
+        run.update(loss_ends=falling("phase 17a tutorial 05", run["result"][1]["total_loss"]),
+                   mean_intercept=float(run["result"][2].mean()))
+        runs["tutorial_05"] = run
+    for run in runs.values():
+        del run["result"]
+    report_runs("phase 17a", runs)
+    return runs
+
+
+def pipeline_config(directory: pathlib.Path, cut: bool = True) -> dict:
+    """The port's ``examples/field_optimizations/config.yaml`` as a dict (the card's
+    machine has no PyYAML; ``tests/test_torch_field_optimizations.py`` holds the two
+    equal), its paths under ``directory``; with ``cut``, the surface and aim-point
+    stages' ``max_epoch`` cut to :data:`PIPELINE_EPOCHS`."""
+    config = {
+        "data_dir": str(directory / "data"),
+        "tower_file_name": "tower-measurements.json",
+        "scenarios_dir": str(directory / "scenarios"),
+        "results_dir": str(directory / "results"),
+        "plots_dir": str(directory / "plots"),
+        "maximum_number_of_measurements": 20,
+        "random_seed": 7,
+        "metadata_root": str(directory),
+        "minimum_number_of_measurements": 1,
+        "kinematics_reconstruction_image_type": "flux-centered",
+        "surface_reconstruction_image_type": "flux-centered",
+        "excluded_heliostats_for_reconstruction": [],
+        "data_for_stral_dir": str(directory / "data_for_stral"),
+        "heliostats": ["AA39"],
+        "surface_reconstruction_optimization_configuration": dict(
+            max_epoch=300, batch_size=48, number_of_surface_points=50, number_of_control_points=7,
+            number_of_rays=180, sample_limit=4, initial_learning_rate=1.0e-4, tolerance=5.0e-4, log_step=25,
+            scheduler_type="cyclic", lr_min=1.0e-6, lr_max=1.0e-4, step_size_up=122, early_stopping_delta=1.0,
+            early_stopping_patience=10, early_stopping_window=40, energy_tolerance=0.01, rho_flux_integral=1.0,
+            weight_smoothness=0.0, weight_ideal_surface=0.1,
+        ),
+        "kinematics_reconstruction_optimization_configuration": dict(
+            method="alignment", max_epoch=500, batch_size=480, sample_limit=20, number_of_rays=19,
+            initial_learning_rate_rotation_deviation=3.0e-4, tolerance=5.0e-4, log_step=50,
+            scheduler_type="reduce_on_plateau", lr_min=1.0e-6, reduce_factor=0.8, patience=50, threshold=1.0e-3,
+            cooldown=5, early_stopping_delta=1.0, early_stopping_patience=10, early_stopping_window=40,
+        ),
+        "aim_point_optimization_configuration": dict(
+            max_epoch=300, batch_size=50, number_of_rays=30, initial_learning_rate=1.0e-3, tolerance=5.0e-4,
+            log_step=25, early_stopping_delta=1.0, early_stopping_patience=10, early_stopping_window=40,
+            scheduler_type="reduce_on_plateau", lr_min=1.0e-4, reduce_factor=0.9, patience=100, threshold=1.0e-3,
+            cooldown=20, rho_flux_integral=1.0, rho_local_flux=1.0, rho_intercept=1.0, max_flux_density=1000000.0,
+            dni=800.0, trapezoid_plateau=40, trapezoid_slope=80,
+        ),
+    }
+    if cut:
+        for stage, epochs in PIPELINE_EPOCHS.items():
+            stage_block(config, stage)["max_epoch"] = epochs
+    return config
+
+
+def stage_block(config: dict, stage: str) -> dict:
+    """A pipeline stage's block of the configuration."""
+    suffix = "optimization_configuration" if stage == "aim_point" else "reconstruction_optimization_configuration"
+    return config[f"{stage}_{suffix}"]
+
+
+def run_pipeline_stage(device: torch.device, scenario, config: dict, stage: str, data: CalibrationData,
+                       label: str) -> dict:
+    """``generate_results.run_pipeline`` of one ``stage`` on ``scenario`` (its calibration
+    parser over ``data``), timed, its launches asserted against the epochs it ran and its
+    files against the JAX pipeline's names and keys. The result holds the stage's
+    outputs under ``result``."""
+    block = stage_block(config, stage)
+    results_dir = pathlib.Path(config["results_dir"])
+
+    def expected(recorder, output):
+        if stage == "aim_point":
+            return aim_point_loop_launches(len(recorder.epochs))
+        history = output[1][0].loss_history
+        stopped = len(history["total_loss"] if stage == "surface" else history) == len(recorder.epochs) - 1
+        if stage == "kinematics":
+            return kinematics_launches(ALIGNMENT, recorder.epochs, block["max_epoch"], block["log_step"], stopped)
+        return surface_loop_launches(recorder.epochs, block["max_epoch"], block["log_step"], stopped,
+                                     block["number_of_rays"] // PIPELINE_SURFACE_RAY_CHUNK)
+
+    run = run_entry_point(
+        device, label,
+        lambda recorder: generate_results.run_pipeline(
+            scenario, config, results_dir, which=stage, data_parser=CalibrationSamples(data),
+            heliostat_data_mapping=[], device=device,
+            stage_options={"surface": {"ray_chunk": PIPELINE_SURFACE_RAY_CHUNK}}, on_epoch=recorder,
+        )[stage],
+        expected,
+    )
+    for name, keys in PIPELINE_FILES[stage].items():
+        path = results_dir / name
+        if name.endswith(".npz"):
+            with np.load(path) as archive:
+                found = set(archive.files)
+        else:
+            found = set(json.loads(path.read_text()))
+        if found != keys:
+            raise AssertionError(f"{label}: {name} holds {sorted(found)}, expected {sorted(keys)}")
+    run["epochs_per_second"] = run["epochs"] / run["seconds"]
+    return run
+
+
+class RuntimeLines(logging.Handler):
+    """The records of ``track_runtime`` (the ``artist_tpu_torch.runtime`` logger)."""
+
+    def __init__(self):
+        super().__init__(logging.INFO)
+        self.lines: list[str] = []
+
+    def emit(self, record: logging.LogRecord) -> None:
+        self.lines.append(record.getMessage())
+
+
+def kinematics_stage(device: torch.device, config: dict, data: CalibrationData, known: np.ndarray,
+                     label: str) -> tuple[dict, object]:
+    """The pipeline's kinematics stage on a fresh copy of phase 13's field (deviations 0):
+    the run, with its loss falling, its deviations' distance to ``known`` shrinking, its
+    final loss, early-stopping epoch and largest deviation error; and the scenario."""
+    scenario = kinematics_scenario(device, KINEMATICS)
+    run = run_pipeline_stage(device, scenario, config, "kinematics", data, label)
+    history = run["result"][1][0].loss_history
+    deviations = scenario.heliostat_groups[0].rotation_deviations.cpu().numpy()
+    before, after = float(np.linalg.norm(known)), float(np.linalg.norm(deviations - known))
+    if not after < before:
+        raise AssertionError(f"{label}: |deviations - known| {before} -> {after}")
+    run.update(loss_ends=falling(label, history), final_loss=history[-1], distance_to_known=[before, after],
+               largest_deviation_error=float(np.abs(deviations - known).max()), deviations=deviations)
+    return run, scenario
+
+
+def drive_pipeline(device: torch.device, data: CalibrationData, known: np.ndarray) -> dict[str, dict]:
+    """Phase 17b: ``generate_results``'s three stages in sequence on one scenario in
+    memory, phase 13's synthetic field (100 heliostats, 7 x 7 control points and 50 x 50
+    points a facet, deviations 0), with :func:`pipeline_config` (no YAML): kinematics
+    (alignment, 20 samples, 19 rays, max_epoch 500), surfaces (4 samples, 180 rays in ray
+    chunks of 12) and aim points (30 rays, K = 16), on phase 13's calibration samples
+    ``data``, cast with the rotation deviations ``known``. The deviations must near
+    ``known``, the surface stage start from them, the surfaces' flux loss and the aim
+    points' loss fall; every stage's launches and files are checked."""
+    runtime_lines = RuntimeLines()
+    runtime_log.addHandler(runtime_lines)
+    runtime_log.setLevel(logging.INFO)
+    runs: dict[str, dict] = {}
+    try:
+        with tempfile.TemporaryDirectory() as name:
+            config = pipeline_config(pathlib.Path(name))
+            runs["kinematics"], scenario = kinematics_stage(device, config, data, known, "phase 17b kinematics stage")
+            with np.load(pathlib.Path(config["results_dir"]) / "kinematics_reconstruction.npz") as archive:
+                saved = archive["group_0_rotation_deviations"]
+            start = scenario.heliostat_groups[0].rotation_deviations.cpu().numpy()
+            if not np.array_equal(start, saved):
+                raise AssertionError("phase 17b: the surface stage does not start from the kinematics stage's result")
+            runs["surface"] = run_pipeline_stage(device, scenario, config, "surface", data, "phase 17b surface stage")
+            history = runs["surface"]["result"][1][0].loss_history
+            runs["surface"].update(flux_loss_ends=falling("phase 17b surface stage (flux loss)", history["flux_loss"]),
+                                   total_loss_ends=[history["total_loss"][0], history["total_loss"][-1]])
+            runs["aim_point"] = run_pipeline_stage(device, scenario, config, "aim_point", data,
+                                                   "phase 17b aim-point stage")
+            runs["aim_point"].update(
+                loss_ends=falling("phase 17b aim-point stage", runs["aim_point"]["result"][1]["total_loss"]),
+                mean_intercept=float(runs["aim_point"]["result"][2].mean()),
+            )
+    finally:
+        runtime_log.removeHandler(runtime_lines)
+    for run in runs.values():
+        run.pop("result")
+        run.pop("deviations", None)
+    report_runs("phase 17b", runs)
+    _log(f"phase 17b track_runtime: {runtime_lines.lines}")
+    return runs
+
+
+def drive_alignment_spread(device: torch.device, data: CalibrationData, known: np.ndarray) -> dict:
+    """Phase 17c: phase 17b's kinematics stage twice more in the production mode (the
+    card's atomics in their own order) and once under deterministic algorithms, each on
+    a fresh field for the configuration's max_epoch 500 (its early stopping ends it).
+    Every run must reach the known deviations as phase 13 requires (the loss falls, the
+    distance to them shrinks); the spread between the production runs is printed, not
+    gated."""
+    runs = {}
+    with tempfile.TemporaryDirectory() as name:
+        config = pipeline_config(pathlib.Path(name))
+        for label in SPREAD_RUNS:
+            context = deterministic_algorithms() if label == "deterministic" else contextlib.nullcontext()
+            with context:
+                runs[label] = kinematics_stage(device, config, data, known, f"phase 17c {label}")[0]
+            runs[label].pop("result")
+    first, second = (runs[label] for label in SPREAD_RUNS[:2])
+    spread = dict(
+        final_loss_relative=abs(first["final_loss"] - second["final_loss"]) / abs(first["final_loss"]),
+        deviations_largest=float(np.abs(first["deviations"] - second["deviations"]).max()),
+        stop_epochs=[first["last_epoch"], second["last_epoch"]],
+        deterministic_over_production_epoch_seconds=runs["deterministic"]["epoch_seconds_median"]
+        / np.mean([first["epoch_seconds_median"], second["epoch_seconds_median"]]),
+    )
+    for run in runs.values():
+        run.pop("deviations")
+    report_runs("phase 17c", runs)
+    _log(f"phase 17c production-mode spread: {json.dumps(spread)}")
+    return dict(runs=runs, spread=spread)
+
+
+def drive_tools(device: torch.device, plant: dict) -> dict[str, dict]:
+    """Phase 17d: ``memory_report`` at the plant configuration (phase 14a's field, its
+    blocking on) chunked at 500 heliostats and unchunked, beside phase 14a's peaks; and
+    ``ablate_step`` at ``bench.py``'s defaults without and with ``--block-window 96``, its
+    launches asserted."""
+    runs: dict[str, dict] = {}
+    for chunk in (MEMORY_REPORT_CHUNK, 0):
+        reset_launch_counts()
+        report = memory_report.memory_report(device, heliostat_chunk=chunk, **MEMORY_REPORT)
+        if not np.isfinite(report["loss"]):
+            raise AssertionError(f"phase 17d memory_report, chunk {chunk}: loss {report['loss']}")
+        runs[f"memory_report_chunk_{chunk or 'off'}"] = dict(report, launches=launch_counts())
+    _log(
+        f"phase 17d memory_report (4,000 heliostats x 2 rays x 50 x 50 x 4 points, blocking K = 16): "
+        f"{json.dumps({k: {n: v for n, v in r.items() if n != 'launches'} for k, r in runs.items()})}; phase 14a's "
+        f"aim-point peaks {plant['max_memory_allocated']} B chunked, {plant['unchunked_max_memory_allocated']} B "
+        f"unchunked"
+    )
+    for window in (None, BLOCK_WINDOW["splat_block_window"]):
+        reset_launch_counts()
+        times = ablate_step.ablate(device, block_window=window, steps=ABLATE_STEPS)
+        counts = launch_counts()
+        step = LAUNCHES_PER_BLOCK_WINDOW_STEP if window else LAUNCHES_PER_STEP
+        forward = "splat_dynamic_window_forward" if window else "splat_forward"
+        expected = {name: (1 + ABLATE_STEPS) * (count + (CHUNKS if name == forward else 0))
+                    for name, count in step.items()}
+        if device.type == "cuda" and counts != expected:
+            raise AssertionError(f"phase 17d ablate_step (window {window}) launched {counts}, expected {expected}")
+        if not all(np.isfinite(times[k]) and times[k] > 0 for k in ("full", "forward", "geometry")):
+            raise AssertionError(f"phase 17d ablate_step (window {window}): times {times}")
+        runs[f"ablate_step{'_block_window' if window else ''}"] = dict(times, launches=counts)
+        _log(f"phase 17d ablate_step, block window {window}: {json.dumps(times)} ms a call ({ABLATE_STEPS} calls)")
+    return runs
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU", file=sys.stderr)
@@ -5134,10 +5471,21 @@ def main() -> int:
     del ingress_group, ingress_distortions
     torch.cuda.empty_cache()
     distributed = drive_distributed(device, kinematics_data)
-    del kinematics_data
     for mode in ("group_parallel", "nested"):
         for rank in range(2):
             paths[f"distributed_{mode}_rank{rank}"] = distributed[f"{mode}_rank{rank}"]
+    torch.cuda.empty_cache()
+    for label, run in drive_tutorials(device).items():
+        paths[label] = run
+    torch.cuda.empty_cache()
+    for stage, run in drive_pipeline(device, kinematics_data, known).items():
+        paths[f"pipeline_{stage}"] = run
+    torch.cuda.empty_cache()
+    for label, run in drive_alignment_spread(device, kinematics_data, known)["runs"].items():
+        paths[f"alignment_{label}"] = run
+    del kinematics_data
+    torch.cuda.empty_cache()
+    paths.update(drive_tools(device, paths["plant_aim_point"]))
 
     case_keys = {key for _, key, *_ in SIGMA_CASES[1:] + FLAT_CASES[1:]} | {
         "kept_primitives", "fit_fraction", "full_splat_ms", "graph_ms", "zero_pairs", "surface_reconstruction_chunk",

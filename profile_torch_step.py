@@ -71,6 +71,7 @@ import chip_smoke
 from artist_tpu_torch.examples import plant_scale_aim_points
 from artist_tpu_torch.kernels.build import build_all
 from artist_tpu_torch.optim import training
+from artist_tpu_torch.tools import flagship_step
 from artist_tpu_torch.util import constants
 
 PORT_KERNELS = (
@@ -90,20 +91,11 @@ PATHS = (
 
 
 def surface_step(device: torch.device, blocking: bool, candidates: int | None, **splat_options):
-    return surface_step_of(chip_smoke.flagship_inputs(device, blocking=blocking, candidates=candidates, **splat_options))
-
-
-def surface_step_of(inputs: chip_smoke.StepInputs):
-    """A step of the flagship step on ``inputs``: loss, backward, Adam on the control points."""
-    control_points = inputs.scenario.heliostat_groups[0].nurbs_control_points.clone().requires_grad_(True)
-    optimizer = torch.optim.Adam([control_points], lr=chip_smoke.LEARNING_RATE)
-
-    def step() -> None:
-        optimizer.zero_grad(set_to_none=True)
-        chip_smoke.surface_loss(control_points, inputs).backward()
-        optimizer.step()
-
-    return step
+    """A step of the flagship step (``artist_tpu_torch.tools.flagship_step``): loss, backward,
+    Adam on the NURBS control points."""
+    return flagship_step.adam_step(
+        flagship_step.flagship_inputs(device, blocking=blocking, candidates=candidates, **splat_options)
+    )
 
 
 def aim_point_epoch(device: torch.device, candidates: int | None, aim_point=None):
@@ -114,7 +106,8 @@ def aim_point_epoch(device: torch.device, candidates: int | None, aim_point=None
             device, chip_smoke.AIM_HELIOSTATS, chip_smoke.AIM_SURFACE_POINTS, chip_smoke.AIM_RAYS
         )
         aim_point = chip_smoke.aim_point_optimizer(
-            scenario, chip_smoke.aim_point_ground_truth(chip_smoke.BITMAP, device), 0, candidates, chip_smoke.BITMAP,
+            scenario, chip_smoke.aim_point_ground_truth(flagship_step.BITMAP, device), 0, candidates,
+            flagship_step.BITMAP,
         )
     params, forward, loss_fn = aim_point.objective("kl_divergence")
     with torch.no_grad():
@@ -240,9 +233,9 @@ def main() -> int:
     elif args.path == "plant_aim_point":
         step = aim_point_epoch(device, candidates, plant_scale_aim_points.make_optimizer(device=device))
     elif args.path == "xl_step":
-        step = surface_step_of(chip_smoke.xl_inputs(device, True, candidates, chip_smoke.XL["heliostat_chunk"]))
+        step = flagship_step.adam_step(chip_smoke.xl_inputs(device, True, candidates, chip_smoke.XL["heliostat_chunk"]))
     elif args.path == "surface_step_block_window":
-        step = surface_step(device, False, candidates, **chip_smoke.BLOCK_WINDOW)
+        step = surface_step(device, False, candidates, **flagship_step.BLOCK_WINDOW)
     else:
         step = surface_step(device, args.path.startswith("blocking_step"), candidates)
     _timed_steps(1, step)  # warm-up

@@ -9,6 +9,10 @@ directory, which resume from epoch 2. The histories, the final parameters and
 losses must be equal bit for bit: the CPU runs the same operations on the
 same inputs in the same order, and the checkpoint restores every piece of the
 loop's state exactly (numpy arrays of the tensors, Python floats as float64).
+
+The scenario's optimizable state (``scenario_optimizable_state``,
+``apply_optimizable_state``) must equal the JAX package's on the same synthetic
+field, carried into the port with ``convert.py``, key by key and bit for bit.
 """
 
 import numpy as np
@@ -16,7 +20,12 @@ import pytest
 import torch
 
 import chip_smoke
-from artist_tpu_torch.io.checkpoint import CheckpointManager
+from artist_tpu_torch.io.checkpoint import (
+    OPTIMIZABLE_KEYS,
+    CheckpointManager,
+    apply_optimizable_state,
+    scenario_optimizable_state,
+)
 from artist_tpu_torch.optim import checkpointing
 from artist_tpu_torch.optim.surface_reconstructor import SurfaceReconstructor
 from artist_tpu_torch.scenario.synthetic import SyntheticCalibrationParser, make_synthetic_scenario
@@ -206,3 +215,87 @@ def test_pytree_round_trip():
         checkpointing.pack_pytree({1.5: 0})
     with pytest.raises(ValueError):
         checkpointing.pack_pytree({"a/b": 0})
+
+
+# --------------------------------------------------------------------------- #
+# The scenario's optimizable state, against the JAX package's
+# (tests/io/test_checkpoint.py:9-37 for the round trip).
+# --------------------------------------------------------------------------- #
+
+
+def _scenarios(actuator_type: str):
+    """The JAX package's synthetic field and the port's copy of it (``convert.py``)."""
+    from artist_tpu.scenario.synthetic import make_synthetic_scenario as jax_synthetic
+    from artist_tpu_torch.convert import scenario_from_numpy
+
+    theirs = jax_synthetic(
+        number_of_heliostats=3, number_of_control_points_per_facet=(6, 6), number_of_surface_points_per_facet=(4, 4),
+        actuator_type=actuator_type,
+    )
+
+    def fields(x):
+        return {f: np.asarray(getattr(x, f)) for f in x.__dataclass_fields__}
+
+    ours = scenario_from_numpy(
+        theirs.power_plant_position, fields(theirs.solar_tower), [fields(s) for s in theirs.light_sources],
+        [fields(g) for g in theirs.heliostat_groups], theirs.heliostat_group_names, device="cpu",
+    )
+    return theirs, ours
+
+
+@pytest.mark.parametrize("actuator_type", [constants.linear_actuator_key, constants.ideal_actuator_key])
+def test_optimizable_state_equals_jax(actuator_type):
+    from artist_tpu.io.checkpoint import scenario_optimizable_state as jax_state
+
+    theirs, ours = _scenarios(actuator_type)
+    state, jax = scenario_optimizable_state(ours), jax_state(theirs)
+    assert set(state) == set(jax) == {"group_0"}
+    assert set(state["group_0"]) == set(jax["group_0"]) == set(OPTIMIZABLE_KEYS)
+    for key, value in jax["group_0"].items():
+        assert state["group_0"][key].shape == np.asarray(value).shape, key
+        np.testing.assert_array_equal(state["group_0"][key], np.asarray(value), err_msg=key)
+
+
+def test_optimizable_state_round_trip(tmp_path):
+    """``tests/io/test_checkpoint.py:9-37`` on the port: save, mutate, save, restore the
+    first step and the latest."""
+    scenario = make_synthetic_scenario(
+        number_of_heliostats=3, number_of_control_points_per_facet=(6, 6), number_of_surface_points_per_facet=(4, 4),
+        device="cpu",
+    )
+    manager = CheckpointManager(tmp_path / "ckpt", max_to_keep=2)
+    state = scenario_optimizable_state(scenario)
+    assert manager.latest_step is None and manager.restore() is None
+    manager.save(0, state)
+    group = scenario.heliostat_groups[0]
+    mutated = group.replace(rotation_deviations=group.rotation_deviations + 1.0)
+    scenario.heliostat_groups[0] = mutated
+    manager.save(1, scenario_optimizable_state(scenario))
+    assert manager.latest_step == 1
+    restored = apply_optimizable_state(scenario, manager.restore(0))
+    assert restored is scenario
+    np.testing.assert_array_equal(scenario.heliostat_groups[0].rotation_deviations.numpy(),
+                                  state["group_0"]["rotation_deviations"])
+    np.testing.assert_array_equal(manager.restore()["group_0"]["rotation_deviations"],
+                                  mutated.rotation_deviations.numpy())
+
+
+def test_apply_optimizable_state_keeps_device_dtype_and_empty_rule():
+    """Restored tensors go onto the group's device in its dtype; an empty array replaces
+    only an empty tensor (the JAX package's rule), so an empty state entry leaves a
+    group's own parameters alone."""
+    _, scenario = _scenarios(constants.linear_actuator_key)
+    _, ideal = _scenarios(constants.ideal_actuator_key)
+    group = scenario.heliostat_groups[0]
+    state = scenario_optimizable_state(scenario)
+    state["group_0"]["motor_positions"] = np.full((3, 2), 7.0, np.float64)
+    state["group_0"]["actuator_optimizable"] = np.zeros((0, 0), np.float32)
+    apply_optimizable_state(scenario, state)
+    restored = scenario.heliostat_groups[0]
+    assert restored.motor_positions.dtype == torch.float32 and restored.motor_positions.device == group.positions.device
+    assert (restored.motor_positions == 7.0).all()
+    assert torch.equal(restored.actuator_optimizable, group.actuator_optimizable)
+    empty = scenario_optimizable_state(ideal)
+    assert empty["group_0"]["actuator_optimizable"].size == 0
+    apply_optimizable_state(ideal, empty)
+    assert ideal.heliostat_groups[0].actuator_optimizable.numel() == 0

@@ -1,8 +1,10 @@
 """The port and its scripts import no JAX, flax, optax or JAX-package module.
 
-The machine with the card has none of them, nor ``h5py`` or ``PIL``. Those two
-may appear only as imports inside the functions of the four ingress modules
-that read or write HDF5 or PNG files. Each source is parsed (AST, not text
+The machine with the card has none of them, nor ``h5py``, ``PIL``, ``yaml`` or
+``matplotlib``. The first two may appear only as imports inside the functions of
+the four ingress modules that read or write HDF5 or PNG files; the last two only
+inside the functions of the entry points (tutorials, examples, tools) that read a
+configuration file or draw a plot. Each source is parsed (AST, not text
 search) and every ``import`` / ``from ... import`` is checked; a second test
 imports every module of the port in a fresh interpreter in which all of these
 packages cannot be imported at all, and the file readers and writers, called
@@ -26,6 +28,29 @@ INGRESS_MODULES = {
     "artist_tpu_torch/io/paint_scenario_parser.py",
     "artist_tpu_torch/io/calibration.py",
 }
+# Packages for a configuration file or a plot, allowed only inside functions.
+ENTRY_POINT_PACKAGES = {"yaml", "matplotlib"}
+# The entry points: checked like every source, named here so that a missing one fails.
+ENTRY_POINTS = (
+    "artist_tpu_torch/tutorials/generate_scenario_from_paint.py",
+    "artist_tpu_torch/tutorials/generate_scenario_from_stral.py",
+    "artist_tpu_torch/tutorials/single_heliostat_raytracing.py",
+    "artist_tpu_torch/tutorials/field_raytracing_sharded.py",
+    "artist_tpu_torch/tutorials/surface_reconstruction.py",
+    "artist_tpu_torch/tutorials/kinematics_reconstruction.py",
+    "artist_tpu_torch/tutorials/aim_point_optimization.py",
+    "artist_tpu_torch/tutorials/multi_process_reconstruction.py",
+    "artist_tpu_torch/examples/field_optimizations/generate_scenarios.py",
+    "artist_tpu_torch/examples/field_optimizations/download_data.py",
+    "artist_tpu_torch/examples/field_optimizations/download_metadata.py",
+    "artist_tpu_torch/examples/field_optimizations/generate_viable_heliostats_list.py",
+    "artist_tpu_torch/examples/field_optimizations/generate_results.py",
+    "artist_tpu_torch/examples/field_optimizations/generate_stral_inputs.py",
+    "artist_tpu_torch/examples/field_optimizations/generate_plots.py",
+    "artist_tpu_torch/tools/flagship_step.py",
+    "artist_tpu_torch/tools/ablate_step.py",
+    "artist_tpu_torch/tools/memory_report.py",
+)
 SOURCES = sorted((REPO / "artist_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py", REPO / "profile_torch_step.py"]
 
 
@@ -61,6 +86,17 @@ def test_source_imports_nothing_forbidden(path):
         assert all(file_imports.values()), f"{path}: {file_imports} imported outside a function"
     else:
         assert not file_imports, f"{path}: imports {sorted(file_imports)}"
+    entry_imports = {root: local for root, local in roots.items() if root in ENTRY_POINT_PACKAGES}
+    assert all(entry_imports.values()), f"{path}: {entry_imports} imported outside a function"
+
+
+@pytest.mark.parametrize("module", ENTRY_POINTS)
+def test_entry_points_are_checked(module):
+    path = REPO / module
+    assert path in SOURCES
+    roots = _imported_roots(path)
+    assert not roots.keys() & (FORBIDDEN | FILE_PACKAGES)
+    assert all(local for root, local in roots.items() if root in ENTRY_POINT_PACKAGES)
 
 
 # The multi-process modules and the ray type:
@@ -92,7 +128,7 @@ def test_every_port_module_imports_without_jax():
     ]
     program = (
         "import sys\n"
-        f"for name in {sorted(FORBIDDEN | FILE_PACKAGES)!r}:\n"
+        f"for name in {sorted(FORBIDDEN | FILE_PACKAGES | ENTRY_POINT_PACKAGES)!r}:\n"
         "    sys.modules[name] = None\n"
         "import importlib\n"
         f"for module in {modules!r}:\n"
@@ -130,6 +166,19 @@ BLOCKED_CALLS = {
         "h5py",
         "from artist_tpu_torch.io.paint_scenario_parser import extract_paint_deflectometry_data\n"
         "extract_paint_deflectometry_data('deflectometry.h5', 4)\n",
+    ),
+    "load_config": (
+        "yaml",
+        "from artist_tpu_torch.examples.field_optimizations.generate_scenarios import load_config\n"
+        "load_config()\n",
+    ),
+    "generate_plots": (
+        "matplotlib",
+        "import pathlib, tempfile\n"
+        "from artist_tpu_torch.examples.field_optimizations.generate_plots import plot_loss_histories\n"
+        "directory = pathlib.Path(tempfile.mkdtemp())\n"
+        "(directory / 'kinematics_loss_history.json').write_text('{}')\n"
+        "plot_loss_histories(directory, directory)\n",
     ),
     "load_flux_from_png": (
         "PIL",
