@@ -36,7 +36,7 @@ def _mm(*mats: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def initial_orientation_offset(device: torch.device | str) -> torch.Tensor:
+def initial_orientation_offset(device: torch.device | str = "cpu") -> torch.Tensor:
     """Rotation ``[1, 4, 4]`` from the flat sampled-surface frame (+U) to south.
 
     Computed by axis-angle decomposition; evaluates to ``rotate_e(pi/2)``.
@@ -106,7 +106,8 @@ def motor_positions_from_normals(
     actuator_non_optimizable: torch.Tensor,
     actuator_optimizable: torch.Tensor,
     epsilon: float = 1e-8,
-) -> tuple[torch.Tensor, torch.Tensor]:
+    return_validity: bool = False,
+) -> torch.Tensor | tuple[torch.Tensor, torch.Tensor]:
     """Inverse kinematics: desired concentrator normals ``[M, 4]`` -> motor positions.
 
     Closed-form two-solution phase-shifted-sinusoid solve for (theta1,
@@ -116,9 +117,10 @@ def motor_positions_from_normals(
 
     Returns
     -------
-    tuple of torch.Tensor
-        Motor positions ``[M, 2]`` and a validity mask ``[M]`` that is False
-        where NEITHER solution lies inside the motor limits.
+    torch.Tensor or tuple of torch.Tensor
+        Motor positions ``[M, 2]``; with ``return_validity``, also a validity
+        mask ``[M]`` that is False where NEITHER solution lies inside the motor
+        limits.
     """
     first_dev = _mm(
         transforms.rotate_n(rotation_deviations[:, indices.first_joint_tilt_n]),
@@ -176,8 +178,10 @@ def motor_positions_from_normals(
     min_pos = actuator_non_optimizable[:, indices.actuator_min_motor_position]
     max_pos = actuator_non_optimizable[:, indices.actuator_max_motor_position]
     solution_1_valid = torch.all((motor_1 >= min_pos) & (motor_1 <= max_pos), dim=1)
-    solution_2_valid = torch.all((motor_2 >= min_pos) & (motor_2 <= max_pos), dim=1)
     motor_positions = torch.where(solution_1_valid[:, None], motor_1, motor_2)
+    if not return_validity:
+        return motor_positions
+    solution_2_valid = torch.all((motor_2 >= min_pos) & (motor_2 <= max_pos), dim=1)
     return motor_positions, solution_1_valid | solution_2_valid
 
 
@@ -277,6 +281,7 @@ def incident_ray_directions_to_orientations(
             actuator_type,
             actuator_non_optimizable,
             actuator_optimizable,
+            return_validity=True,
         )
         all_valid = all_valid & motor_valid
         motor_positions = torch.where(done, motor_positions, new_motor)

@@ -93,9 +93,13 @@ class CheckpointManager:
         Checkpoint root, created if missing.
     max_to_keep : int
         Steps kept after each save; at least 1.
+    per_process : bool
+        The JAX package's choice of a local backend for per-rank state in
+        multi-process runs. Accepted and ignored: this manager is always local
+        and synchronous, each process writing its own files.
     """
 
-    def __init__(self, directory: pathlib.Path | str, max_to_keep: int = 3) -> None:
+    def __init__(self, directory: pathlib.Path | str, max_to_keep: int = 3, per_process: bool = False) -> None:
         if max_to_keep <= 0:
             raise ValueError(f"max_to_keep must be at least 1, got {max_to_keep}")
         self.directory = pathlib.Path(directory).absolute()
@@ -105,8 +109,10 @@ class CheckpointManager:
     def _steps(self) -> list[int]:
         return sorted(int(path.stem) for path in self.directory.glob("*.npz") if path.stem.isdigit())
 
-    def save(self, step: int, state: dict[str, Any]) -> None:
-        """Save ``state`` as step ``step``, then prune to ``max_to_keep`` steps."""
+    def save(self, step: int, state: dict[str, Any], force: bool = False) -> bool:
+        """Save ``state`` as step ``step``, then prune to ``max_to_keep`` steps; True.
+        Every call saves, so ``force`` (the JAX package's override of its save
+        interval) changes nothing."""
         final = self.directory / f"{step}.npz"
         temporary = self.directory / f"tmp_{os.getpid()}_{step}.npz"
         with open(temporary, "wb") as handle:
@@ -115,6 +121,7 @@ class CheckpointManager:
         for stale in self._steps()[: -self.max_to_keep]:
             (self.directory / f"{stale}.npz").unlink(missing_ok=True)
         log.info("Saved checkpoint at step %d to %s.", step, self.directory)
+        return True
 
     @property
     def latest_step(self) -> int | None:
@@ -134,3 +141,9 @@ class CheckpointManager:
             state = _unflatten_state({key: archive[key] for key in archive.files})
         log.info("Restored checkpoint step %d from %s.", step, self.directory)
         return state
+
+    def wait_until_finished(self) -> None:
+        """Nothing to wait for: :meth:`save` has written its file when it returns."""
+
+    def close(self) -> None:
+        """Nothing to release: the manager holds no open file or thread."""

@@ -209,6 +209,9 @@ class LoopCheckpointer:
         Save every ``every`` epochs (epoch 0 never; 0 saves nothing).
     max_to_keep : int
         Steps kept; at least 1.
+    per_process : bool
+        Accepted and ignored, as :class:`~artist_tpu_torch.io.checkpoint.CheckpointManager`
+        does: the port's checkpoints are always local to the process.
     world_size : int
         Processes of the run. Each save records it, and a checkpoint written by
         another world size raises on restore: a loop's state (its groups, its
@@ -221,13 +224,15 @@ class LoopCheckpointer:
 
     def __init__(
         self, directory: pathlib.Path | str, label: str, every: int = 25, max_to_keep: int = 3,
-        world_size: int = 1, writer: bool = True,
+        per_process: bool = False, world_size: int = 1, writer: bool = True,
     ) -> None:
         self.every = int(every)
         self.label = label
         self.world_size = int(world_size)
         self.writer = writer
-        self._manager = CheckpointManager(pathlib.Path(directory) / label, max_to_keep=max_to_keep)
+        self._manager = CheckpointManager(
+            pathlib.Path(directory) / label, max_to_keep=max_to_keep, per_process=per_process
+        )
 
     def restore_latest(self) -> dict[str, Any] | None:
         """The latest saved state, or None for a fresh start. Raises ``ValueError``

@@ -9,8 +9,11 @@ the gradients of a heliostat's samples sum into its row. Two methods:
   positions, trace its rays onto the target in one call over the whole split
   (no ray chunks, as the JAX package), and compare the flux with the measured
   one (``focal_spot``, ``kl_divergence`` or ``pixel``); the median over a
-  heliostat's samples is its loss. Each epoch launches the splat forward once
-  and its backward once.
+  heliostat's samples is its loss. ``focal_spot`` holds the flux's centre of
+  mass to the measured flux's, as the JAX package does, or, with
+  ``focal_spot_ground_truth="focal_spots"``, to the calibration's measured focal
+  spots (the centroids a PAINT parser read, UTIS or HeliOS). Each epoch
+  launches the splat forward once and its backward once.
 - ``alignment``: no ray is traced in training. The predicted normal (the
   orientation's third column) of each sample is held against the normal its
   measured focal spot implies (``angle`` or ``cosine_similarity``), averaged
@@ -70,6 +73,7 @@ from artist_tpu_torch.util import constants
 log = logging.getLogger("artist_tpu_torch.optim")
 
 FLUX_LOSSES = ("focal_spot", "kl_divergence", "pixel")
+FOCAL_SPOT_GROUND_TRUTHS = ("flux", "focal_spots")
 ALIGNMENT_LOSSES = ("angle", "cosine_similarity")
 # The validation's losses: result key -> flux loss.
 VALIDATION_LOSSES = {"pixel_loss": "pixel", "kl_div": "kl_divergence", "focal_spot_loss": "focal_spot"}
@@ -125,6 +129,10 @@ class KinematicsReconstructor:
         every group; defaults to ``distributed_setup.mesh`` in the nested mode.
     distributed_setup : DistributedSetup | None
         The run's ranks; group-parallel or nested, as its ``is_nested`` says.
+    focal_spot_ground_truth : str
+        What the ``focal_spot`` loss holds a traced flux's centre of mass to:
+        ``"flux"``, the measured flux's centre of mass (the JAX package's), or
+        ``"focal_spots"``, the calibration data's measured focal spots.
     """
 
     def __init__(
@@ -140,7 +148,13 @@ class KinematicsReconstructor:
         distributed_setup=None,
         checkpoint_dir=None,
         checkpoint_every: int = 25,
+        focal_spot_ground_truth: str = "flux",
     ) -> None:
+        if focal_spot_ground_truth not in FOCAL_SPOT_GROUND_TRUTHS:
+            raise ValueError(
+                f"focal_spot_ground_truth must be one of {FOCAL_SPOT_GROUND_TRUTHS}, got {focal_spot_ground_truth!r}"
+            )
+        self.focal_spot_ground_truth = focal_spot_ground_truth
         self.mesh = resolve_mesh(mesh, distributed_setup)
         self.distributed_setup = distributed_setup
         if reconstruction_method not in (
@@ -206,9 +220,8 @@ class KinematicsReconstructor:
         if loss_name == "pixel":
             return losses.pixel_loss(flux, batch["flux_measured"])
         if loss_name == "focal_spot":
-            return losses.focal_spot_loss(
-                flux, batch["flux_measured"], self.scenario.solar_tower, batch["target_area_indices"]
-            )
+            ground_truth = batch["flux_measured" if self.focal_spot_ground_truth == "flux" else "focal_spots_measured"]
+            return losses.focal_spot_loss(flux, ground_truth, self.scenario.solar_tower, batch["target_area_indices"])
         raise ValueError(f"Unknown loss for kinematics reconstruction: {loss_name}")
 
     def _build_step_functions(self, loss_name: str):
@@ -315,6 +328,7 @@ class KinematicsReconstructor:
 
         active = hg.gather_active(group, active_indices)
         incident = tensor("incident_ray_directions")
+        focal_spots = tensor("focal_spots_measured")
         padded, valid = losses.build_sample_index_matrix(np.asarray(mask)[unique])
         return {
             "plan": plan,
@@ -324,7 +338,8 @@ class KinematicsReconstructor:
             "target_area_indices": tensor("target_area_indices", torch.long),
             "flux_measured": tensor("flux_measured"),
             "motor_positions": tensor("motor_positions"),
-            "normals_measured": compute_measured_normals(active.positions, tensor("focal_spots_measured"), incident),
+            "focal_spots_measured": focal_spots,
+            "normals_measured": compute_measured_normals(active.positions, focal_spots, incident),
             "distortions_u": distortions_u,
             "distortions_e": distortions_e,
             "ray_magnitude": ray_magnitude,

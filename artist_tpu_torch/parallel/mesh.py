@@ -94,8 +94,8 @@ def local_slice(mesh, dim: str | None, length: int) -> slice:
     return slice(index * size, (index + 1) * size)
 
 
-def put_global(tensor: torch.Tensor, sharding: Sharding) -> torch.Tensor:
-    """This rank's slice of the global ``tensor`` under ``sharding``.
+def put_global(array: torch.Tensor, sharding: Sharding) -> torch.Tensor:
+    """This rank's slice of the global tensor ``array`` under ``sharding``.
 
     Every rank holds the same global tensor (data loading is deterministic and
     replicated); each keeps its part along every axis ``sharding`` splits. An axis
@@ -103,10 +103,10 @@ def put_global(tensor: torch.Tensor, sharding: Sharding) -> torch.Tensor:
     batches on a wide mesh): the computation stays right, unsplit along it. The
     slice is a copy, so the global tensor can be freed.
     """
-    index = tuple(local_slice(sharding.mesh, dim, tensor.shape[axis]) for axis, dim in enumerate(sharding.dims))
-    if all(part == slice(0, tensor.shape[axis]) for axis, part in enumerate(index)):
-        return tensor
-    return tensor[index].clone()
+    index = tuple(local_slice(sharding.mesh, dim, array.shape[axis]) for axis, dim in enumerate(sharding.dims))
+    if all(part == slice(0, array.shape[axis]) for axis, part in enumerate(index)):
+        return array
+    return array[index].clone()
 
 
 def fetch_global(tensor: torch.Tensor, sharding: Sharding, shape: tuple[int, ...]) -> torch.Tensor:

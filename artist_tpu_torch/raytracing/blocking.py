@@ -264,6 +264,7 @@ def soft_ray_blocking_mask(
     ray_origin_offset: float = 0.05,
     cull_method: str = "dense",
     primitive_chunk: int | None = None,
+    method: str = "auto",
     max_candidates: int | None = None,
 ) -> torch.Tensor:
     """Soft differentiable blocking mask with Beer-Lambert accumulation.
@@ -289,6 +290,9 @@ def soft_ray_blocking_mask(
         traversal (the same flags).
     primitive_chunk : int | None
         Accepted for the JAX signature's sake; changes nothing here.
+    method : str
+        The JAX package's choice of TPU formulation. Accepted and ignored, as
+        ``RenderConfig.blocking_method`` is.
     max_candidates : int | None
         Candidate blockers per heliostat (K) of the compacted route; None
         selects the flat route (so does ``cull_method="lbvh"``).

@@ -66,6 +66,11 @@ class RenderConfig:
     # the backward instead of storing its per-ray tensors: O(chunk) instead of
     # O(rays) activation memory.
     ray_chunk: int | None = None
+    # The JAX package's choice of TPU formulation for the splat and (below) for
+    # blocking ("auto", "pallas", "xla", ...). Accepted and ignored: the port
+    # always computes the semantics of the JAX package's Pallas routes, with
+    # its own kernels on the card and their plain versions on the CPU.
+    splat_method: str = "auto"
     # Per-heliostat splat window (pixels) at the intensity-weighted spot
     # centre; rays outside it are dropped. None = the full-bitmap splat.
     splat_window: int | None = None
@@ -83,22 +88,17 @@ class RenderConfig:
     splat_point_layout: tuple[int, int, int] | None = None
     # Field-wide soft blocking; needs the blocking primitives.
     blocking_active: bool = False
-    # Candidate blockers per heliostat (K) of the compacted blocking route.
-    # None selects the flat route over every primitive, with the AABB cull.
-    blocking_candidates: int | None = 16
     # Chunk of the blocking-primitive axis, passed to soft_ray_blocking_mask
     # (which accepts it and computes the same mask without it).
     primitive_chunk: int | None = None
+    blocking_method: str = "auto"
+    # Candidate blockers per heliostat (K) of the compacted blocking route.
+    # None selects the flat route over every primitive, with the AABB cull.
+    blocking_candidates: int | None = 16
     # Recompute each ray chunk in the backward instead of storing its
     # residuals (O(chunk) instead of O(rays) activation memory). False keeps
     # every chunk's residuals: no recompute, one splat forward fewer a chunk.
     remat_chunks: bool = True
-    # The JAX package's choice of TPU formulation for the splat and for
-    # blocking ("auto", "pallas", "xla", ...). Accepted and ignored: the port
-    # always computes the semantics of the JAX package's Pallas routes, with
-    # its own kernels on the card and their plain versions on the CPU.
-    splat_method: str = "auto"
-    blocking_method: str = "auto"
 
 
 class ChunkRays(NamedTuple):

@@ -46,6 +46,7 @@ def bilinear_splat(
     intensities: torch.Tensor,
     bitmap_resolution: tuple[int, int],
     flip_up_down: bool = True,
+    method: str = "scatter",
     window: int | None = None,
     block_window: int | None = None,
 ) -> torch.Tensor:
@@ -64,6 +65,10 @@ def bilinear_splat(
         (width_e, height_u).
     flip_up_down : bool
         Flip the row axis so the image origin is bottom-left.
+    method : str
+        The JAX package's choice of TPU formulation. Accepted and ignored, as
+        ``RenderConfig.splat_method`` is: the port computes one semantics, with its
+        kernels on the card and their plain versions on the CPU.
     window : int | None
         Splat into a per-heliostat ``window``-pixel square at the
         intensity-weighted spot centre; rays outside it are dropped.

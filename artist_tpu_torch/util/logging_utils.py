@@ -35,7 +35,7 @@ def set_logger_config(
     level: int = logging.INFO,
     log_file: str | Path | None = None,
     log_to_stderr: bool = True,
-    process_index: int = 0,
+    process_index: int | None = None,
 ) -> None:
     """Configure the ``artist_tpu_torch`` logger hierarchy.
 
@@ -47,9 +47,14 @@ def set_logger_config(
         Optional file to log to as well.
     log_to_stderr : bool
         Whether to attach a stream handler.
-    process_index : int
-        Process index shown in the format (the port runs one process).
+    process_index : int | None
+        Process index shown in the format; None reads this process's rank in the
+        initialised process group (0 without one).
     """
+    if process_index is None:
+        from artist_tpu_torch.parallel import collectives
+
+        process_index = collectives.rank()
     base_logger = logging.getLogger("artist_tpu_torch")
     base_logger.setLevel(level)
     base_logger.handlers.clear()

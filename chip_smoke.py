@@ -147,6 +147,18 @@ exits non-zero without them. It imports only ``torch``, ``numpy`` and the
     their spread; d. ``memory_report`` at the plant configuration, chunked and
     unchunked, and ``ablate_step`` with and without the block window. Every call's
     launches are asserted.
+18. the PAINT plot example (``artist_tpu_torch/examples/paint_plots``): a.
+    ``reconstruction_generate_results`` at its configuration (the raytracing method,
+    max_epoch 1000, lr 1e-4, exponential 0.999, 3 samples a heliostat, 5 x 5 points a
+    facet, 10 rays a point) on 2,000 PAINT heliostats written here and loaded by
+    ``reconstruction_scenario`` from their image, once on UTIS and once on HeliOS
+    centroids cast from known rotation deviations, both losses falling and the UTIS
+    run ending below the HeliOS one; the splat pair at its batches (``[4000, 1000]``
+    rays onto 4,000 maps) against the plain versions, timed; b.
+    ``flux_prediction_raytracing`` on ``flux_prediction_scenario``'s ideal scenario and
+    on phase 15's fits, 1,000 rays a point onto 256 x 256 (30 M rays a scenario); c.
+    ``flux_prediction_plot``'s demo on the card against the CPU. Every call's launches
+    are asserted.
 
 Phase 3 also holds the dynamic-window kernels (3d: on the block-window
 step's first chunk in place with the tile order, as that step splats it,
@@ -204,6 +216,13 @@ from artist_tpu_torch.geometry.coordinates import (  # noqa: E402
 )
 from artist_tpu_torch.examples import plant_scale_aim_points  # noqa: E402
 from artist_tpu_torch.examples.field_optimizations import generate_results  # noqa: E402
+from artist_tpu_torch.examples.paint_plots import (  # noqa: E402
+    flux_prediction_plot,
+    flux_prediction_raytracing,
+    flux_prediction_scenario,
+    reconstruction_generate_results,
+    reconstruction_scenario,
+)
 from artist_tpu_torch.io.calibration import CalibrationData, CalibrationDataParser  # noqa: E402
 from artist_tpu_torch.io import paint_scenario_parser  # noqa: E402
 from artist_tpu_torch.io.stral import extract_stral_deflectometry_data  # noqa: E402
@@ -3234,17 +3253,30 @@ def check_kinematics_kernels(device: torch.device, size: dict, data: Calibration
     """Phase 13b's kernel check: row 1 at the validation batch's rays and rows 1 and 2 at
     the flux-driven train batch's, each against its plain version, then timed beside
     ``index_add_`` and the bound. Returns the timings, by kernel and shape."""
-    width, height = size["bitmap"]
     reconstructor = kinematics_reconstructor(
         device, size, data, constants.kinematics_reconstruction_raytracing, kinematics_configuration(0)
     )
+    return check_reconstructor_batches(
+        reconstructor, "phase 13b", "kinematics_train", "kinematics_validation", SEED + 13
+    )
+
+
+def check_reconstructor_batches(reconstructor: KinematicsReconstructor, phase: str, train_key: str,
+                                validation_key: str, seed: int) -> dict[str, dict]:
+    """The splat pair at a flux-driven reconstructor's batches: row 1 at the validation
+    batch's rays and rows 1 and 2 at the train batch's, each against its plain version
+    (the backward on a cotangent drawn from ``seed``), then timed beside ``index_add_``
+    and the bound. Returns the timings by kernel, under ``train_key`` and
+    ``validation_key``."""
+    width, height = reconstructor.bitmap_resolution
+    device = reconstructor.device
     group = reconstructor.scenario.heliostat_groups[0]
     unique, split = training.group_calibration_split(
-        reconstructor.data, reconstructor.scenario, group, size["bitmap"]
+        reconstructor.data, reconstructor.scenario, group, reconstructor.bitmap_resolution
     )
-    batches = dict(zip(("kinematics_train", "kinematics_validation"), reconstructor._batches(group, split, unique)))
+    batches = dict(zip((train_key, validation_key), reconstructor._batches(group, split, unique)))
     timings: dict[str, dict] = {"splat_forward": {}, "splat_backward": {}}
-    for label in ("kinematics_validation", "kinematics_train"):
+    for label in (validation_key, train_key):
         rays = kinematics_rays(reconstructor, batches.pop(label))
         shape = list(rays[0].shape)
         forward_err, share = check_forward(
@@ -3252,10 +3284,9 @@ def check_kinematics_kernels(device: torch.device, size: dict, data: Calibration
             rays, height, width,
         )
         g = None
-        if label == "kinematics_train":
+        if label == train_key:
             g = torch.randn(
-                (shape[0], height, width), device=device,
-                generator=torch.Generator(device=device).manual_seed(SEED + 13),
+                (shape[0], height, width), device=device, generator=torch.Generator(device=device).manual_seed(seed)
             )
             backward_errs, backward_share = check_backward(
                 "splat_backward", splat_backward_cuda(*rays, g, height, width),
@@ -3266,9 +3297,9 @@ def check_kinematics_kernels(device: torch.device, size: dict, data: Calibration
         timed["splat_forward"]["max_abs_err"] = forward_err
         if g is not None:
             timed["splat_backward"]["max_abs_err"] = max(backward_errs)
-        del work, rays, g
         _log(
-            f"phase 13b splat kernels at the flux-driven {label.split('_')[1]} batch: {shape} rays -> "
+            f"{phase} splat kernels at the flux-driven {'train' if label == train_key else 'validation'} batch: "
+            f"{shape} rays ({work['valid']} valid, {work['touched']} pixels touched) -> "
             f"[{shape[0]}, {height}, {width}]; worst error {share:.3g} of its tolerance: "
             + "; ".join(
                 f"{name} max_abs_err {t['max_abs_err']:.3g}, kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
@@ -3277,6 +3308,7 @@ def check_kinematics_kernels(device: torch.device, size: dict, data: Calibration
                 for name, t in timed.items()
             )
         )
+        del work, rays, g
         for name, t in timed.items():
             timings[name][label] = dict(
                 shape=shape, ms=t["ms"], plain_ms=t["plain_ms"], library_ms=t["library_ms"], bound_ms=t["bound"][0],
@@ -4765,6 +4797,7 @@ def drive_data_ingress(device: torch.device, size: dict = INGRESS):
         grid_border_angle=grid_border_angle,
         grid_interior_angle=grid_interior_angle,
         group_names=group_names,
+        surfaces=[f["surface"] for f in fits],
     )
     _log(
         f"{phase}a data ingress: {len(names)} STRAL files of 4 x {size['facet_points']} points written and read in "
@@ -5357,6 +5390,358 @@ def drive_tools(device: torch.device, plant: dict) -> dict[str, dict]:
     return runs
 
 
+# --------------------------------------------------------------------------- #
+# Phase 18: the PAINT plot example (artist_tpu_torch/examples/paint_plots).
+# --------------------------------------------------------------------------- #
+
+# 18a: the field that maximum_number_of_heliostats_for_reconstruction (2,200) admits,
+# cut to 2,000 PAINT heliostats, 3 calibration samples each (2 train, 1 test), the
+# scenario at 5 x 5 points a facet with 10 rays a point: a train epoch traces
+# [4000, 1000] rays onto 4,000 maps of 256 x 256. The heliostats stand in 40 rows 5 m
+# apart of 50 columns 4 m apart (98 m east and west, 25-220 m north of the receiver), the
+# extent of the PAINT field: on the synthetic grid's spacing (rows 12 m, columns 8 m)
+# the last rows stand 553 m out.
+PAINT_FIELD = dict(heliostats=2000, row_spacing=5.0, columns=50, column_spacing=4.0, samples=3, bitmap=(256, 256))
+# reconstruction_generate_results' max_epoch; PERF.md §4 names any cut.
+PAINT_EPOCHS = 1000
+# The known rotation deviations, smaller than phase 13's: the rows reach 550 m from the
+# receiver, where 4-8 mrad would throw a spot off its 8 x 7 m.
+PAINT_KNOWN_DEVIATIONS = (1e-3, 2e-3)
+# The HeliOS centroids: the UTIS ones (the traced centres of mass) moved by a normal
+# offset of this deviation (m) along each axis of the receiver plane.
+HELIOS_NOISE = 0.05
+# A sun under which a heliostat cannot aim (its actuators' range) casts no flux on the
+# receiver, and PAINT holds no such measurement: such a sample's sun is drawn again, at
+# most this many times in all.
+PAINT_SUN_DRAWS = 6
+# 18b: the flux prediction's heliostats, phase 15's fits, east and north of the tower (m).
+PREDICTION_PLACES = ((-8.0, 40.0), (8.0, 40.0), (0.0, 56.0))
+PREDICTION_SURFACE_POINTS = (50, 50)  # load_scenario_from_hdf5's default, as the JAX script loads
+
+
+def paint_names(count: int) -> list[str]:
+    """PAINT-style heliostat names, two letters and two digits: AA00, AA01, ..."""
+    return [f"{chr(65 + i // 2600)}{chr(65 + i // 100 % 26)}{i % 100:02d}" for i in range(count)]
+
+
+def write_paint_grid(directory: pathlib.Path, size: dict) -> list[tuple[str, pathlib.Path]]:
+    """The tower and ``size["heliostats"]`` PAINT heliostats on :func:`row_positions`' grid
+    of ``size``'s spacing in ``directory``; their ``(name, properties file)``."""
+    write_paint_tower(directory / "tower-measurements.json")
+    files = []
+    positions = row_positions(size["heliostats"], size["row_spacing"], size["columns"], size["column_spacing"])
+    for i, (name, position) in enumerate(zip(paint_names(size["heliostats"]), positions)):
+        files.append((name, write_paint_heliostat(directory / f"{name}-heliostat-properties.json",
+                                                  float(position[0]), float(position[1]), SEED + 100 + i)))
+    return files
+
+
+def paint_calibration(scenario, deviations: np.ndarray, samples: int, bitmap: tuple[int, int],
+                      draws: int = PAINT_SUN_DRAWS) -> tuple[CalibrationData, int]:
+    """:func:`kinematics_calibration`, each sample that casts no flux cast again under a
+    sun of the next draw, at most ``draws`` draws in all. Returns the samples and how
+    many still cast none."""
+    data = kinematics_calibration(scenario, deviations, samples, bitmap)
+    for draw in range(1, draws):
+        empty = data.flux_measured.reshape(len(data.flux_measured), -1).sum(axis=1) == 0
+        if not empty.any():
+            break
+        again = kinematics_calibration(scenario, deviations, samples, bitmap, seed=SEED + 12 + 100 * draw)
+        take = empty & (again.flux_measured.reshape(len(empty), -1).sum(axis=1) > 0)
+        for field in ("flux_measured", "focal_spots", "incident_ray_directions", "motor_positions"):
+            getattr(data, field)[take] = getattr(again, field)[take]
+    return data, int((data.flux_measured.reshape(len(data.flux_measured), -1).sum(axis=1) == 0).sum())
+
+
+def helios_centroids(data: CalibrationData, seed: int = SEED + 18) -> CalibrationData:
+    """``data`` with its focal spots moved on the receiver plane (east and up) by a normal
+    offset of :data:`HELIOS_NOISE` m along each axis."""
+    offset = np.random.RandomState(seed).normal(0.0, HELIOS_NOISE, (len(data.focal_spots), 2))
+    spots = np.array(data.focal_spots, dtype=np.float32, copy=True)
+    spots[:, 0] += offset[:, 0]
+    spots[:, 2] += offset[:, 1]
+    return dataclasses.replace(data, focal_spots=spots)
+
+
+class LossRecorder(EpochRecorder):
+    """An ``on_epoch`` callback that also keeps each epoch's loss."""
+
+    def __init__(self):
+        super().__init__()
+        self.losses: list[float] = []
+
+    def __call__(self, epoch: int, loss: float) -> None:
+        super().__call__(epoch, loss)
+        self.losses.append(loss)
+
+
+def drive_paint_reconstruction(device: torch.device, size: dict = PAINT_FIELD, max_epoch: int = PAINT_EPOCHS):
+    """Phase 18a: ``reconstruction_generate_results.generate_reconstruction_results`` on
+    the PAINT field of ``size``, its scenario parsed from PAINT JSON written here and
+    loaded from its image by ``reconstruction_scenario.reconstruction_scenario``, on
+    calibration samples cast with known rotation deviations (:func:`kinematics_calibration`):
+    UTIS centroids at the traced centres of mass, HeliOS ones moved off them
+    (:func:`helios_centroids`). Both runs' losses must fall from epoch 0, the UTIS run
+    end below the HeliOS one on the held-out samples, every heliostat have finite
+    losses and its position, and the launches be the loop's. Returns the path's numbers, the scenario and the UTIS
+    parser."""
+    phase = "phase 18a"
+    start = time.perf_counter()
+    with tempfile.TemporaryDirectory() as name:
+        directory = pathlib.Path(name)
+        files = write_paint_grid(directory, size)
+        scenario = reconstruction_scenario.reconstruction_scenario(directory / "tower-measurements.json", files,
+                                                                   device=device)
+    synchronize(device)
+    scenario_seconds = time.perf_counter() - start
+    group = scenario.heliostat_groups[0]
+    known = known_rotation_deviations(group.number_of_heliostats, magnitudes=PAINT_KNOWN_DEVIATIONS)
+    start = time.perf_counter()
+    utis, empty = paint_calibration(scenario, known, size["samples"], size["bitmap"])
+    data = {"UTIS": utis, "HeliOS": helios_centroids(utis)}
+    calibration_seconds = time.perf_counter() - start
+    recorders = {centroid: LossRecorder() for centroid in data}
+    starts: dict[str, float] = {}
+
+    def parser(centroid: str) -> CalibrationDataParser:
+        starts[centroid] = time.perf_counter()
+        return CalibrationDataParser(data[centroid], group.names, reconstruction_generate_results.SAMPLE_LIMIT)
+
+    details: dict[str, dict] = {}
+    synchronize(device)
+    reset_peak_memory(device)
+    reset_launch_counts()
+    start = time.perf_counter()
+    results, syncs = counted_syncs(
+        lambda: reconstruction_generate_results.generate_reconstruction_results(
+            scenario, max_epoch=max_epoch, device=device, data_parser=parser, on_epoch=recorders, details=details
+        ),
+        device,
+    )
+    synchronize(device)
+    seconds = time.perf_counter() - start
+    counts = launch_counts()
+    peak = max_memory(device)
+
+    block = reconstruction_generate_results.optimization_configuration(max_epoch)[constants.optimization]
+    expected = launches()
+    runs = {}
+    for centroid, recorder in recorders.items():
+        stopped = len(recorder.epochs) < max_epoch + 1
+        run_launches = kinematics_launches(RAYTRACING, recorder.epochs, max_epoch, block[constants.log_step], stopped)
+        expected = {name: expected[name] + run_launches[name] for name in KERNELS}
+        runs[centroid] = dict(
+            seconds=recorder.ends[-1] - starts[centroid],
+            epochs=len(recorder.epochs),
+            stopped=stopped,
+            epoch_seconds_median=float(np.median(np.diff(recorder.ends))) if len(recorder.ends) > 1 else None,
+            loss_ends=falling(f"{phase} {centroid}", recorder.losses),
+            final_losses_mean=float(np.mean([entry[centroid] for entry in results.values()])),
+            test_focal_spot_loss_mean=float(np.mean(np.concatenate(
+                [r.test_loss["focal_spot_loss"] for r in details[centroid]["results"]]
+            ))),
+            distance_to_known=[float(np.linalg.norm(known)),
+                               float(np.linalg.norm(details[centroid]["rotation_deviations"][0] - known))],
+            launches=run_launches,
+        )
+    if device.type == "cuda" and counts != expected:
+        raise AssertionError(f"{phase} launched {counts}, expected {expected}")
+    # Two train samples a heliostat against its four rotation deviations: each run can
+    # fit its own centroids, noise and all, and more than one set of deviations casts the
+    # same two spots. So the held-out sample tells the methods apart; the distance to
+    # the known deviations is printed, not gated.
+    held_out = {centroid: run["test_focal_spot_loss_mean"] for centroid, run in runs.items()}
+    if not held_out["UTIS"] < held_out["HeliOS"]:
+        raise AssertionError(f"{phase}: the test focal-spot losses {held_out} (m)")
+    if set(results) != set(group.names) or not all(
+        np.isfinite(entry["UTIS"]) and np.isfinite(entry["HeliOS"]) and len(entry["Position"]) == 4
+        for entry in results.values()
+    ):
+        raise AssertionError(f"{phase}: the results do not carry every heliostat with finite losses and a position")
+    epochs = sum(run["epochs"] for run in runs.values())
+    result = dict(
+        launches=counts,
+        heliostats=group.number_of_heliostats,
+        samples=len(utis.flux_measured),
+        samples_without_flux=empty,
+        scenario_seconds=scenario_seconds,
+        calibration_seconds=calibration_seconds,
+        seconds=seconds,
+        max_epoch=max_epoch,
+        max_memory_allocated=peak,
+        host_syncs=syncs,
+        host_syncs_per_epoch=None if syncs is None else syncs / epochs,
+        runs=runs,
+    )
+    _log(
+        f"{phase} PAINT reconstruction ({group.number_of_heliostats} heliostats x {size['samples']} samples, "
+        f"{scenario.light_sources[0].number_of_rays} rays a point at 5 x 5 points a facet, max_epoch {max_epoch}): "
+        f"scenario {scenario_seconds:.3f} s, samples {calibration_seconds:.3f} s ({empty} without flux); both runs "
+        f"{seconds:.6f} s, max_memory_allocated {peak} B, {syncs} host syncs "
+        f"({result['host_syncs_per_epoch']} an epoch), launches { {k: v for k, v in counts.items() if v} }; "
+        + "; ".join(
+            f"{centroid}: {run['epochs']} epochs in {run['seconds']:.6f} s, {run['epoch_seconds_median']} s an epoch "
+            f"(median after the first), mean pointing error {run['loss_ends'][0]:.6g} -> {run['loss_ends'][1]:.6g} m, "
+            f"final per-heliostat mean {run['final_losses_mean']:.6g} m, test focal-spot loss "
+            f"{run['test_focal_spot_loss_mean']:.6g} m, |deviations - known| {run['distance_to_known'][0]:.6g} -> "
+            f"{run['distance_to_known'][1]:.6g}"
+            for centroid, run in runs.items()
+        )
+    )
+    return result, scenario, CalibrationDataParser(utis, group.names, reconstruction_generate_results.SAMPLE_LIMIT)
+
+
+def check_paint_kernels(scenario, parser: CalibrationDataParser) -> dict[str, dict]:
+    """Phase 18a's kernel check: the splat pair at the reconstruction's train batch
+    (``[4000, 1000]`` rays onto ``[4000, 256, 256]``) and row 1 at its validation batch,
+    against the plain versions, timed. Returns the timings under "paint_reconstruction"
+    and "paint_reconstruction_validation"."""
+    reconstructor = KinematicsReconstructor(
+        scenario=scenario,
+        data={constants.data_parser: parser, constants.heliostat_data_mapping: []},
+        optimization_configuration=reconstruction_generate_results.optimization_configuration(0),
+        reconstruction_method=RAYTRACING,
+        focal_spot_ground_truth="focal_spots",
+    )
+    return check_reconstructor_batches(
+        reconstructor, "phase 18a", "paint_reconstruction", "paint_reconstruction_validation", SEED + 19
+    )
+
+
+def prediction_calibration(tower: SolarTower, names, seed: int = SEED + 31) -> CalibrationData:
+    """One calibration measurement a heliostat of ``names``: a sun south of the field, a
+    focal spot within a few decimetres of the receiver's centre, and a measured image (a
+    Gaussian spot in [0, 1] at 256 x 256)."""
+    rng = np.random.RandomState(seed)
+    count = len(names)
+    targets = torch.zeros(count, dtype=torch.long, device=tower.planar_centers.device)
+    spots = get_centers_of_target_areas(tower, targets).cpu().numpy().copy()
+    spots[:, [0, 2]] += rng.normal(0.0, 0.3, (count, 2))
+    yy, xx = np.mgrid[0:256, 0:256] / 256.0
+    images = np.stack([np.exp(-((xx - c[0]) ** 2 + (yy - c[1]) ** 2) / 0.01) for c in rng.uniform(0.4, 0.6, (count, 2))])
+    return CalibrationData(
+        flux_measured=images.astype(np.float32),
+        focal_spots=spots.astype(np.float32),
+        incident_ray_directions=sun_directions(count, seed),
+        motor_positions=np.zeros((count, 2), np.float32),
+        active_heliostats_mask=np.ones(count, np.int32),
+        target_area_indices=np.zeros(count, np.int32),
+    )
+
+
+def drive_paint_flux_prediction(device: torch.device, surfaces: list) -> dict[str, dict]:
+    """Phase 18b: ``flux_prediction_raytracing.generate_flux_images`` on both scenarios of
+    ``flux_prediction_scenario`` for phase 15's three heliostats (PAINT JSON written here):
+    ideal surfaces of 20 x 20 control points and phase 15's fits ``surfaces``, loaded at
+    50 x 50 points a facet; each heliostat aimed at a measured focal spot and traced with
+    1,000 rays a point onto 256 x 256 (30 M rays a scenario). The six bitmaps must be
+    finite with flux, the ideal and fitted ones differ by more than a second ideal run
+    differs from the first, and the results carry the JAX keys."""
+    phase = "phase 18b"
+    names = list(INGRESS_HELIOSTATS)
+    scenarios = {}
+    with tempfile.TemporaryDirectory() as name:
+        directory = pathlib.Path(name)
+        write_paint_tower(directory / "tower-measurements.json")
+        for i, (heliostat, (east, north)) in enumerate(zip(names, PREDICTION_PLACES)):
+            (directory / heliostat / "Properties").mkdir(parents=True)
+            write_paint_heliostat(flux_prediction_scenario.properties_path(directory, heliostat), east, north,
+                                  SEED + 30 + i)
+        for stem, use in flux_prediction_scenario.SCENARIOS.items():
+            generator = flux_prediction_scenario.flux_prediction_scenario_generator(
+                directory / flux_prediction_scenario.scenario_file(stem), directory / "tower-measurements.json",
+                directory, names, use, fitted_surfaces=dict(zip(names, surfaces)) if use else None, device=device,
+            )
+            scenarios[stem] = load_scenario_from_image(generator.scenario_image(), PREDICTION_SURFACE_POINTS,
+                                                       device=device)
+    group = scenarios["ideal"].heliostat_groups[0]
+    parser = CalibrationDataParser(prediction_calibration(scenarios["ideal"].solar_tower, group.names), group.names)
+    measurements = {heliostat: i for i, heliostat in enumerate(group.names)}
+    results: dict[str, np.ndarray] = {}
+    runs = {}
+    for stem, scenario in scenarios.items():
+        run = run_entry_point(
+            device, f"{phase} {stem}",
+            lambda recorder, stem=stem, scenario=scenario: flux_prediction_raytracing.generate_flux_images(
+                scenario, measurements, None, results, stem, data_parser=parser, device=device
+            ),
+            lambda recorder, result: launches(splat_forward=len(scenario.heliostat_groups)),
+        )
+        run.pop("result")
+        run["rays"] = len(names) * flux_prediction_raytracing.NUMBER_OF_RAYS * group.surface_points.shape[1]
+        runs[stem] = run
+    again = flux_prediction_raytracing.generate_flux_images(
+        scenarios["ideal"], measurements, None, {}, "ideal", data_parser=parser, device=device
+    )
+    keys = {f"{heliostat}/{key}" for heliostat in names for key in ("ideal", "fitted", "utis")}
+    if set(results) != keys:
+        raise AssertionError(f"{phase}: results keyed {sorted(results)}, expected {sorted(keys)}")
+    for key, image in results.items():
+        if image.shape != (256, 256) or not np.isfinite(image).all() or not image.sum() > 0:
+            raise AssertionError(f"{phase}: {key} is not a finite 256 x 256 bitmap with flux")
+    spread = max(float(np.abs(again[f"{h}/ideal"] - results[f"{h}/ideal"]).max()) for h in names)
+    gaps = {h: float(np.abs(results[f"{h}/fitted"] - results[f"{h}/ideal"]).max()) for h in names}
+    if not min(gaps.values()) > spread:
+        raise AssertionError(f"{phase}: ideal against fitted {gaps}, not above the run-to-run spread {spread}")
+    runs["ideal"].update(run_to_run_spread=spread, fitted_gaps=gaps,
+                         peaks={h: float(results[f"{h}/ideal"].max()) for h in names})
+    report_runs(phase, runs)
+    return runs
+
+
+def drive_paint_demo(device: torch.device) -> dict:
+    """Phase 18c: ``flux_prediction_plot.demo_prediction`` of one heliostat (7 x 7 control
+    points, 120 rays, 50 x 50 points a facet) on 3 calibration samples cast on the card,
+    aligned with their motor positions, traced and cropped around the centre of mass,
+    on the card and on the CPU with the same distortions: within TUTORIAL_FLUX_SHARE of
+    the flux peak."""
+    phase = "phase 18c"
+    cpu = torch.device("cpu")
+    with tempfile.TemporaryDirectory() as name:
+        directory = pathlib.Path(name)
+        write_paint_tower(directory / "tower-measurements.json")
+        write_paint_heliostat(directory / "AA39-heliostat-properties.json", *TUTORIAL_PLACES[0], SEED + 40)
+        scenario = flux_prediction_plot.demo_scenario(directory, "AA39", device)
+        on_cpu = flux_prediction_plot.demo_scenario(directory, "AA39", cpu)
+    parser = CalibrationDataParser(
+        kinematics_calibration(scenario, np.zeros((1, 4), np.float32), TUTORIAL_SAMPLES, (256, 256)), ("AA39",)
+    )
+    points = scenario.heliostat_groups[0].surface_points.shape[1]
+    distortions = Sun(number_of_rays=flux_prediction_plot.DEMO_RAYS).get_distortions(
+        torch.Generator(device="cpu").manual_seed(SEED + 41), points, TUTORIAL_SAMPLES
+    )
+    sun = FixedDistortions(flux_prediction_plot.DEMO_RAYS, *(d.numpy() for d in distortions))
+    run = run_entry_point(
+        device, phase,
+        lambda recorder: flux_prediction_plot.demo_prediction(scenario, data_parser=parser, sun=sun, device=device),
+        lambda recorder, result: launches(splat_forward=1),
+    )
+    reference = flux_prediction_plot.demo_prediction(on_cpu, data_parser=parser, sun=sun, device=cpu)["predicted"]
+    predicted = run.pop("result")["predicted"].cpu()
+    gap = float((predicted - reference).abs().max() / reference.max())
+    if not (torch.isfinite(predicted).all() and float(reference.max()) > 0 and gap <= TUTORIAL_FLUX_SHARE):
+        raise AssertionError(f"{phase}: card against CPU {gap} of the flux peak")
+    run.update(flux_gap_to_cpu=gap, samples=int(predicted.shape[0]))
+    report_runs(phase, {"demo": run})
+    return run
+
+
+def drive_paint_plots(device: torch.device, surfaces: list) -> tuple[dict[str, dict], dict[str, dict]]:
+    """Phase 18: 18a, its kernels, 18b and 18c. Returns the paths' numbers and the
+    kernels' timings at 18a's shape."""
+    paths: dict[str, dict] = {}
+    paths["paint_reconstruction"], scenario, parser = drive_paint_reconstruction(device)
+    empty_cache(device)
+    timings = check_paint_kernels(scenario, parser)
+    del scenario, parser
+    empty_cache(device)
+    for stem, run in drive_paint_flux_prediction(device, surfaces).items():
+        paths[f"paint_flux_prediction_{stem}"] = run
+    empty_cache(device)
+    paths["paint_demo"] = drive_paint_demo(device)
+    return paths, timings
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU", file=sys.stderr)
@@ -5466,6 +5851,7 @@ def main() -> int:
         timings[kernel_name].update(shape_timings)
     torch.cuda.empty_cache()
     paths["data_ingress"], ingress_group, ingress_tower, ingress_distortions = drive_data_ingress(device)
+    ingress_surfaces = paths["data_ingress"].pop("surfaces")
     for kernel_name, shape_timings in check_ingress_kernels(ingress_group, ingress_tower, ingress_distortions).items():
         timings[kernel_name].update(shape_timings)
     del ingress_group, ingress_distortions
@@ -5486,11 +5872,16 @@ def main() -> int:
     del kinematics_data
     torch.cuda.empty_cache()
     paths.update(drive_tools(device, paths["plant_aim_point"]))
+    torch.cuda.empty_cache()
+    paint_paths, paint_timings = drive_paint_plots(device, ingress_surfaces)
+    paths.update(paint_paths)
+    for kernel_name, shape_timings in paint_timings.items():
+        timings[kernel_name].update(shape_timings)
 
     case_keys = {key for _, key, *_ in SIGMA_CASES[1:] + FLAT_CASES[1:]} | {
         "kept_primitives", "fit_fraction", "full_splat_ms", "graph_ms", "zero_pairs", "surface_reconstruction_chunk",
         "kinematics_train", "kinematics_validation", "plant_chunk", "plant_chunk_k32", "with_build_ms", "cull_ms",
-        "visits", "data_ingress",
+        "visits", "data_ingress", "paint_reconstruction", "paint_reconstruction_validation",
     }
     kernels = []
     for kernel_name, t in timings.items():

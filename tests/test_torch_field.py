@@ -126,7 +126,12 @@ def test_forward_and_inverse_kinematics(scenes):
 
     normals = _incident(3, 3)
     ours_motor, ours_valid = kinematics.motor_positions_from_normals(
-        torch.tensor(normals), group.rotation_deviations, *common
+        torch.tensor(normals), group.rotation_deviations, *common, return_validity=True
+    )
+    # The JAX default: the positions alone.
+    torch.testing.assert_close(
+        kinematics.motor_positions_from_normals(torch.tensor(normals), group.rotation_deviations, *common),
+        ours_motor, rtol=0, atol=0,
     )
     jax_motor, jax_valid = jax_kinematics.motor_positions_from_normals(
         jnp.asarray(normals), jax_group.rotation_deviations, *jax_common, return_validity=True

@@ -47,6 +47,16 @@ ENTRY_POINTS = (
     "artist_tpu_torch/examples/field_optimizations/generate_results.py",
     "artist_tpu_torch/examples/field_optimizations/generate_stral_inputs.py",
     "artist_tpu_torch/examples/field_optimizations/generate_plots.py",
+    "artist_tpu_torch/examples/paint_plots/_config.py",
+    "artist_tpu_torch/examples/paint_plots/download_data.py",
+    "artist_tpu_torch/examples/paint_plots/download_metadata.py",
+    "artist_tpu_torch/examples/paint_plots/reconstruction_generate_viable_heliostats_list.py",
+    "artist_tpu_torch/examples/paint_plots/reconstruction_scenario.py",
+    "artist_tpu_torch/examples/paint_plots/reconstruction_generate_results.py",
+    "artist_tpu_torch/examples/paint_plots/reconstruction_plot.py",
+    "artist_tpu_torch/examples/paint_plots/flux_prediction_scenario.py",
+    "artist_tpu_torch/examples/paint_plots/flux_prediction_raytracing.py",
+    "artist_tpu_torch/examples/paint_plots/flux_prediction_plot.py",
     "artist_tpu_torch/tools/flagship_step.py",
     "artist_tpu_torch/tools/ablate_step.py",
     "artist_tpu_torch/tools/memory_report.py",
@@ -171,6 +181,19 @@ BLOCKED_CALLS = {
         "yaml",
         "from artist_tpu_torch.examples.field_optimizations.generate_scenarios import load_config\n"
         "load_config()\n",
+    ),
+    "paint_plots_read_config": (
+        "yaml",
+        "from artist_tpu_torch.examples.paint_plots._config import read_config\n"
+        "read_config()\n",
+    ),
+    "paint_plots_reconstruction_plot": (
+        "matplotlib",
+        "import pathlib, tempfile\n"
+        "from artist_tpu_torch.examples.paint_plots import reconstruction_plot\n"
+        "results = {'A': {'UTIS': 1.0, 'HeliOS': 2.0, 'Position': [1.0, 2.0, 0.0, 1.0]}}\n"
+        "reconstruction_plot.plot_error_distribution(reconstruction_plot.error_distribution_data(results), "
+        "pathlib.Path(tempfile.mkdtemp()))\n",
     ),
     "generate_plots": (
         "matplotlib",
