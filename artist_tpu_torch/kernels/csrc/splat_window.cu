@@ -53,7 +53,8 @@
 // tools/window_turns.py on an H100 80GB HBM3 (700 W limit), replayed from a
 // CUDA graph: at the block-window step's first chunk ([100, 4, 10000] rays)
 // row 3 0.101 ms (row 1's kernel 0.095 on the same rays: the plan pass is the
-// rest; bound 0.022) and row 4 0.047 ms (row 2's kernel; bound 0.030); at the
+// rest; bound 0.022) and row 4 0.041 ms (row 2's kernel, tools/backward_turns.py;
+// 0.047 before its redesign; bound 0.030); at the
 // formulation tool's 32 M rays row 13 0.625 ms (row 14 0.580; bound 0.123;
 // PERF.md's kernel table). Before, the rays came as a point-major copy that the
 // render step made with three index_selects a chunk (113 device events and

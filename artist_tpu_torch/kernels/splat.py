@@ -11,13 +11,23 @@ with ``compute_dtype=float32``). The kernels live in ``csrc/splat.cu``:
   heliostat's rays, adds the taps that land in its rows into its band with
   shared-memory atomics, and stores the band whole: no other block writes
   those pixels.
-- ``splat_backward`` replaces ``_splat_bwd_kernel``: one thread per ray, a
-  four-tap gather of the cotangent; deterministic. The dynamic-window splat's
-  backward (:mod:`artist_tpu_torch.kernels.splat_window`) launches the same
-  kernel (:func:`backward_gather`), counted under its own name.
+- ``splat_backward`` replaces ``_splat_bwd_kernel``: a four-tap gather of the
+  cotangent over the rays as one flat sequence, lane l of a warp taking rays
+  l, l + 32, ... of the warp's share, so that each warp-wide load covers 32
+  consecutive rays; 4 rays a thread where a map's rays are dense on it, 1
+  where they are sparse (fewer rays than a sixteenth of its pixels), every
+  load of a thread issued before one is used; any N and any storage offset;
+  no atomics, so two launches give the same bits. The dynamic-window
+  splat's backward (:mod:`artist_tpu_torch.kernels.splat_window`) launches the
+  same kernel on its ``[M, r, P]`` rays in place (:func:`backward_gather`),
+  counted under its own name.
 
-Both are bound by bytes on the H100; the source's head note gives the bound
-and what the design does about it. They are built with ``nvcc`` at first use
+Both are bound by bytes on the H100: the forward by the rays and the maps it
+writes; the backward by its ray streams where a map's rays are dense, and by
+the 32-byte sectors of the cotangent its taps fall on where they are sparse
+(the PAINT reconstruction's ``[4000, 1000]`` batch reads 5.2 M sectors for
+3.3 M valid rays). The source's head note gives the bounds, the times and
+what the design does about them. They are built with ``nvcc`` at first use
 (:mod:`artist_tpu_torch.kernels.build`; plain C interface, loaded with
 ``ctypes``) and launch on PyTorch's current stream.
 
@@ -56,21 +66,31 @@ def reset_launch_counts() -> None:
         LAUNCHES[name] = 0
 
 
+def bind(library: ctypes.CDLL) -> ctypes.CDLL:
+    """``library`` (a build of ``csrc/splat.cu``) with its functions' argument and result types."""
+    pointer, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+    sizes = [i64, i64, i32, i32]  # M, N, H, W
+    # The forward takes the rows a band between the sizes and the device and stream.
+    library.splat_forward.argtypes = [pointer] * 4 + sizes + [i32, i32, pointer]
+    library.splat_backward.argtypes = [pointer] * 7 + sizes + [i32, pointer]
+    library.splat_shared_limit.argtypes = [i32, ctypes.POINTER(ctypes.c_int)]
+    names = ["splat_forward", "splat_backward", "splat_shared_limit"]
+    # The gather with 64-bit indices forced (backward_gather's ``wide``); a build of an
+    # earlier splat.cu, as tools/backward_turns.py loads one, lacks it.
+    if hasattr(library, "splat_backward_wide"):
+        library.splat_backward_wide.argtypes = library.splat_backward.argtypes
+        names.append("splat_backward_wide")
+    for name in names:
+        getattr(library, name).restype = ctypes.c_int
+    library.splat_error_string.argtypes = [ctypes.c_int]
+    library.splat_error_string.restype = ctypes.c_char_p
+    return library
+
+
 def _load() -> ctypes.CDLL:
     global _library
     if _library is None:
-        library = load_library("splat")
-        pointer, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-        sizes = [i64, i64, i32, i32]  # M, N, H, W
-        # The forward takes the rows a band between the sizes and the device and stream.
-        library.splat_forward.argtypes = [pointer] * 4 + sizes + [i32, i32, pointer]
-        library.splat_backward.argtypes = [pointer] * 7 + sizes + [i32, pointer]
-        library.splat_shared_limit.argtypes = [i32, ctypes.POINTER(ctypes.c_int)]
-        for name in ("splat_forward", "splat_backward", "splat_shared_limit"):
-            getattr(library, name).restype = ctypes.c_int
-        library.splat_error_string.argtypes = [ctypes.c_int]
-        library.splat_error_string.restype = ctypes.c_char_p
-        _library = library
+        _library = bind(load_library("splat"))
     return _library
 
 
@@ -163,16 +183,19 @@ def splat_forward_cuda(
 
 
 def backward_gather(
-    e: torch.Tensor, u: torch.Tensor, w: torch.Tensor, g: torch.Tensor, height: int, width: int
+    e: torch.Tensor, u: torch.Tensor, w: torch.Tensor, g: torch.Tensor, height: int, width: int,
+    wide: bool = False,
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Launch ``splat_backward_kernel``: per-ray (de, du, dw), each of the rays' shape
     (``[M, N]``, or any ``[M, ...]`` whose rest is a map's rays). The callers count the
-    launch under their own names."""
+    launch under their own names. ``wide`` takes the kernel's 64-bit-index instantiation
+    whatever the sizes (otherwise only past 2^31 rays or cotangent elements), for
+    ``chip_smoke.py``'s check of it."""
     grads = tuple(torch.empty_like(e) for _ in range(3))
     if e.numel() == 0:
         return grads
     library = _load()
-    status = library.splat_backward(
+    status = (library.splat_backward_wide if wide else library.splat_backward)(
         e.data_ptr(), u.data_ptr(), w.data_ptr(), g.data_ptr(),
         *(x.data_ptr() for x in grads),
         *_launch_args(e, height, width),

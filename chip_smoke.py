@@ -16,7 +16,12 @@ exits non-zero without them. It imports only ``torch``, ``numpy`` and the
    a. the splat pair at the surface step's chunk inputs (``[100, 40000]``
       rays onto ``[100, 256, 256]``) and on a batch of edge cases, the
       forward also on rays that straddle every band border and on rays piled
-      onto a few pixels (``piled_rays``);
+      onto a few pixels (``piled_rays``), the backward also on ragged and
+      short rays per map and on views at a storage offset
+      (``backward_layout_cases``), two launches bit-identical on each, and
+      with the kernel's 64-bit indices forced (``backward_gather(wide=True)``)
+      on those, the edge cases and the chunk; the backward's timing lines give
+      its sector floor beside its bound (``splat_work``);
    b. the blocking sigma pair on the aim-point path's own first-epoch inputs
       (8 M rays, K = 16 candidates), on the same field with its rows 3 m
       apart, where the check must not be vacuous, there with every
@@ -166,7 +171,9 @@ without the order, and at 3 rays a point, where blocks straddle points, with a
 ragged last block; without an order on rays that force fallback blocks, on the
 edge cases, on the piled rays and on rays whose window origin changes at
 nearly every block; the kernel's count of blocks that fit their window equal
-to the windows of the point-major copy) and the formulation tool's kernels
+to the windows of the point-major copy; the backward also on 3a's layout
+cases as ``[M, r, P]`` rays in place, and two launches bit-identical on every
+case) and the formulation tool's kernels
 (3e: the 2-D window's count equal to the plain windows'; the band accumulate
 also on rays that straddle every band border); phase 7 also checks a small
 block-window step and a small windowed step (7c), and a small surface
@@ -232,6 +239,7 @@ from artist_tpu_torch.kernels.build import build_all, build_library  # noqa: E40
 from artist_tpu_torch.kernels.splat import LAUNCHES as SPLAT_LAUNCHES  # noqa: E402
 from artist_tpu_torch.kernels.splat import reset_launch_counts as reset_splat_launch_counts  # noqa: E402
 from artist_tpu_torch.kernels.splat import (  # noqa: E402
+    backward_gather,
     band_layout,
     shared_limit,
     splat_backward_cuda,
@@ -439,6 +447,8 @@ def reconstruction_launches(max_epoch: int, chunks: int = RECON_RAYS // RECON_RA
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s and fp32 FLOP/s outside
 # the tensor cores (the splat does no matrix work).
 PEAK_BYTES_PER_S = 3.35e12
+# The card reads device memory in 32-byte sectors (four to an L2 line).
+SECTOR_BYTES = 32
 PEAK_FP32_FLOP_PER_S = 67e12
 # fp32 operations per valid ray (floors and compares not counted):
 # forward 2 fractions, 2 complements, 6 products, 4 atomic adds;
@@ -661,10 +671,23 @@ def _valid_taps(e, u, height, width):
     return valid, taps[valid.repeat(1, 4)]
 
 
+def _sectors(pixels: torch.Tensor) -> int:
+    """The distinct 32-byte sectors that flat fp32 pixel ids fall on, from a 32-byte-aligned base."""
+    return int(torch.unique(torch.div(pixels, SECTOR_BYTES // 4, rounding_mode="floor")).numel())
+
+
 def bound_ms(bytes_moved: float, flops: float, peak_ops_per_s: float = PEAK_FP32_FLOP_PER_S) -> tuple[float, str]:
     byte_ms = bytes_moved / PEAK_BYTES_PER_S * 1e3
     flop_ms = flops / peak_ops_per_s * 1e3
     return (byte_ms, "bytes") if byte_ms >= flop_ms else (flop_ms, "operations")
+
+
+def describe_bound(timing: dict) -> str:
+    """A timing's bound, and its sector floor where it has one (the splat backward's)."""
+    floor = timing.get("sector_floor_ms")
+    return f"bound {timing['bound'][0]:.4f} ms ({timing['bound'][1]})" + (
+        "" if floor is None else f", sector floor {floor:.4f} ms"
+    )
 
 
 def _max_abs_err(a: torch.Tensor, b: torch.Tensor) -> float:
@@ -713,6 +736,70 @@ def check_edge_gradients(name: str, grads, invalid: list[int], zero_weight: list
         raise AssertionError(f"{name}: zero-weight in-bounds ray lost its dw")
 
 
+# The backward's layouts (phases 3a and 3d): ragged N, N below a thread's 4 rays and below
+# a warp's 32, and the streams and the cotangent as views at a storage offset that is not
+# 16 bytes; in place, each N as [M, r, P]. The kernel takes 4 rays a thread (its dense
+# path) where N * 16 >= H * W, else 1: on 256 x 256 maps every case takes the sparse path,
+# on 16 x 16 maps N = 17, 1,000 and 1,001 the dense one, on 8 x 2 maps (H x W; 8 rows, so
+# that row 4 takes a window of 8) every N the dense one, where at N = 1, 3 and 17 a warp's
+# step of 32 rays crosses several maps.
+LAYOUT_RAYS = {1: 1, 3: 3, 17: 17, 1000: 4, 1001: 7}  # N: r
+LAYOUT_OFFSETS = (0, 1, 3)
+MIXED_OFFSETS = (1, 3, 0, 1)  # e, u, w, g: no two streams share their address modulo 16
+LAYOUT_BITMAPS = ((256, 256, 7), (16, 16, 7), (2, 8, 256))  # (width, height, maps)
+
+
+def offset_copy(x: torch.Tensor, offset: int) -> torch.Tensor:
+    """``x`` copied into a contiguous view that starts ``offset`` elements into its storage."""
+    view = torch.empty(x.numel() + offset, dtype=x.dtype, device=x.device)[offset:].view(x.shape)
+    return view.copy_(x)
+
+
+def backward_layout_cases(width: int, height: int, maps: int, device: torch.device, in_place: bool = False) -> dict:
+    """``{label: (e, u, w, g)}``: ``maps`` maps of N random rays (some out of bounds) for
+    each N of LAYOUT_RAYS, each at every offset of LAYOUT_OFFSETS (all four tensors), and
+    N = 1001 at MIXED_OFFSETS; with ``in_place``, the rays as ``[M, r, N / r]``."""
+    rng = np.random.RandomState(SEED + 40)
+    cases = {}
+    for n, rays_per_point in LAYOUT_RAYS.items():
+        arrays = [rng.uniform(-2, width + 2, (maps, n)), rng.uniform(-2, height + 2, (maps, n)),
+                  rng.rand(maps, n), rng.randn(maps, height, width)]
+        shape = (maps, rays_per_point, n // rays_per_point) if in_place else (maps, n)
+        tensors = [torch.tensor(x.astype(np.float32), device=device) for x in arrays]
+        tensors[:3] = [x.reshape(shape) for x in tensors[:3]]
+        offsets = {f"offset {k}": (k,) * 4 for k in LAYOUT_OFFSETS}
+        if n == max(LAYOUT_RAYS):
+            offsets["mixed offsets"] = MIXED_OFFSETS
+        for name, each in offsets.items():
+            cases[f"N = {n} {list(shape)}, {name}"] = tuple(offset_copy(x, k) for x, k in zip(tensors, each))
+    return cases
+
+
+def check_repeatable(name: str, grads, again) -> None:
+    """Two launches of a backward on the same inputs: bit for bit the same outputs."""
+    if not all(torch.equal(a, b) for a, b in zip(grads, again)):
+        raise AssertionError(f"{name}: two launches on the same inputs differ")
+
+
+def check_backward_layouts(name: str, kernel, plain, device: torch.device, in_place: bool = False) -> dict:
+    """The backward ``kernel(e, u, w, g, height, width)`` against ``plain`` within
+    BACKWARD_TOLERANCE on :func:`backward_layout_cases` at each of LAYOUT_BITMAPS, two
+    launches bit-identical on each; returns the cases and the worst share of the tolerance."""
+    worst, count = 0.0, 0
+    for width, height, maps in LAYOUT_BITMAPS:
+        cases = backward_layout_cases(width, height, maps, device, in_place)
+        for label, (e, u, w, g) in cases.items():
+            label = f"{label}, {height} x {width}"
+            grads = kernel(e, u, w, g, height, width)
+            check_repeatable(f"{name} ({label})", grads, kernel(e, u, w, g, height, width))
+            if any(x.shape != e.shape for x in grads):
+                raise AssertionError(f"{name} ({label}): gradients of shape {[tuple(x.shape) for x in grads]}")
+            _, share = check_backward(f"{name} ({label})", grads, plain(e, u, w, g, height, width), w, g)
+            worst = max(worst, share)
+        count += len(cases)
+    return dict(cases=count, worst_share=worst)
+
+
 def splat_work(e: torch.Tensor, u: torch.Tensor, w: torch.Tensor, height: int, width: int) -> dict:
     """What a splat of these rays must do: the valid rays' taps and deposits (the
     ``index_add_`` yardstick's inputs), and the card's bounds for the forward and the
@@ -726,19 +813,25 @@ def splat_work(e: torch.Tensor, u: torch.Tensor, w: torch.Tensor, height: int, w
         [weights * (1 - fu) * (1 - fe), weights * (1 - fu) * fe, weights * fu * (1 - fe), weights * fu * fe],
         dim=1,
     )[valid.repeat(1, 4)]
-    touched = int(torch.unique(taps).numel())
+    pixels = torch.unique(taps)
+    touched = int(pixels.numel())
+    sectors = _sectors(pixels)
     rays_total = num * rays_per_map
+    # Backward streams: e and u 8 per ray, w 4 per valid ray read; 12 per ray written.
+    streams = 8 * rays_total + 4 * num_valid + 12 * rays_total
     return dict(
         taps=taps,
         values=values,
         valid=num_valid,
         touched=touched,
+        sectors=sectors,
         # Forward: e and u 8 per ray, w 4 per valid ray read, the maps written.
         forward_bound=bound_ms(8 * rays_total + 4 * num_valid + 4 * num * height * width, FORWARD_FLOPS_PER_RAY * num_valid),
-        # Backward: e and u 8 per ray, w 4 per valid ray, g 4 per touched pixel read; 12 per ray written.
-        backward_bound=bound_ms(
-            8 * rays_total + 4 * num_valid + 4 * touched + 12 * rays_total, BACKWARD_FLOPS_PER_RAY * num_valid
-        ),
+        # Backward: the streams and g 4 per touched pixel read.
+        backward_bound=bound_ms(streams + 4 * touched, BACKWARD_FLOPS_PER_RAY * num_valid),
+        # The sector floor: the streams and every 32-byte sector of g that a tap falls on, as
+        # the card reads g. Not a bound: a pixel's sector neighbours are read whether used or not.
+        sector_floor_ms=(streams + SECTOR_BYTES * sectors) / PEAK_BYTES_PER_S * 1e3,
     )
 
 
@@ -785,6 +878,7 @@ def time_splat_pair(rays, g: torch.Tensor | None, height: int, width: int,
             plain_ms=event_ms(lambda: splat_backward_plain(e, u, w, g, height, width), iterations),
             library_ms=None,
             bound=work["backward_bound"],
+            sector_floor_ms=work["sector_floor_ms"],
         )
     return timings, work
 
@@ -822,6 +916,8 @@ def check_splat_kernels(inputs: StepInputs) -> dict[str, dict]:
         if cotangent is None:
             continue
         kernel_grads = splat_backward_cuda(*rays, cotangent, height, width)
+        again = splat_backward_cuda(*rays, cotangent, height, width)
+        check_repeatable(f"splat_backward ({label})", kernel_grads, again)
         plain_grads = splat_backward_plain(*rays, cotangent, height, width)
         errors, share = check_backward("splat_backward", kernel_grads, plain_grads, rays[2], cotangent)
         backward_errs += errors
@@ -829,6 +925,19 @@ def check_splat_kernels(inputs: StepInputs) -> dict[str, dict]:
     torch.cuda.synchronize()
     # The edge cases: dw for zero-weight in-bounds rays, nothing from invalid rays.
     check_edge_gradients("splat_backward", splat_backward_cuda(*edge, edge_g, height, width), list(range(4, 13)), [13])
+    layouts = check_backward_layouts("splat_backward", splat_backward_cuda, splat_backward_plain, device)
+    worst_share = max(worst_share, layouts["worst_share"])
+    # The kernel's 64-bit-index instantiation, which no size of the main path reaches,
+    # forced: on the edge cases, the layout cases and the chunk, where it must give the
+    # int-index launch's bits.
+    wide = "splat_backward (64-bit indices)"
+    check_edge_gradients(wide, backward_gather(*edge, edge_g, height, width, wide=True), list(range(4, 13)), [13])
+    layouts["wide"] = check_backward_layouts(
+        wide, lambda *args: backward_gather(*args, wide=True), splat_backward_plain, device
+    )
+    worst_share = max(worst_share, layouts["wide"]["worst_share"])
+    check_repeatable(f"{wide} against int indices at the chunk", backward_gather(e, u, w, g, height, width, wide=True),
+                     backward_gather(e, u, w, g, height, width))
 
     num, rays_per_map = e.shape
     timings, work = time_splat_pair((e, u, w), g, height, width)
@@ -839,18 +948,23 @@ def check_splat_kernels(inputs: StepInputs) -> dict[str, dict]:
     timings["splat_backward"].update(
         max_abs_err=max(backward_errs),
         replaces="artist_tpu/kernels/splat_pallas.py:168 (_splat_bwd_kernel, via _splat_bwd)",
+        layouts=layouts,
     )
     _log(
         f"phase 3a splat kernels: [{num}, {rays_per_map}] rays ({work['valid']} valid, {work['touched']} pixels "
         f"touched, {4 * work['valid'] / max(work['touched'], 1):.2f} deposits a touched pixel) -> "
         f"[{num}, {height}, {width}], {edge[0].shape[1]} edge-case rays x {edge[0].shape[0]}, the band borders and "
-        f"the piled rays; the forward's {-(-height // band_layout(height, width, shared_limit(device)))} bands a "
+        f"the piled rays, the backward also on {layouts['cases']} layouts (N = "
+        f"{', '.join(map(str, LAYOUT_RAYS))}; views at offsets {LAYOUT_OFFSETS} and {MIXED_OFFSETS}; maps of "
+        f"{', '.join(f'{m} of {h} x {w}' for w, h, m in LAYOUT_BITMAPS)}), two launches bit-identical on each, "
+        f"and with 64-bit indices forced on those, the edge cases and the chunk (there the int-index launch's bits); the "
+        f"forward's {-(-height // band_layout(height, width, shared_limit(device)))} bands a "
         f"map send no global atomic and store {4 * num * height * width} bytes, against the 4 x valid = "
         f"{4 * work['valid']} scalar atomics of a ray a thread; worst error {worst_share:.3g} of its tolerance: "
         + "; ".join(
             f"{name} max_abs_err {t['max_abs_err']:.3g}, kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
             f"library {t['library_ms'] if t['library_ms'] is None else round(t['library_ms'], 4)} ms, "
-            f"bound {t['bound'][0]:.4f} ms ({t['bound'][1]})"
+            + describe_bound(t)
             for name, t in timings.items()
         )
     )
@@ -969,6 +1083,8 @@ def check_dynamic_window_kernels(inputs: StepInputs) -> dict[str, dict]:
         err, share = check_forward("splat_dynamic_window_forward", kernel, plain, flat, height, width)
         forward_err, worst_share = max(forward_err, err), max(worst_share, share)
         grads = splat_window.splat_dynamic_window_backward_cuda(*rays, g, height, width, window, None, point_order)
+        again = splat_window.splat_dynamic_window_backward_cuda(*rays, g, height, width, window, None, point_order)
+        check_repeatable(f"splat_dynamic_window_backward ({label})", grads, again)
         plain_grads = splat_window.splat_dynamic_window_backward_plain(*rays, g, height, width, window, None, point_order)
         errors, share = check_backward("splat_dynamic_window_backward", grads, plain_grads, rays[2], g)
         backward_errs += errors
@@ -978,7 +1094,14 @@ def check_dynamic_window_kernels(inputs: StepInputs) -> dict[str, dict]:
                 raise AssertionError("splat_dynamic_window_forward: non-finite bitmap from NaN/inf rays")
             for invalid, zero_weight in ((list(range(4, 13)), [13]), (WINDOW_EDGE_INVALID, WINDOW_EDGE_ZERO_WEIGHT)):
                 check_edge_gradients("splat_dynamic_window_backward", grads, invalid, zero_weight)
-        del plain, plain_grads, sequence
+        del plain, plain_grads, sequence, again
+    layouts = check_backward_layouts(
+        "splat_dynamic_window_backward",
+        lambda e, u, w, g, h, wd: splat_window.splat_dynamic_window_backward_cuda(e, u, w, g, h, wd, min(window, h)),
+        lambda e, u, w, g, h, wd: splat_window.splat_dynamic_window_backward_plain(e, u, w, g, h, wd, min(window, h)),
+        device, in_place=True,
+    )
+    worst_share = max(worst_share, layouts["worst_share"])
     # An order entry outside [0, P) leaves its point's rays out of the plan, not the bitmap.
     bad_order = order.clone()
     bad_order[::7], bad_order[3::7] = order.numel() + 5, -2
@@ -1032,8 +1155,10 @@ def check_dynamic_window_kernels(inputs: StepInputs) -> dict[str, dict]:
             library_ms=None,
             full_splat_ms=event_ms(lambda: splat_backward_cuda(flat_e, flat_u, flat_w, g, height, width)),
             bound=work["backward_bound"],
+            sector_floor_ms=work["sector_floor_ms"],
             max_abs_err=max(backward_errs),
             fit_fraction=fit_fraction,
+            layouts=layouts,
             replaces="artist_tpu/kernels/splat_pallas.py:460 (_dyn_bwd_kernel, pallas_call :706)",
         ),
     }
@@ -1045,13 +1170,16 @@ def check_dynamic_window_kernels(inputs: StepInputs) -> dict[str, dict]:
         + ", ".join(f"{label} {f}" for label, f in fitting.items())
         + f"; the forward's {-(-height // splat_window.window_band_rows(rays_per_map, height, width, shared_limit(device)))} "
         f"bands a map send no global atomic and store {4 * num * height * width} bytes on the chunk, against the "
-        f"4 x valid = {4 * work['valid']} scalar atomics of a ray a thread; the backward is the full splat's kernel"
+        f"4 x valid = {4 * work['valid']} scalar atomics of a ray a thread; the backward is the full splat's kernel, "
+        f"also on {layouts['cases']} layouts in place ([M, r, P] of N = {', '.join(map(str, LAYOUT_RAYS))}; views at "
+        f"offsets {LAYOUT_OFFSETS} and {MIXED_OFFSETS}; maps of {', '.join(f'{m} of {h} x {w}' for w, h, m in LAYOUT_BITMAPS)}"
+        "), two launches bit-identical on each case"
         + f"; worst error {worst_share:.3g} of its tolerance: "
         + "; ".join(
             f"{name} max_abs_err {t['max_abs_err']:.3g}, kernel {t['ms']:.4f} ms ({t['graph_ms']:.4f} replayed), "
             f"full splat's kernel {t['full_splat_ms']:.4f} ms on the same rays, plain {t['plain_ms']:.4f} ms, library "
             f"{t['library_ms'] if t['library_ms'] is None else round(t['library_ms'], 4)} ms, "
-            f"bound {t['bound'][0]:.4f} ms ({t['bound'][1]})"
+            + describe_bound(t)
             for name, t in timings.items()
         )
     )
@@ -2631,18 +2759,23 @@ def batch_inputs(reconstructor: SurfaceReconstructor, batch: dict) -> StepInputs
     )
 
 
-def check_reconstruction_chunk(device: torch.device) -> dict[str, dict]:
-    """Phase 12's kernel check: the splat pair against its plain versions at the
-    reconstructor's first train chunk (``[36, 120000]`` rays onto ``[36, 256, 256]``),
-    then timed. Returns the timings of each kernel."""
-    width, height = BITMAP
+def reconstruction_chunk_rays(device: torch.device):
+    """The surface reconstructor's first train chunk at phase 12's configuration: ``[36, 120000]`` rays."""
     reconstructor = surface_reconstructor(device, RECON_EPOCHS[0])
     group = reconstructor.scenario.heliostat_groups[0]
     unique, split = training.group_calibration_split(
         reconstructor.data, reconstructor.scenario, group, reconstructor.bitmap_resolution
     )
     (batch,) = reconstructor._batches(group, split, unique, test=False)
-    rays = first_chunk_rays(batch_inputs(reconstructor, batch))
+    return first_chunk_rays(batch_inputs(reconstructor, batch))
+
+
+def check_reconstruction_chunk(device: torch.device) -> dict[str, dict]:
+    """Phase 12's kernel check: the splat pair against its plain versions at the
+    reconstructor's first train chunk (``[36, 120000]`` rays onto ``[36, 256, 256]``),
+    then timed. Returns the timings of each kernel."""
+    width, height = BITMAP
+    rays = reconstruction_chunk_rays(device)
     g = torch.randn(
         (rays[0].shape[0], height, width), device=device,
         generator=torch.Generator(device=device).manual_seed(SEED + 3),
@@ -2668,7 +2801,7 @@ def check_reconstruction_chunk(device: torch.device) -> dict[str, dict]:
         + "; ".join(
             f"{name} max_abs_err {t['max_abs_err']:.3g}, kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
             f"library {t['library_ms'] if t['library_ms'] is None else round(t['library_ms'], 4)} ms, "
-            f"bound {t['bound'][0]:.4f} ms ({t['bound'][1]})"
+            + describe_bound(t)
             for name, t in timings.items()
         )
     )
@@ -3261,6 +3394,16 @@ def check_kinematics_kernels(device: torch.device, size: dict, data: Calibration
     )
 
 
+def reconstructor_batches(reconstructor: KinematicsReconstructor) -> tuple[dict, dict]:
+    """A reconstructor's train and validation batches of its first group."""
+    group = reconstructor.scenario.heliostat_groups[0]
+    unique, split = training.group_calibration_split(
+        reconstructor.data, reconstructor.scenario, group, reconstructor.bitmap_resolution
+    )
+    train, validation = reconstructor._batches(group, split, unique)
+    return train, validation
+
+
 def check_reconstructor_batches(reconstructor: KinematicsReconstructor, phase: str, train_key: str,
                                 validation_key: str, seed: int) -> dict[str, dict]:
     """The splat pair at a flux-driven reconstructor's batches: row 1 at the validation
@@ -3270,11 +3413,7 @@ def check_reconstructor_batches(reconstructor: KinematicsReconstructor, phase: s
     ``validation_key``."""
     width, height = reconstructor.bitmap_resolution
     device = reconstructor.device
-    group = reconstructor.scenario.heliostat_groups[0]
-    unique, split = training.group_calibration_split(
-        reconstructor.data, reconstructor.scenario, group, reconstructor.bitmap_resolution
-    )
-    batches = dict(zip((train_key, validation_key), reconstructor._batches(group, split, unique)))
+    batches = dict(zip((train_key, validation_key), reconstructor_batches(reconstructor)))
     timings: dict[str, dict] = {"splat_forward": {}, "splat_backward": {}}
     for label in (validation_key, train_key):
         rays = kinematics_rays(reconstructor, batches.pop(label))
@@ -3304,7 +3443,7 @@ def check_reconstructor_batches(reconstructor: KinematicsReconstructor, phase: s
             + "; ".join(
                 f"{name} max_abs_err {t['max_abs_err']:.3g}, kernel {t['ms']:.4f} ms, plain {t['plain_ms']:.4f} ms, "
                 f"library {t['library_ms'] if t['library_ms'] is None else round(t['library_ms'], 4)} ms, "
-                f"bound {t['bound'][0]:.4f} ms ({t['bound'][1]})"
+                + describe_bound(t)
                 for name, t in timed.items()
             )
         )
@@ -3956,8 +4095,8 @@ def check_plant_kernels(device: torch.device, **size) -> dict[str, dict]:
             f"kernel {t['ms']:.4f} ms"
             + (f" ({t['graph_ms']:.4f} ms replayed from a CUDA graph)" if "graph_ms" in t else "")
             + f", plain {t['plain_ms']:.4f} ms, library "
-            f"{t.get('library_ms') if t.get('library_ms') is None else round(t['library_ms'], 4)} ms, bound "
-            f"{t['bound'][0]:.4f} ms ({t['bound'][1]})"
+            f"{t.get('library_ms') if t.get('library_ms') is None else round(t['library_ms'], 4)} ms, "
+            + describe_bound(t)
             for name, t in timed.items()
         )
     )
@@ -5475,6 +5614,26 @@ class LossRecorder(EpochRecorder):
         self.losses.append(loss)
 
 
+def paint_field(device: torch.device, size: dict = PAINT_FIELD):
+    """Phase 18a's inputs: the PAINT field of ``size`` (JSON written here, loaded by
+    ``reconstruction_scenario.reconstruction_scenario``), its known rotation deviations
+    and UTIS calibration data (:func:`paint_calibration`). Returns (scenario, known,
+    data, samples without flux, seconds for the scenario, seconds for the data)."""
+    start = time.perf_counter()
+    with tempfile.TemporaryDirectory() as name:
+        directory = pathlib.Path(name)
+        files = write_paint_grid(directory, size)
+        scenario = reconstruction_scenario.reconstruction_scenario(directory / "tower-measurements.json", files,
+                                                                   device=device)
+    synchronize(device)
+    scenario_seconds = time.perf_counter() - start
+    known = known_rotation_deviations(scenario.heliostat_groups[0].number_of_heliostats,
+                                      magnitudes=PAINT_KNOWN_DEVIATIONS)
+    start = time.perf_counter()
+    utis, empty = paint_calibration(scenario, known, size["samples"], size["bitmap"])
+    return scenario, known, utis, empty, scenario_seconds, time.perf_counter() - start
+
+
 def drive_paint_reconstruction(device: torch.device, size: dict = PAINT_FIELD, max_epoch: int = PAINT_EPOCHS):
     """Phase 18a: ``reconstruction_generate_results.generate_reconstruction_results`` on
     the PAINT field of ``size``, its scenario parsed from PAINT JSON written here and
@@ -5486,20 +5645,9 @@ def drive_paint_reconstruction(device: torch.device, size: dict = PAINT_FIELD, m
     losses and its position, and the launches be the loop's. Returns the path's numbers, the scenario and the UTIS
     parser."""
     phase = "phase 18a"
-    start = time.perf_counter()
-    with tempfile.TemporaryDirectory() as name:
-        directory = pathlib.Path(name)
-        files = write_paint_grid(directory, size)
-        scenario = reconstruction_scenario.reconstruction_scenario(directory / "tower-measurements.json", files,
-                                                                   device=device)
-    synchronize(device)
-    scenario_seconds = time.perf_counter() - start
+    scenario, known, utis, empty, scenario_seconds, calibration_seconds = paint_field(device, size)
     group = scenario.heliostat_groups[0]
-    known = known_rotation_deviations(group.number_of_heliostats, magnitudes=PAINT_KNOWN_DEVIATIONS)
-    start = time.perf_counter()
-    utis, empty = paint_calibration(scenario, known, size["samples"], size["bitmap"])
     data = {"UTIS": utis, "HeliOS": helios_centroids(utis)}
-    calibration_seconds = time.perf_counter() - start
     recorders = {centroid: LossRecorder() for centroid in data}
     starts: dict[str, float] = {}
 
@@ -5596,15 +5744,20 @@ def check_paint_kernels(scenario, parser: CalibrationDataParser) -> dict[str, di
     (``[4000, 1000]`` rays onto ``[4000, 256, 256]``) and row 1 at its validation batch,
     against the plain versions, timed. Returns the timings under "paint_reconstruction"
     and "paint_reconstruction_validation"."""
-    reconstructor = KinematicsReconstructor(
+    return check_reconstructor_batches(
+        paint_reconstructor(scenario, parser), "phase 18a", "paint_reconstruction", "paint_reconstruction_validation",
+        SEED + 19,
+    )
+
+
+def paint_reconstructor(scenario, parser: CalibrationDataParser) -> KinematicsReconstructor:
+    """The reconstruction example's kinematics reconstructor on ``scenario`` and ``parser``, without epochs."""
+    return KinematicsReconstructor(
         scenario=scenario,
         data={constants.data_parser: parser, constants.heliostat_data_mapping: []},
         optimization_configuration=reconstruction_generate_results.optimization_configuration(0),
         reconstruction_method=RAYTRACING,
         focal_spot_ground_truth="focal_spots",
-    )
-    return check_reconstructor_batches(
-        reconstructor, "phase 18a", "paint_reconstruction", "paint_reconstruction_validation", SEED + 19
     )
 
 
@@ -5881,7 +6034,7 @@ def main() -> int:
     case_keys = {key for _, key, *_ in SIGMA_CASES[1:] + FLAT_CASES[1:]} | {
         "kept_primitives", "fit_fraction", "full_splat_ms", "graph_ms", "zero_pairs", "surface_reconstruction_chunk",
         "kinematics_train", "kinematics_validation", "plant_chunk", "plant_chunk_k32", "with_build_ms", "cull_ms",
-        "visits", "data_ingress", "paint_reconstruction", "paint_reconstruction_validation",
+        "visits", "data_ingress", "paint_reconstruction", "paint_reconstruction_validation", "layouts",
     }
     kernels = []
     for kernel_name, t in timings.items():

@@ -17,8 +17,14 @@ import jax
 import jax.numpy as jnp
 
 import chip_smoke
-from artist_tpu.kernels.splat_pallas import bilinear_splat_pallas
-from artist_tpu_torch.kernels.splat import LAUNCHES, BilinearSplat, splat
+from artist_tpu.kernels.splat_pallas import _splat_bwd, bilinear_splat_pallas
+from artist_tpu_torch.kernels import splat_window
+from artist_tpu_torch.kernels.splat import (
+    LAUNCHES,
+    BilinearSplat,
+    splat,
+    splat_backward_plain,
+)
 from artist_tpu_torch.raytracing.splatting import bilinear_splat
 
 TOL = dict(rtol=1e-5, atol=1e-5)
@@ -195,3 +201,72 @@ def test_plain_path_launches_no_kernel():
     e, u, w = (torch.tensor(x, requires_grad=True) for x in _random_rays(1, 16, 8, 8, seed=7))
     splat(e, u, w, (8, 8)).sum().backward()
     assert LAUNCHES == before
+
+
+@pytest.mark.parametrize(("rays_per_map", "offset"), [(1001, 0), (3, 1), (1001, 3), (1, 3)])
+def test_plain_backward_matches_pallas_bwd_on_ragged_rays_and_offset_views(rays_per_map, offset):
+    """The plain backward, which the card's gather is held to, against JAX's ``_splat_bwd``
+    at N that is no multiple of 4 (JAX pads the rays to its block and cuts the pad off)
+    and with e, u, w and g as views ``offset`` floats into their storage, as phase 3a's
+    layout cases hand them to the kernel."""
+    resolution = (32, 24)
+    width, height = resolution
+    e, u, w = _random_rays(3, rays_per_map, width, height, seed=8)
+    g = np.random.RandomState(9).randn(3, height, width).astype(np.float32)
+    grads_jax = _splat_bwd(resolution, jnp.float32, tuple(jnp.asarray(x) for x in (e, u, w)), jnp.asarray(g))
+    views = [chip_smoke.offset_copy(torch.tensor(x), offset) for x in (e, u, w, g)]
+    assert all(x.storage_offset() == offset and x.is_contiguous() for x in views)
+    grads_torch = splat_backward_plain(*views, height, width)
+    for mine, theirs, name in zip(grads_torch, grads_jax, ("de", "du", "dw")):
+        assert mine.shape == (3, rays_per_map)
+        np.testing.assert_allclose(mine.numpy(), np.asarray(theirs), err_msg=name, **TOL)
+
+
+H_SECTORS, W_SECTORS = 12, 16  # two 32-byte sectors a row
+
+
+def _flat_sector(m: int, row: int, col: int) -> int:
+    return (m * H_SECTORS * W_SECTORS + row * W_SECTORS + col) // 8
+
+
+@pytest.mark.parametrize(
+    ("rays", "expected"),
+    [
+        # Two rays whose taps share both rows' sectors: 2 sectors.
+        ([(0, 1.5, 1.5), (0, 2.5, 1.25)], {_flat_sector(0, 1, 0), _flat_sector(0, 2, 0)}),
+        # Columns 7 and 8 straddle the sector border: 2 sectors in each row.
+        ([(0, 7.5, 3.5)], {_flat_sector(0, r, c) for r in (3, 4) for c in (7, 8)}),
+        # The last valid cell, lu = H - 2 and le = W - 2, in two maps: the maps' sectors differ.
+        ([(0, W_SECTORS - 2.0, H_SECTORS - 2.0), (1, W_SECTORS - 1.5, H_SECTORS - 1.5)],
+         {_flat_sector(m, r, W_SECTORS - 1) for m in (0, 1) for r in (H_SECTORS - 2, H_SECTORS - 1)}),
+        # Invalid rays count nothing: NaN, infinities, e = W - 1, u = H - 1, negative, huge.
+        ([(0, np.nan, 2.5), (0, np.inf, 2.5), (1, -np.inf, 2.5), (0, W_SECTORS - 1.0, 2.5),
+          (1, 3.5, H_SECTORS - 1.0), (0, -0.5, 2.5), (1, 1e30, 2.5)], set()),
+    ],
+    ids=["two rays in one sector", "tap pair across a sector border", "last valid row and column", "invalid rays"],
+)
+def test_touched_sectors_on_hand_made_rays(rays, expected):
+    """``chip_smoke.splat_work``'s count of sectors, which gives row 2's sector floor: the
+    distinct (map, row, column // 8) of the valid rays' four taps."""
+    e = torch.full((2, len(rays)), -5.0)
+    u = torch.full((2, len(rays)), -5.0)
+    for i, (m, x, y) in enumerate(rays):
+        e[m, i], u[m, i] = x, y
+    work = chip_smoke.splat_work(e, u, torch.ones_like(e), H_SECTORS, W_SECTORS)
+    assert work["sectors"] == len(expected)
+
+
+@pytest.mark.parametrize("in_place", [False, True], ids=["rows 2 [M, N]", "row 4 [M, r, P]"])
+def test_chip_smoke_backward_layouts_run_on_the_cpu(in_place):
+    """Phases 3a and 3d's layout cases (N = 1, 3, 17, 1,000, 1,001; views at offsets 1 and
+    3 floats, and mixed; 256 x 256, 16 x 16 and 8 x 2 maps) through the wrappers' plain
+    versions in the kernels' place: every case reaches the check, and the plain version
+    passes its own."""
+    if in_place:
+        def backward(e, u, w, g, height, width):
+            return splat_window.splat_dynamic_window_backward_plain(e, u, w, g, height, width, min(96, height))
+    else:
+        backward = splat_backward_plain
+    result = chip_smoke.check_backward_layouts("backward", backward, backward, torch.device("cpu"), in_place)
+    cases = (len(chip_smoke.LAYOUT_RAYS) * len(chip_smoke.LAYOUT_OFFSETS) + 1) * len(chip_smoke.LAYOUT_BITMAPS)
+    assert result == dict(cases=cases, worst_share=0.0)
