@@ -52,6 +52,7 @@ import ctypes
 import torch
 
 from artist_tpu_torch.kernels.build import load_library
+from artist_tpu_torch.util.logging_utils import span
 
 LAUNCHES = {"splat_forward": 0, "splat_backward": 0}
 # The forward's shared memory beyond its band: 4 floats, so that the band can
@@ -282,26 +283,30 @@ class BilinearSplat(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, e, u, w, height: int, width: int):
-        _check_rays(e, u, w)
-        _check_bitmap(height, width)
-        ctx.save_for_backward(e, u, w)
-        ctx.bitmap_shape = (height, width)
-        if e.is_cuda:
-            return splat_forward_cuda(e, u, w, height, width)
-        return splat_forward_plain(e, u, w, height, width)
+        with span("artist.kernels.splat_forward"):
+            _check_rays(e, u, w)
+            _check_bitmap(height, width)
+            ctx.save_for_backward(e, u, w)
+            ctx.bitmap_shape = (height, width)
+            if e.is_cuda:
+                return splat_forward_cuda(e, u, w, height, width)
+            return splat_forward_plain(e, u, w, height, width)
 
     @staticmethod
     def backward(ctx, g):
+        # Unpacked before the span: under a checkpointed ray chunk the unpack recomputes
+        # the chunk's rays, the geometry's work and not the splat's.
         e, u, w = ctx.saved_tensors
-        height, width = ctx.bitmap_shape
-        g = g.contiguous()
-        if g.shape != (e.shape[0], height, width) or g.device != e.device or g.dtype != e.dtype:
-            raise ValueError(f"cotangent of shape {tuple(g.shape)} does not match the bitmaps")
-        if e.is_cuda:
-            de, du, dw = splat_backward_cuda(e, u, w, g, height, width)
-        else:
-            de, du, dw = splat_backward_plain(e, u, w, g, height, width)
-        return de, du, dw, None, None
+        with span("artist.kernels.splat_backward"):
+            height, width = ctx.bitmap_shape
+            g = g.contiguous()
+            if g.shape != (e.shape[0], height, width) or g.device != e.device or g.dtype != e.dtype:
+                raise ValueError(f"cotangent of shape {tuple(g.shape)} does not match the bitmaps")
+            if e.is_cuda:
+                de, du, dw = splat_backward_cuda(e, u, w, g, height, width)
+            else:
+                de, du, dw = splat_backward_plain(e, u, w, g, height, width)
+            return de, du, dw, None, None
 
 
 def splat(

@@ -50,6 +50,7 @@ import torch
 
 from artist_tpu_torch.kernels.build import load_library
 from artist_tpu_torch.kernels.splat import _check_bitmap, _check_rays, band_layout, shared_limit
+from artist_tpu_torch.util.logging_utils import span
 
 # The module, not the function of the same name that the package exports.
 _splat = importlib.import_module("artist_tpu_torch.kernels.splat")
@@ -484,28 +485,33 @@ class BilinearSplatDynamicWindow(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, e, u, w, height: int, width: int, window: int, block: int, point_order=None):
-        _layout(e, u, w, point_order)
-        _check_bitmap(height, width)
-        _check_window(window, height)
-        ctx.save_for_backward(e, u, w)
-        ctx.sizes = (height, width, window, block)
-        ctx.point_order = point_order
-        if e.is_cuda:
-            return splat_dynamic_window_forward_cuda(e, u, w, height, width, window, block, point_order)[0]
-        return splat_dynamic_window_forward_plain(e, u, w, height, width, window, block, point_order)
+        with span("artist.kernels.splat_forward"):
+            _layout(e, u, w, point_order)
+            _check_bitmap(height, width)
+            _check_window(window, height)
+            ctx.save_for_backward(e, u, w)
+            ctx.sizes = (height, width, window, block)
+            ctx.point_order = point_order
+            if e.is_cuda:
+                return splat_dynamic_window_forward_cuda(e, u, w, height, width, window, block, point_order)[0]
+            return splat_dynamic_window_forward_plain(e, u, w, height, width, window, block, point_order)
 
     @staticmethod
     def backward(ctx, g):
+        # Unpacked before the span, as in BilinearSplat.backward.
         e, u, w = ctx.saved_tensors
-        height, width, window, block = ctx.sizes
-        g = g.contiguous()
-        if g.shape != (e.shape[0], height, width) or g.device != e.device or g.dtype != e.dtype:
-            raise ValueError(f"cotangent of shape {tuple(g.shape)} does not match the bitmaps")
-        if e.is_cuda:
-            grads = splat_dynamic_window_backward_cuda(e, u, w, g, height, width, window, block, ctx.point_order)
-        else:
-            grads = splat_dynamic_window_backward_plain(e, u, w, g, height, width, window, block, ctx.point_order)
-        return (*grads, None, None, None, None, None)
+        with span("artist.kernels.splat_backward"):
+            height, width, window, block = ctx.sizes
+            g = g.contiguous()
+            if g.shape != (e.shape[0], height, width) or g.device != e.device or g.dtype != e.dtype:
+                raise ValueError(f"cotangent of shape {tuple(g.shape)} does not match the bitmaps")
+            if e.is_cuda:
+                grads = splat_dynamic_window_backward_cuda(e, u, w, g, height, width, window, block, ctx.point_order)
+            else:
+                grads = splat_dynamic_window_backward_plain(
+                    e, u, w, g, height, width, window, block, ctx.point_order
+                )
+            return (*grads, None, None, None, None, None)
 
 
 def splat_dynamic_window(

@@ -69,6 +69,7 @@ from artist_tpu_torch.parallel.mesh import ShardPlan
 from artist_tpu_torch.raytracing.render import RenderConfig, compute_ray_magnitude, trace_rays
 from artist_tpu_torch.scenario.scenario import Scenario
 from artist_tpu_torch.util import constants
+from artist_tpu_torch.util.logging_utils import span
 
 log = logging.getLogger("artist_tpu_torch.optim")
 
@@ -198,20 +199,22 @@ class KinematicsReconstructor:
     def _trace_flux(self, rotation_deviations: torch.Tensor, batch: dict) -> torch.Tensor:
         """Align each of this rank's samples with its measured motor positions and trace
         its flux ``[S, H, W]`` from all of its rays."""
-        points, normals, _ = hg.align_surfaces_with_motor_positions(
-            self._active(rotation_deviations, batch), batch["motor_positions"]
-        )
-        flux = trace_rays(
-            tower=self.scenario.solar_tower,
-            aligned_surface_points=points,
-            aligned_surface_normals=normals,
-            incident_ray_directions=batch["incident_ray_directions"],
-            target_area_indices=batch["target_area_indices"],
-            distortions_u=batch["distortions_u"],
-            distortions_e=batch["distortions_e"],
-            ray_magnitude=batch["ray_magnitude"],
-            config=RenderConfig(bitmap_resolution=self.bitmap_resolution, blocking_active=False),
-        )[0]
+        with span("artist.aten.align"):
+            points, normals, _ = hg.align_surfaces_with_motor_positions(
+                self._active(rotation_deviations, batch), batch["motor_positions"]
+            )
+        with span("artist.aten.trace"):
+            flux = trace_rays(
+                tower=self.scenario.solar_tower,
+                aligned_surface_points=points,
+                aligned_surface_normals=normals,
+                incident_ray_directions=batch["incident_ray_directions"],
+                target_area_indices=batch["target_area_indices"],
+                distortions_u=batch["distortions_u"],
+                distortions_e=batch["distortions_e"],
+                ray_magnitude=batch["ray_magnitude"],
+                config=RenderConfig(bitmap_resolution=self.bitmap_resolution, blocking_active=False),
+            )[0]
         return batch["plan"].flux(flux)
 
     def _flux_loss_per_sample(self, loss_name: str, flux: torch.Tensor, batch: dict) -> torch.Tensor:
@@ -240,26 +243,30 @@ class KinematicsReconstructor:
         def objective(rotation_deviations: torch.Tensor, batch: dict):
             if self._flux_driven:
                 flux = self._trace_flux(rotation_deviations, batch)
-                per_sample = self._flux_loss_per_sample(loss_name, flux, batch)
             else:
-                active = self._active(rotation_deviations, batch)
-                orientations = rigid_body.motor_positions_to_orientations(
-                    motor_positions=batch["motor_positions"],
-                    heliostat_positions=active.positions,
-                    translation_deviations=active.translation_deviations,
-                    rotation_deviations=active.rotation_deviations,
-                    actuator_type=active.actuator_type,
-                    actuator_non_optimizable=active.actuator_non_optimizable,
-                    actuator_optimizable=active.actuator_optimizable,
-                )
-                normals = orientations[:, :, 2]  # the orientation applied to the z axis
-                measured = batch["normals_measured"]
-                if loss_name == "angle":
-                    per_sample = losses.angle_loss(normals, measured)
+                with span("artist.aten.align"):
+                    active = self._active(rotation_deviations, batch)
+                    orientations = rigid_body.motor_positions_to_orientations(
+                        motor_positions=batch["motor_positions"],
+                        heliostat_positions=active.positions,
+                        translation_deviations=active.translation_deviations,
+                        rotation_deviations=active.rotation_deviations,
+                        actuator_type=active.actuator_type,
+                        actuator_non_optimizable=active.actuator_non_optimizable,
+                        actuator_optimizable=active.actuator_optimizable,
+                    )
+            with span("artist.aten.loss"):
+                if self._flux_driven:
+                    per_sample = self._flux_loss_per_sample(loss_name, flux, batch)
                 else:
-                    per_sample = losses.cosine_similarity_loss(normals[:, :3], measured[:, :3])
-            loss_per_heliostat = per_heliostat(batch["plan"].per_sample(per_sample), batch)
-            return torch.mean(loss_per_heliostat), loss_per_heliostat
+                    normals = orientations[:, :, 2]  # the orientation applied to the z axis
+                    measured = batch["normals_measured"]
+                    if loss_name == "angle":
+                        per_sample = losses.angle_loss(normals, measured)
+                    else:
+                        per_sample = losses.cosine_similarity_loss(normals[:, :3], measured[:, :3])
+                loss_per_heliostat = per_heliostat(batch["plan"].per_sample(per_sample), batch)
+                return torch.mean(loss_per_heliostat), loss_per_heliostat
 
         def scrubbed(gradients: torch.Tensor) -> torch.Tensor:
             return torch.nan_to_num(gradients, nan=0.0, posinf=0.0, neginf=0.0)
@@ -267,13 +274,16 @@ class KinematicsReconstructor:
         def train_step(rotation_deviations, optimizer, batch: dict, learning_rate: float):
             """One epoch on the leaf ``rotation_deviations``: the objective's scrubbed
             gradient and one Adam step at ``learning_rate``. Returns (loss, per heliostat)."""
-            for param_group in optimizer.param_groups:
-                param_group["lr"] = learning_rate
-            optimizer.zero_grad(set_to_none=True)
+            with span("artist.optim.update"):
+                for param_group in optimizer.param_groups:
+                    param_group["lr"] = learning_rate
+                optimizer.zero_grad(set_to_none=True)
             loss, loss_per_heliostat = objective(rotation_deviations, batch)
-            loss.backward()
-            rotation_deviations.grad = scrubbed(rotation_deviations.grad)
-            optimizer.step()
+            with span("artist.aten.backward"):
+                loss.backward()
+            with span("artist.optim.update"):
+                rotation_deviations.grad = scrubbed(rotation_deviations.grad)
+                optimizer.step()
             return loss.detach(), loss_per_heliostat.detach()
 
         def gradient_step(rotation_deviations: torch.Tensor, batch: dict):
@@ -287,10 +297,11 @@ class KinematicsReconstructor:
         @torch.no_grad()
         def validate_step(rotation_deviations: torch.Tensor, batch: dict) -> dict[str, torch.Tensor]:
             flux = self._trace_flux(rotation_deviations, batch)
-            return {
-                key: per_heliostat(batch["plan"].per_sample(self._flux_loss_per_sample(loss, flux, batch)), batch)
-                for key, loss in VALIDATION_LOSSES.items()
-            }
+            with span("artist.aten.loss"):
+                return {
+                    key: per_heliostat(batch["plan"].per_sample(self._flux_loss_per_sample(loss, flux, batch)), batch)
+                    for key, loss in VALIDATION_LOSSES.items()
+                }
 
         return train_step, validate_step, gradient_step
 
@@ -306,7 +317,7 @@ class KinematicsReconstructor:
         the heliostats ``unique``."""
         device = self.device
         mask = getattr(split, f"active_heliostats_mask_{part}")
-        active_indices = torch.as_tensor(hg.active_indices_from_mask(mask), dtype=torch.long, device=device)
+        active_indices = training.to_device(hg.active_indices_from_mask(mask), device, torch.long)
         num_points = group.surface_points.shape[1]
         sun = self.scenario.light_sources[0]
         # This rank's samples and rays (all of them without a mesh). A batch that is not
@@ -324,7 +335,7 @@ class KinematicsReconstructor:
             ray_magnitude = 1.0
 
         def tensor(name: str, dtype=torch.float32) -> torch.Tensor:
-            return plan.take(torch.as_tensor(np.asarray(getattr(split, f"{name}_{part}")), dtype=dtype, device=device))
+            return plan.take(training.to_device(getattr(split, f"{name}_{part}"), device, dtype))
 
         active = hg.gather_active(group, active_indices)
         incident = tensor("incident_ray_directions")
@@ -343,8 +354,8 @@ class KinematicsReconstructor:
             "distortions_u": distortions_u,
             "distortions_e": distortions_e,
             "ray_magnitude": ray_magnitude,
-            "padded_sample_indices": torch.as_tensor(padded, dtype=torch.long, device=device),
-            "sample_valid": torch.as_tensor(valid, device=device),
+            "padded_sample_indices": training.to_device(padded, device, torch.long),
+            "sample_valid": training.to_device(valid, device),
         }
 
     def _batches(self, group, split, unique: np.ndarray, test: bool = True) -> list[dict]:
@@ -402,7 +413,10 @@ class KinematicsReconstructor:
             results). Each reconstructed group of the scenario is replaced by
             one with the new rotation deviations.
         """
-        loss_definition = self._default_loss(loss_definition)
+        with span("artist.entry.call"):
+            return self._reconstruct_kinematics(self._default_loss(loss_definition), on_epoch)
+
+    def _reconstruct_kinematics(self, loss_definition: str, on_epoch: Callable[[int, float], None] | None):
         log.info("Beginning kinematics reconstruction with %s.", self.reconstruction_method)
         groups = self.scenario.heliostat_groups
         final_loss = np.full(sum(g.number_of_heliostats for g in groups), np.inf, dtype=np.float32)
@@ -415,73 +429,78 @@ class KinematicsReconstructor:
         reconstructed_deviations: dict[int, np.ndarray] = {}
         offset = 0
         for group_index, group in enumerate(list(groups)):
-            group_data = training.group_calibration_split(
-                self.data, self.scenario, group, self.bitmap_resolution, group_index, self.distributed_setup
-            )
-            if group_data is None:
-                offset += group.number_of_heliostats
-                continue
-            unique, split = group_data
-            train_batch, test_batch = self._batches(group, split, unique)
-            train_step, validate_step, _ = self._build_step_functions(loss_definition)
-
-            rotation_deviations = group.rotation_deviations.detach().clone().requires_grad_(True)
-            optimizer = torch.optim.Adam([rotation_deviations], lr=initial_lr, betas=(0.9, 0.999), eps=1e-8)
-            scheduler = training.make_scheduler(initial_lr, self.scheduler_dict)
-            early_stopper = training.EarlyStopping(
-                window_size=int(self.optimizer_dict[constants.early_stopping_window]),
-                patience=int(self.optimizer_dict[constants.early_stopping_patience]),
-                min_improvement=float(self.optimizer_dict[constants.early_stopping_delta]),
-                relative=True,
-            )
-
-            history: list[float] = []
-            test_loss: dict[str, np.ndarray] = {}
-            loss_value = np.inf
-            per_heliostat = None
-            epoch = 0
-
-            checkpointer = None
-            if self.checkpoint_dir is not None:
-                checkpointer = checkpointing.LoopCheckpointer(
-                    self.checkpoint_dir, f"kinematics_group_{group_index}", every=self.checkpoint_every,
-                    **checkpointing.world_options(self.distributed_setup),
+            with span("artist.entry.preamble", lambda: str(group_index)):
+                group_data = training.group_calibration_split(
+                    self.data, self.scenario, group, self.bitmap_resolution, group_index, self.distributed_setup
                 )
-                restored = checkpointer.restore_loop(optimizer, scheduler, early_stopper, history)
-                if restored is not None:
-                    epoch, loss_value, state = restored
-                    with torch.no_grad():
-                        rotation_deviations.copy_(torch.as_tensor(state["rotation_deviations"]))
-                    log.info("Resuming kinematics reconstruction of group %d at epoch %d.", group_index, epoch)
+                if group_data is None:
+                    offset += group.number_of_heliostats
+                    continue
+                unique, split = group_data
+                with span("artist.entry.batches"):
+                    train_batch, test_batch = self._batches(group, split, unique)
+                train_step, validate_step, _ = self._build_step_functions(loss_definition)
+
+                rotation_deviations = group.rotation_deviations.detach().clone().requires_grad_(True)
+                optimizer = torch.optim.Adam([rotation_deviations], lr=initial_lr, betas=(0.9, 0.999), eps=1e-8)
+                scheduler = training.make_scheduler(initial_lr, self.scheduler_dict)
+                early_stopper = training.EarlyStopping(
+                    window_size=int(self.optimizer_dict[constants.early_stopping_window]),
+                    patience=int(self.optimizer_dict[constants.early_stopping_patience]),
+                    min_improvement=float(self.optimizer_dict[constants.early_stopping_delta]),
+                    relative=True,
+                )
+
+                history: list[float] = []
+                test_loss: dict[str, np.ndarray] = {}
+                loss_value = np.inf
+                per_heliostat = None
+                epoch = 0
+
+                checkpointer = None
+                if self.checkpoint_dir is not None:
+                    checkpointer = checkpointing.LoopCheckpointer(
+                        self.checkpoint_dir, f"kinematics_group_{group_index}", every=self.checkpoint_every,
+                        **checkpointing.world_options(self.distributed_setup),
+                    )
+                    restored = checkpointer.restore_loop(optimizer, scheduler, early_stopper, history)
+                    if restored is not None:
+                        epoch, loss_value, state = restored
+                        with torch.no_grad():
+                            rotation_deviations.copy_(torch.as_tensor(state["rotation_deviations"]))
+                        log.info("Resuming kinematics reconstruction of group %d at epoch %d.", group_index, epoch)
 
             while loss_value > tolerance and epoch <= max_epoch:
-                if isinstance(scheduler, training.ReduceOnPlateau):
-                    learning_rate = scheduler.learning_rate
-                else:
-                    learning_rate = float(scheduler(epoch))
-                loss, per_heliostat = train_step(rotation_deviations, optimizer, train_batch, learning_rate)
-                loss_value = loss.item()
-                if isinstance(scheduler, training.ReduceOnPlateau):
-                    scheduler.step(loss_value)
-                stop = early_stopper.step(loss_value)
-                if epoch % log_step == 0 or epoch == max_epoch - 1 or stop:
-                    log.info("Epoch: %d, Loss: %.6f", epoch, loss_value)
-                    test_loss = {
-                        key: value.cpu().numpy()
-                        for key, value in validate_step(rotation_deviations.detach(), test_batch).items()
-                    }
-                if on_epoch is not None:
-                    on_epoch(epoch, loss_value)
-                if stop:
-                    log.info("Early stopping at epoch %d.", epoch)
-                    break
-                history.append(loss_value)
-                if checkpointer is not None and checkpointer.should_save(epoch):
-                    checkpointer.save_loop(
-                        epoch, optimizer, scheduler, early_stopper, history, loss_value,
-                        rotation_deviations=rotation_deviations.detach().cpu().numpy(),
-                    )
-                epoch += 1
+                with span("artist.optim.epoch", lambda: str(epoch)):
+                    if isinstance(scheduler, training.ReduceOnPlateau):
+                        learning_rate = scheduler.learning_rate
+                    else:
+                        learning_rate = float(scheduler(epoch))
+                    loss, per_heliostat = train_step(rotation_deviations, optimizer, train_batch, learning_rate)
+                    with span("artist.optim.fetch"):
+                        loss_value = loss.item()
+                    if isinstance(scheduler, training.ReduceOnPlateau):
+                        scheduler.step(loss_value)
+                    stop = early_stopper.step(loss_value)
+                    if epoch % log_step == 0 or epoch == max_epoch - 1 or stop:
+                        log.info("Epoch: %d, Loss: %.6f", epoch, loss_value)
+                        with span("artist.optim.validate"):
+                            test_loss = {
+                                key: value.cpu().numpy()
+                                for key, value in validate_step(rotation_deviations.detach(), test_batch).items()
+                            }
+                    if on_epoch is not None:
+                        on_epoch(epoch, loss_value)
+                    if stop:
+                        log.info("Early stopping at epoch %d.", epoch)
+                        break
+                    history.append(loss_value)
+                    if checkpointer is not None and checkpointer.should_save(epoch):
+                        checkpointer.save_loop(
+                            epoch, optimizer, scheduler, early_stopper, history, loss_value,
+                            rotation_deviations=rotation_deviations.detach().cpu().numpy(),
+                        )
+                    epoch += 1
 
             groups[group_index] = group.replace(rotation_deviations=rotation_deviations.detach())
             reconstructed_deviations[group_index] = rotation_deviations.detach().cpu().numpy()

@@ -63,6 +63,7 @@ from artist_tpu_torch.parallel.mesh import ShardPlan
 from artist_tpu_torch.raytracing.render import RenderConfig, compute_ray_magnitude, trace_rays
 from artist_tpu_torch.scenario.scenario import Scenario, update_surfaces
 from artist_tpu_torch.util import constants
+from artist_tpu_torch.util.logging_utils import span
 
 log = logging.getLogger("artist_tpu_torch.optim")
 
@@ -199,31 +200,35 @@ class SurfaceReconstructor:
         def predict_cropped_flux(control_points: torch.Tensor, batch: dict) -> torch.Tensor:
             """This rank's samples' cropped flux, from all of its rays."""
             plan = batch["plan"]
-            points, normals = evaluate_nurbs_surfaces(
-                torch.index_select(plan.params(control_points), 0, batch["active_indices"]),
-                group.nurbs_degrees,
-                evaluation_points,
-                canting=batch["canting"],
-                facet_translations=batch["facet_translations"],
-            )
+            with span("artist.aten.nurbs"):
+                points, normals = evaluate_nurbs_surfaces(
+                    torch.index_select(plan.params(control_points), 0, batch["active_indices"]),
+                    group.nurbs_degrees,
+                    evaluation_points,
+                    canting=batch["canting"],
+                    facet_translations=batch["facet_translations"],
+                )
             num_samples = batch["active_indices"].shape[0]
-            aligned_points, aligned_normals = hg.apply_orientations(
-                points.reshape(num_samples, -1, 4),
-                normals.reshape(num_samples, -1, 4),
-                batch["orientations"],
-            )
-            flux = trace_rays(
-                tower=tower,
-                aligned_surface_points=aligned_points,
-                aligned_surface_normals=aligned_normals,
-                incident_ray_directions=batch["incident_ray_directions"],
-                target_area_indices=batch["target_area_indices"],
-                distortions_u=batch["distortions_u"],
-                distortions_e=batch["distortions_e"],
-                ray_magnitude=batch["ray_magnitude"],
-                config=render_config,
-            )[0]
-            return crop_flux_distributions_around_center(plan.flux(flux), tower, batch["target_area_indices"])
+            with span("artist.aten.align"):
+                aligned_points, aligned_normals = hg.apply_orientations(
+                    points.reshape(num_samples, -1, 4),
+                    normals.reshape(num_samples, -1, 4),
+                    batch["orientations"],
+                )
+            with span("artist.aten.trace"):
+                flux = trace_rays(
+                    tower=tower,
+                    aligned_surface_points=aligned_points,
+                    aligned_surface_normals=aligned_normals,
+                    incident_ray_directions=batch["incident_ray_directions"],
+                    target_area_indices=batch["target_area_indices"],
+                    distortions_u=batch["distortions_u"],
+                    distortions_e=batch["distortions_e"],
+                    ray_magnitude=batch["ray_magnitude"],
+                    config=render_config,
+                )[0]
+            with span("artist.aten.loss"):
+                return crop_flux_distributions_around_center(plan.flux(flux), tower, batch["target_area_indices"])
 
         def per_heliostat(loss_per_sample: torch.Tensor, batch: dict) -> torch.Tensor:
             return losses.reduce_loss_per_heliostat(
@@ -242,45 +247,46 @@ class SurfaceReconstructor:
             original_control_points: torch.Tensor,
         ):
             cropped = predict_cropped_flux(control_points, batch)
-            flux_loss_per_heliostat = per_heliostat(gathered(flux_loss_fn, cropped, batch), batch)
+            with span("artist.aten.loss"):
+                flux_loss_per_heliostat = per_heliostat(gathered(flux_loss_fn, cropped, batch), batch)
 
-            # Augmented-Lagrangian flux-integral (energy) constraint.
-            flux_integrals = batch["plan"].per_sample(torch.sum(cropped, dim=(1, 2)))
-            relative_differences = (flux_integrals - flux_integrals_reference) / (
-                flux_integrals_reference + epsilon
-            )
-            constraint_per_sample = torch.clamp(-energy_tolerance - relative_differences, min=0.0)
-            constraint_per_heliostat = per_heliostat(constraint_per_sample, batch)
-            flux_integral_constraint = (
-                lambda_flux_integral * constraint_per_heliostat
-                + 0.5 * rho * constraint_per_heliostat**2
-            )
+                # Augmented-Lagrangian flux-integral (energy) constraint.
+                flux_integrals = batch["plan"].per_sample(torch.sum(cropped, dim=(1, 2)))
+                relative_differences = (flux_integrals - flux_integrals_reference) / (
+                    flux_integrals_reference + epsilon
+                )
+                constraint_per_sample = torch.clamp(-energy_tolerance - relative_differences, min=0.0)
+                constraint_per_heliostat = per_heliostat(constraint_per_sample, batch)
+                flux_integral_constraint = (
+                    lambda_flux_integral * constraint_per_heliostat
+                    + 0.5 * rho * constraint_per_heliostat**2
+                )
 
-            # Dynamically balanced regularizers. alpha and beta stay in the
-            # autograd graph, as in the reference: d(alpha * smooth)/d cp then
-            # largely cancels once the regularizer dwarfs epsilon, and
-            # detaching them changes the optimization trajectory.
-            unique_cp = torch.index_select(control_points, 0, batch["unique_heliostats"])
-            smooth = smoothness_regularizer(unique_cp, original_control_points)
-            ideal = ideal_surface_regularizer(unique_cp, original_control_points)
-            mean_flux_loss = torch.mean(flux_loss_per_heliostat)
-            alpha = weight_smoothness * mean_flux_loss / (torch.mean(smooth) + epsilon)
-            beta = weight_ideal * mean_flux_loss / (torch.mean(ideal) + epsilon)
+                # Dynamically balanced regularizers. alpha and beta stay in the
+                # autograd graph, as in the reference: d(alpha * smooth)/d cp then
+                # largely cancels once the regularizer dwarfs epsilon, and
+                # detaching them changes the optimization trajectory.
+                unique_cp = torch.index_select(control_points, 0, batch["unique_heliostats"])
+                smooth = smoothness_regularizer(unique_cp, original_control_points)
+                ideal = ideal_surface_regularizer(unique_cp, original_control_points)
+                mean_flux_loss = torch.mean(flux_loss_per_heliostat)
+                alpha = weight_smoothness * mean_flux_loss / (torch.mean(smooth) + epsilon)
+                beta = weight_ideal * mean_flux_loss / (torch.mean(ideal) + epsilon)
 
-            total_per_heliostat = (
-                flux_loss_per_heliostat + flux_integral_constraint + alpha * smooth + beta * ideal
-            )
-            aux = {
-                "total_loss_per_heliostat": total_per_heliostat,
-                "flux_loss": mean_flux_loss,
-                "flux_integral": torch.mean(relative_differences),
-                "smoothness": torch.mean(alpha * smooth),
-                "ideal": torch.mean(beta * ideal),
-                "flux_integral_constraint": torch.mean(flux_integral_constraint),
-                "constraint_per_heliostat": constraint_per_heliostat,
-                "flux_integrals": flux_integrals,
-            }
-            return torch.mean(total_per_heliostat), aux
+                total_per_heliostat = (
+                    flux_loss_per_heliostat + flux_integral_constraint + alpha * smooth + beta * ideal
+                )
+                aux = {
+                    "total_loss_per_heliostat": total_per_heliostat,
+                    "flux_loss": mean_flux_loss,
+                    "flux_integral": torch.mean(relative_differences),
+                    "smoothness": torch.mean(alpha * smooth),
+                    "ideal": torch.mean(beta * ideal),
+                    "flux_integral_constraint": torch.mean(flux_integral_constraint),
+                    "constraint_per_heliostat": constraint_per_heliostat,
+                    "flux_integrals": flux_integrals,
+                }
+                return torch.mean(total_per_heliostat), aux
 
         def gradient_step(control_points, lambda_flux_integral, flux_integrals_reference, original_control_points,
                           batch):
@@ -299,32 +305,40 @@ class SurfaceReconstructor:
             """One epoch: the objective's gradient, edge-locked, one Adam step at
             ``learning_rate`` on the leaf ``control_points``, and the AL multiplier
             update from the constraint before the step. Returns (multipliers, loss, aux)."""
-            for param_group in optimizer.param_groups:
-                param_group["lr"] = learning_rate
-            optimizer.zero_grad(set_to_none=True)
+            with span("artist.optim.update"):
+                for param_group in optimizer.param_groups:
+                    param_group["lr"] = learning_rate
+                optimizer.zero_grad(set_to_none=True)
             loss, aux = loss_terms(
                 control_points, batch, flux_integrals_reference, lambda_flux_integral, original_control_points
             )
-            loss.backward()
-            control_points.grad = lock_control_points_on_outer_edges(control_points.grad)
-            optimizer.step()
-            aux = {key: value.detach() for key, value in aux.items()}
-            lambda_flux_integral = torch.clamp(
-                lambda_flux_integral + rho * aux["constraint_per_heliostat"], min=0.0
-            )
+            with span("artist.aten.backward"):
+                loss.backward()
+            with span("artist.optim.update"):
+                control_points.grad = lock_control_points_on_outer_edges(control_points.grad)
+                optimizer.step()
+                aux = {key: value.detach() for key, value in aux.items()}
+                lambda_flux_integral = torch.clamp(
+                    lambda_flux_integral + rho * aux["constraint_per_heliostat"], min=0.0
+                )
             return lambda_flux_integral, loss.detach(), aux
 
         @torch.no_grad()
         def validate_step(control_points: torch.Tensor, batch: dict) -> dict[str, torch.Tensor]:
             cropped = predict_cropped_flux(control_points, batch)
-            return {
-                "test_loss_pixel": per_heliostat(gathered(losses.pixel_loss, cropped, batch), batch),
-                "test_loss_kl_divergence": per_heliostat(gathered(losses.kl_divergence_loss, cropped, batch), batch),
-            }
+            with span("artist.aten.loss"):
+                return {
+                    "test_loss_pixel": per_heliostat(gathered(losses.pixel_loss, cropped, batch), batch),
+                    "test_loss_kl_divergence": per_heliostat(
+                        gathered(losses.kl_divergence_loss, cropped, batch), batch
+                    ),
+                }
 
         @torch.no_grad()
         def reference_integrals(control_points: torch.Tensor, batch: dict) -> torch.Tensor:
-            return batch["plan"].per_sample(torch.sum(predict_cropped_flux(control_points, batch), dim=(1, 2)))
+            cropped = predict_cropped_flux(control_points, batch)
+            with span("artist.aten.loss"):
+                return batch["plan"].per_sample(torch.sum(cropped, dim=(1, 2)))
 
         return train_step, validate_step, reference_integrals, gradient_step
 
@@ -352,7 +366,7 @@ class SurfaceReconstructor:
         where a heliostat has no sample in this split.
         """
         device = self.device
-        active_indices = torch.as_tensor(hg.active_indices_from_mask(mask), dtype=torch.long, device=device)
+        active_indices = training.to_device(hg.active_indices_from_mask(mask), device, torch.long)
         num_samples = active_indices.shape[0]
         num_points = (
             self.number_of_surface_points[0]
@@ -367,9 +381,9 @@ class SurfaceReconstructor:
         else:
             ray_magnitude = 1.0
         active_indices = plan.take(active_indices)
-        target_indices = plan.take(torch.as_tensor(np.asarray(targets), dtype=torch.long, device=device))
+        target_indices = plan.take(training.to_device(targets, device, torch.long))
         aim_points = get_centers_of_target_areas(self.scenario.solar_tower, target_indices)
-        incident_directions = plan.take(torch.as_tensor(np.asarray(incident, dtype=np.float32), device=device))
+        incident_directions = plan.take(training.to_device(np.asarray(incident, dtype=np.float32), device))
         active = hg.gather_active(group, active_indices)
         orientations = hg.align_surfaces_with_incident_ray_directions(active, aim_points, incident_directions)[2]
         padded, valid = losses.build_sample_index_matrix(np.asarray(mask)[row_heliostats])
@@ -383,11 +397,11 @@ class SurfaceReconstructor:
             "target_area_indices": target_indices,
             "distortions_u": distortions_u,
             "distortions_e": distortions_e,
-            "flux_measured": plan.take(torch.as_tensor(np.asarray(flux, dtype=np.float32), device=device)),
+            "flux_measured": plan.take(training.to_device(np.asarray(flux, dtype=np.float32), device)),
             "ray_magnitude": ray_magnitude,
-            "unique_heliostats": torch.as_tensor(row_heliostats, dtype=torch.long, device=device),
-            "padded_sample_indices": torch.as_tensor(padded, dtype=torch.long, device=device),
-            "sample_valid": torch.as_tensor(valid, device=device),
+            "unique_heliostats": training.to_device(row_heliostats, device, torch.long),
+            "padded_sample_indices": training.to_device(padded, device, torch.long),
+            "sample_valid": training.to_device(valid, device),
         }
 
     def _batches(self, group, split, unique: np.ndarray, test: bool = True) -> list[dict]:
@@ -483,6 +497,10 @@ class SurfaceReconstructor:
             reconstructed group of the scenario is replaced by one with the new
             control points and its surfaces re-evaluated from them.
         """
+        with span("artist.entry.call"):
+            return self._reconstruct_surfaces(loss_definition, on_epoch)
+
+    def _reconstruct_surfaces(self, loss_definition: str, on_epoch: Callable[[int, float], None] | None):
         log.info("Beginning surface reconstruction.")
         groups = self.scenario.heliostat_groups
         final_loss = np.full(sum(g.number_of_heliostats for g in groups), np.inf, dtype=np.float32)
@@ -495,88 +513,93 @@ class SurfaceReconstructor:
         reconstructed_control_points: dict[int, np.ndarray] = {}
         offset = 0
         for group_index, group in enumerate(list(groups)):
-            group_data = training.group_calibration_split(
-                self.data, self.scenario, group, self.bitmap_resolution, group_index, self.distributed_setup
-            )
-            if group_data is None:
-                offset += group.number_of_heliostats
-                continue
-            unique, split = group_data
-            train_batch, test_batch = self._batches(group, split, unique)
-            train_step, validate_step, reference_integrals, _ = self._build_step_functions(group, loss_definition)
-
-            control_points = group.nurbs_control_points.detach().clone().requires_grad_(True)
-            original_control_points = control_points.detach()[torch.as_tensor(unique, device=self.device)]
-            optimizer = torch.optim.Adam([control_points], lr=initial_lr, betas=(0.9, 0.999), eps=1e-8)
-            scheduler = training.make_scheduler(initial_lr, self.scheduler_dict)
-            early_stopper = training.EarlyStopping(
-                window_size=int(self.optimizer_dict[constants.early_stopping_window]),
-                patience=int(self.optimizer_dict[constants.early_stopping_patience]),
-                min_improvement=float(self.optimizer_dict[constants.early_stopping_delta]),
-                relative=True,
-            )
-            flux_ref = reference_integrals(control_points, train_batch)
-            lambda_flux = torch.zeros(unique.shape[0], device=self.device)
-
-            history: dict[str, list[float]] = {key: [] for key in HISTORY_KEYS}
-            test_loss: dict[str, np.ndarray] = {}
-            total_loss = np.inf
-            total_per_heliostat = None
-            epoch = 0
-
-            checkpointer = None
-            if self.checkpoint_dir is not None:
-                checkpointer = checkpointing.LoopCheckpointer(
-                    self.checkpoint_dir, f"surface_group_{group_index}", every=self.checkpoint_every,
-                    **checkpointing.world_options(self.distributed_setup),
+            with span("artist.entry.preamble", lambda: str(group_index)):
+                group_data = training.group_calibration_split(
+                    self.data, self.scenario, group, self.bitmap_resolution, group_index, self.distributed_setup
                 )
-                restored = checkpointer.restore_loop(optimizer, scheduler, early_stopper, history)
-                if restored is not None:
-                    epoch, total_loss, state = restored
-                    with torch.no_grad():
-                        control_points.copy_(torch.as_tensor(state["control_points"]))
-                    lambda_flux = torch.as_tensor(state["lambda_flux"], device=self.device)
-                    flux_ref = torch.as_tensor(state["flux_integrals_reference"], device=self.device)
-                    log.info("Resuming surface reconstruction of group %d at epoch %d.", group_index, epoch)
+                if group_data is None:
+                    offset += group.number_of_heliostats
+                    continue
+                unique, split = group_data
+                with span("artist.entry.batches"):
+                    train_batch, test_batch = self._batches(group, split, unique)
+                train_step, validate_step, reference_integrals, _ = self._build_step_functions(group, loss_definition)
+
+                control_points = group.nurbs_control_points.detach().clone().requires_grad_(True)
+                original_control_points = control_points.detach()[torch.as_tensor(unique, device=self.device)]
+                optimizer = torch.optim.Adam([control_points], lr=initial_lr, betas=(0.9, 0.999), eps=1e-8)
+                scheduler = training.make_scheduler(initial_lr, self.scheduler_dict)
+                early_stopper = training.EarlyStopping(
+                    window_size=int(self.optimizer_dict[constants.early_stopping_window]),
+                    patience=int(self.optimizer_dict[constants.early_stopping_patience]),
+                    min_improvement=float(self.optimizer_dict[constants.early_stopping_delta]),
+                    relative=True,
+                )
+                flux_ref = reference_integrals(control_points, train_batch)
+                lambda_flux = torch.zeros(unique.shape[0], device=self.device)
+
+                history: dict[str, list[float]] = {key: [] for key in HISTORY_KEYS}
+                test_loss: dict[str, np.ndarray] = {}
+                total_loss = np.inf
+                total_per_heliostat = None
+                epoch = 0
+
+                checkpointer = None
+                if self.checkpoint_dir is not None:
+                    checkpointer = checkpointing.LoopCheckpointer(
+                        self.checkpoint_dir, f"surface_group_{group_index}", every=self.checkpoint_every,
+                        **checkpointing.world_options(self.distributed_setup),
+                    )
+                    restored = checkpointer.restore_loop(optimizer, scheduler, early_stopper, history)
+                    if restored is not None:
+                        epoch, total_loss, state = restored
+                        with torch.no_grad():
+                            control_points.copy_(torch.as_tensor(state["control_points"]))
+                        lambda_flux = torch.as_tensor(state["lambda_flux"], device=self.device)
+                        flux_ref = torch.as_tensor(state["flux_integrals_reference"], device=self.device)
+                        log.info("Resuming surface reconstruction of group %d at epoch %d.", group_index, epoch)
 
             while total_loss > tolerance and epoch <= max_epoch:
-                if isinstance(scheduler, training.ReduceOnPlateau):
-                    learning_rate = scheduler.learning_rate
-                else:
-                    learning_rate = float(scheduler(epoch))
-                lambda_flux, loss, aux = train_step(
-                    control_points, optimizer, lambda_flux, flux_ref, original_control_points, train_batch,
-                    learning_rate,
-                )
-                # One host transfer per epoch for the loss and the history.
-                fetched = torch.stack([loss] + [aux[key] for key in _HISTORY_AUX.values()]).tolist()
-                total_loss = fetched[0]
-                total_per_heliostat = aux["total_loss_per_heliostat"]
-                if isinstance(scheduler, training.ReduceOnPlateau):
-                    scheduler.step(total_loss)
-                stop = early_stopper.step(total_loss)
-                if epoch % log_step == 0 or epoch == max_epoch - 1 or stop:
-                    log.info("Epoch: %d, Loss: %.6f", epoch, total_loss)
-                    test_loss = {
-                        key: value.cpu().numpy() for key, value in validate_step(control_points, test_batch).items()
-                    }
-                if on_epoch is not None:
-                    on_epoch(epoch, total_loss)
-                if stop:
-                    log.info("Early stopping at epoch %d.", epoch)
-                    break
-                history["total_loss"].append(total_loss)
-                for key, value in zip(_HISTORY_AUX, fetched[1:]):
-                    history[key].append(value)
-                if checkpointer is not None and checkpointer.should_save(epoch):
-                    checkpointer.save_loop(
-                        epoch, optimizer, scheduler, early_stopper, history, total_loss,
-                        control_points=control_points.detach().cpu().numpy(),
-                        lambda_flux=lambda_flux.cpu().numpy(),
-                        flux_integrals_reference=flux_ref.cpu().numpy(),
+                with span("artist.optim.epoch", lambda: str(epoch)):
+                    if isinstance(scheduler, training.ReduceOnPlateau):
+                        learning_rate = scheduler.learning_rate
+                    else:
+                        learning_rate = float(scheduler(epoch))
+                    lambda_flux, loss, aux = train_step(
+                        control_points, optimizer, lambda_flux, flux_ref, original_control_points, train_batch,
+                        learning_rate,
                     )
-                epoch += 1
-
+                    # One host transfer per epoch for the loss and the history.
+                    with span("artist.optim.fetch"):
+                        fetched = torch.stack([loss] + [aux[key] for key in _HISTORY_AUX.values()]).tolist()
+                    total_loss = fetched[0]
+                    total_per_heliostat = aux["total_loss_per_heliostat"]
+                    if isinstance(scheduler, training.ReduceOnPlateau):
+                        scheduler.step(total_loss)
+                    stop = early_stopper.step(total_loss)
+                    if epoch % log_step == 0 or epoch == max_epoch - 1 or stop:
+                        log.info("Epoch: %d, Loss: %.6f", epoch, total_loss)
+                        with span("artist.optim.validate"):
+                            test_loss = {
+                                key: value.cpu().numpy()
+                                for key, value in validate_step(control_points, test_batch).items()
+                            }
+                    if on_epoch is not None:
+                        on_epoch(epoch, total_loss)
+                    if stop:
+                        log.info("Early stopping at epoch %d.", epoch)
+                        break
+                    history["total_loss"].append(total_loss)
+                    for key, value in zip(_HISTORY_AUX, fetched[1:]):
+                        history[key].append(value)
+                    if checkpointer is not None and checkpointer.should_save(epoch):
+                        checkpointer.save_loop(
+                            epoch, optimizer, scheduler, early_stopper, history, total_loss,
+                            control_points=control_points.detach().cpu().numpy(),
+                            lambda_flux=lambda_flux.cpu().numpy(),
+                            flux_integrals_reference=flux_ref.cpu().numpy(),
+                        )
+                    epoch += 1
             groups[group_index] = update_surfaces(
                 group.replace(nurbs_control_points=control_points.detach()), self.number_of_surface_points
             )

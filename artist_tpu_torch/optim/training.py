@@ -5,6 +5,9 @@ schedule is a function of the epoch, ``ReduceOnPlateau`` a host-side
 controller stepped with each epoch's loss. The optimizers read the rate once
 per epoch and set it on their ``torch.optim`` parameter group. The ragged
 train/test split of calibration data (``training.py:131-237``) is host numpy.
+
+The reconstructors turn a split's host arrays into tensors on the run's device
+with :func:`to_device`, which counts the bytes in ``TRANSFERS``.
 """
 
 from __future__ import annotations
@@ -15,10 +18,27 @@ from dataclasses import dataclass
 from typing import Callable
 
 import numpy as np
+import torch
 
 from artist_tpu_torch.util import constants
+from artist_tpu_torch.util.logging_utils import span
 
 Schedule = Callable[[int], float]
+
+TRANSFERS = {"host_to_device_bytes": 0}
+
+
+def reset_transfer_counts() -> None:
+    for name in TRANSFERS:
+        TRANSFERS[name] = 0
+
+
+def to_device(array, device, dtype: torch.dtype | None = None) -> torch.Tensor:
+    """The host array ``array`` as a tensor on ``device`` (``torch.as_tensor``); its
+    bytes on the host are counted in ``TRANSFERS``, with no read of the device."""
+    array = np.asarray(array)
+    TRANSFERS["host_to_device_bytes"] += array.nbytes
+    return torch.as_tensor(array, dtype=dtype, device=device)
 
 
 def exponential_schedule(initial_learning_rate: float, parameters: dict) -> Schedule:
@@ -217,21 +237,23 @@ def group_calibration_split(
 
     if not runs_group(distributed_setup, group_index):
         return None
-    calibration = data[constants.data_parser].parse_data_for_reconstruction(
-        heliostat_data_mapping=data[constants.heliostat_data_mapping],
-        heliostat_names=group.names,
-        target_name_to_index=scenario.solar_tower.target_name_to_index,
-        power_plant_position=scenario.power_plant_position,
-        bitmap_resolution=bitmap_resolution,
-    )
+    with span("artist.entry.parse"):
+        calibration = data[constants.data_parser].parse_data_for_reconstruction(
+            heliostat_data_mapping=data[constants.heliostat_data_mapping],
+            heliostat_names=group.names,
+            target_name_to_index=scenario.solar_tower.target_name_to_index,
+            power_plant_position=scenario.power_plant_position,
+            bitmap_resolution=bitmap_resolution,
+        )
     if calibration.active_heliostats_mask.sum() == 0:
         return None
-    split = train_test_split(
-        active_heliostats_mask=calibration.active_heliostats_mask,
-        flux_measured=calibration.flux_measured,
-        focal_spots_measured=calibration.focal_spots,
-        incident_ray_directions=calibration.incident_ray_directions,
-        motor_positions=calibration.motor_positions,
-        target_area_indices=calibration.target_area_indices,
-    )
+    with span("artist.entry.split"):
+        split = train_test_split(
+            active_heliostats_mask=calibration.active_heliostats_mask,
+            flux_measured=calibration.flux_measured,
+            focal_spots_measured=calibration.focal_spots,
+            incident_ray_directions=calibration.incident_ray_directions,
+            motor_positions=calibration.motor_positions,
+            target_area_indices=calibration.target_area_indices,
+        )
     return np.nonzero(calibration.active_heliostats_mask)[0], split

@@ -1,4 +1,4 @@
-"""Logging configuration and runtime tracking.
+"""Logging configuration, runtime tracking and spans.
 
 Counterpart of ``artist_tpu/util/logging_utils.py``: plain stdlib logging for
 the ``artist_tpu_torch`` logger hierarchy, a runtime logger that appends
@@ -6,6 +6,14 @@ start, finish and duration records to a file, a decorator that writes them
 around a function (synchronising the card before each reading of the clock,
 so that a duration covers the device work the function queued) and a
 ``torch.profiler`` trace around a phase.
+
+:func:`span` is the port's one span mechanism: a ``record_function`` range while
+a profiler records, on the profiler's clock beside the device's kernels, copies
+and the runtime's syncs, and one shared object that does nothing otherwise. The
+reconstruction loops open spans named ``artist.<layer>.<stage>`` at their layer
+boundaries (``artist.entry.*``, ``artist.optim.*``, ``artist.aten.*``,
+``artist.kernels.*``), so that a trace written by :func:`profile_trace` shows
+each stage of a call, and the host's time can be put down to its layer.
 
 The JAX package's ``enable_compilation_cache`` keeps XLA's compiled programs
 across processes; PyTorch runs eagerly and compiles nothing of the port's, so
@@ -82,6 +90,28 @@ def set_runtime_logger(path: str | Path = "runtime_log.txt", level: int = loggin
     runtime_log.propagate = False
 
 
+_IDLE = contextlib.nullcontext()
+_profiler_enabled = torch.autograd._profiler_enabled
+
+
+def span(name: str, args: str | Callable[[], str] | None = None):
+    """A profiler range named ``name`` around a stage, where a profiler records::
+
+        with span("artist.optim.epoch", lambda: str(epoch)):
+            ...
+
+    While no profiler records it is one shared object that does nothing on entry or
+    exit: the call costs one probe of the profiler's state, no allocation and no
+    formatting. While one records it is ``torch.profiler.record_function(name, args)``;
+    ``args`` (a string, or a callable returning one, called only then) is the
+    range's argument in the trace. A span reads no device value and does not
+    synchronise, so it changes neither the launches nor their order.
+    """
+    if not _profiler_enabled():
+        return _IDLE
+    return torch.profiler.record_function(name, args() if callable(args) else args)
+
+
 def _synchronize() -> None:
     """Wait for the card's queued work, where there is a card."""
     if torch.cuda.is_available() and torch.cuda.is_initialized():
@@ -113,8 +143,9 @@ def track_runtime(function: F) -> F:
     """Decorator logging the start, finish and wall-clock duration of a function.
 
     The card is synchronised before each reading of the clock, so the duration
-    covers the device work the function queued. The call also shows as a
-    ``record_function`` range in a profiler trace.
+    covers the device work the function queued. That costs two waits for the card
+    a call, so it wraps whole phases (the examples' stages), never a hot path: use
+    :func:`span` there. The call also shows as a :func:`span` in a profiler trace.
     """
 
     @functools.wraps(function)
@@ -123,7 +154,7 @@ def track_runtime(function: F) -> F:
         runtime_log.info("started: %s", name)
         _synchronize()
         start = time.perf_counter()
-        with torch.profiler.record_function(name):
+        with span(name):
             result = function(*args, **kwargs)
         _synchronize()
         runtime_log.info("finished: %s duration_s=%.6f", name, time.perf_counter() - start)
