@@ -29,6 +29,13 @@ is no recompute: one launch of each forward and backward kernel per chunk.
 Planar and cylindrical target areas: a tower with one kind runs its
 intersection alone; a mixed tower runs both on every heliostat and selects
 per heliostat by its target's kind.
+
+On a tower of planar target areas with blocking off, the chain from the scatter
+angles to the splat's inputs (``ray_splat_inputs``' rotation, intersection and
+intensities) is the ray kernel pair of :mod:`artist_tpu_torch.kernels.rays`,
+which keeps no per-ray tensor: per checkpointed chunk two ray forwards and one
+ray backward, as for the splat. Blocking (which reads the rays' directions and
+distances) and cylindrical targets take ``ray_splat_inputs``.
 """
 
 from __future__ import annotations
@@ -47,6 +54,7 @@ from torch.utils.checkpoint import (
 
 from artist_tpu_torch.field.solar_tower import SolarTower
 from artist_tpu_torch.geometry.transforms import apply_distortion_rotation
+from artist_tpu_torch.kernels.rays import ray_chunk
 from artist_tpu_torch.kernels.splat_window import splat_dynamic_window
 from artist_tpu_torch.raytracing import geometry
 from artist_tpu_torch.raytracing.blocking import soft_ray_blocking_mask
@@ -286,43 +294,56 @@ def trace_rays(
     )  # [M, P, 4]
     permutation = point_permutation(config, preferred.device)
 
+    # Planar targets without blocking: the chain from angles to the splat's inputs is
+    # one kernel pair, which keeps no per-ray tensor. Blocking reads the rays'
+    # directions and distances, and a cylinder its own intersection: the PyTorch chain.
+    fused = not config.blocking_active and tower.number_of_cylindrical_target_areas == 0
+
     def trace_chunk(du: torch.Tensor, de: torch.Tensor):
-        rays = ray_splat_inputs(
-            tower,
-            preferred,
-            aligned_surface_points,
-            target_area_indices,
-            du,
-            de,
-            ray_magnitude,
-            config,
-            blocking_primitives,
-            ray_primitive_indices,
-        )
+        blocked = None
+        if fused:
+            e, u, w, on_target_count, intercept_count = ray_chunk(
+                preferred, aligned_surface_points, du, de, tower, target_area_indices, ray_magnitude,
+                config.bitmap_resolution, config.ray_extinction_factor, config.mirror_reflectivity,
+            )
+        else:
+            rays = ray_splat_inputs(
+                tower,
+                preferred,
+                aligned_surface_points,
+                target_area_indices,
+                du,
+                de,
+                ray_magnitude,
+                config,
+                blocking_primitives,
+                ray_primitive_indices,
+            )
+            e, u, w, blocked = rays.bitmap_e, rays.bitmap_u, rays.final_intensities, rays.blocked
+            on_target_count = torch.sum(rays.intensities > 0, dim=(1, 2))
+            intercept_count = torch.sum(w > 0, dim=(1, 2))
         if config.splat_block_window is not None:
             partial_flux = splat_dynamic_window(
-                rays.bitmap_e.contiguous(),
-                rays.bitmap_u.contiguous(),
-                rays.final_intensities.contiguous(),
+                e.contiguous(),
+                u.contiguous(),
+                w.contiguous(),
                 config.bitmap_resolution,
                 config.splat_block_window,
                 point_order=permutation,
             )
         else:
             partial_flux = bilinear_splat(
-                rays.bitmap_e,
-                rays.bitmap_u,
-                rays.final_intensities,
+                e,
+                u,
+                w,
                 config.bitmap_resolution,
                 flip_up_down=False,
                 window=config.splat_window,
             )
-        on_target_count = torch.sum(rays.intensities > 0, dim=(1, 2))
-        intercept_count = torch.sum(rays.final_intensities > 0, dim=(1, 2))
-        if rays.blocked is None:
+        if blocked is None:
             unblocked_count = torch.full_like(on_target_count, du.shape[1] * num_points)
         else:
-            unblocked_count = torch.sum(rays.blocked < 1e-3, dim=(1, 2))
+            unblocked_count = torch.sum(blocked < 1e-3, dim=(1, 2))
         return partial_flux, on_target_count, intercept_count, unblocked_count
 
     chunk = config.ray_chunk

@@ -165,6 +165,16 @@ exits non-zero without them. It imports only ``torch``, ``numpy`` and the
     ``flux_prediction_plot``'s demo on the card against the CPU. Every call's launches
     are asserted.
 
+19. the ray kernel pair (``artist_tpu_torch/kernels/rays.py``, ``csrc/rays.cu``): the
+    forward and backward kernels against their plain versions at the surface
+    reconstruction's chunk (``[36, 12, 10000]``), the flux-driven validation batch
+    (``[500, 19, 10000]``) and train batch (``[1500, 19, 10000]``), each with rays on
+    and just past every edge of the bitmap, back-facing and grazing rays, the angles
+    read in place from a ``[M, R, P, 2]`` sample; two launches bit-equal; both timed
+    by events and from a CUDA graph against their byte bounds; then the launches of a
+    small checkpointed step, an unchunked one and a render without a gradient. Phase 13
+    asserts the pair's launches in every reconstructor call beside the splat's.
+
 Phase 3 also holds the dynamic-window kernels (3d: on the block-window
 step's first chunk in place with the tile order, as that step splats it,
 without the order, and at 3 rays a point, where blocks straddle points, with a
@@ -235,6 +245,7 @@ from artist_tpu_torch.io import paint_scenario_parser  # noqa: E402
 from artist_tpu_torch.io.stral import extract_stral_deflectometry_data  # noqa: E402
 from artist_tpu_torch.kernels import blocking as blocking_kernels  # noqa: E402
 from artist_tpu_torch.kernels import lbvh as lbvh_kernels  # noqa: E402
+from artist_tpu_torch.kernels import rays as ray_kernels  # noqa: E402
 from artist_tpu_torch.kernels.build import build_all, build_library  # noqa: E402
 from artist_tpu_torch.kernels.splat import LAUNCHES as SPLAT_LAUNCHES  # noqa: E402
 from artist_tpu_torch.kernels.splat import reset_launch_counts as reset_splat_launch_counts  # noqa: E402
@@ -259,7 +270,13 @@ from artist_tpu_torch.raytracing.blocking import (  # noqa: E402
     create_blocking_primitives_rectangles_by_index,
     soft_ray_blocking_mask,
 )
-from artist_tpu_torch.raytracing.render import RenderConfig, point_permutation, ray_splat_inputs, trace_rays  # noqa: E402
+from artist_tpu_torch.raytracing.render import (  # noqa: E402
+    DEFAULT_MIRROR_REFLECTIVITY,
+    RenderConfig,
+    point_permutation,
+    ray_splat_inputs,
+    trace_rays,
+)
 from artist_tpu_torch.scenario.scenario import (  # noqa: E402
     InMemoryGroup,
     _assemble_heliostat_groups,
@@ -1327,6 +1344,7 @@ def reset_launch_counts() -> None:
     splat_window.reset_launch_counts()
     splat_scatter.reset_launch_counts()
     lbvh_kernels.reset_launch_counts()
+    ray_kernels.reset_launch_counts()
 
 
 def launch_counts() -> dict[str, int]:
@@ -3117,10 +3135,12 @@ KINEMATICS_FLUX = dict(KINEMATICS)
 # improve by more than 100%, which no window of positive losses does, and patience 10)
 # ends every run at epoch 48: the slope is taken over the epochs each call ran, with
 # the same two validations (epoch 0, and epoch 19 or the stop) in both calls. The
-# flux-driven calls run 3 and 5 epochs, also with two validations each (epochs 0 and 1,
-# 0 and 3).
+# flux-driven calls run 3 and 21 epochs, also with two validations each (epochs 0 and 1,
+# 0 and 19): an epoch takes ~35 ms on an H100 with the ray kernels, so the slope needs
+# the long call's 18 more epochs to stand clear of each call's ~0.6 s preamble, which
+# moves by tens of ms from call to call.
 KINEMATICS_EPOCHS = (20, 500)
-KINEMATICS_FLUX_EPOCHS = (2, 4)
+KINEMATICS_FLUX_EPOCHS = (2, 20)
 KINEMATICS_DATA_CHUNK = 250  # samples traced at once while the calibration data are built
 # The known rotation deviations: random signs, magnitudes in this range (rad).
 KNOWN_DEVIATIONS = (4e-3, 8e-3)
@@ -3288,6 +3308,10 @@ def run_kinematics(device: torch.device, size: dict, data: CalibrationData, meth
     expected = kinematics_launches(method, epochs, max_epoch, log_step, stopped)
     if device.type == "cuda" and counts != expected:
         raise AssertionError(f"phase 13 {label} launched {counts}, expected {expected}")
+    # The planar tower without blocking: every trace runs the ray pair beside the splat's.
+    expected_rays = ray_launches(expected["splat_forward"], expected["splat_backward"])
+    if device.type == "cuda" and ray_kernels.LAUNCHES != expected_rays:
+        raise AssertionError(f"phase 13 {label} launched {ray_kernels.LAUNCHES}, expected {expected_rays}")
     history = result.loss_history
     if not history or not np.isfinite(history).all() or not np.isfinite(final_loss).all():
         raise AssertionError(f"phase 13 {label}: history {history}, final losses {final_loss}")
@@ -5895,6 +5919,245 @@ def drive_paint_plots(device: torch.device, surfaces: list) -> tuple[dict[str, d
     return paths, timings
 
 
+# Phase 19: the ray kernel pair (kernels/rays.py, csrc/rays.cu) against its plain versions.
+RAY_SHAPES = {
+    "surface_reconstruction_chunk": (36, 12, 10000),
+    "kinematics_validation": (500, 19, 10000),
+    "kinematics_train": (1500, 19, 10000),
+}
+RAY_BITMAP = (256, 256)
+RAY_EXTINCTION = 0.1
+RAY_BYTES_PER_RAY = 20  # both kernels: 8 B of angles, and 12 B of e, u, w written or of cotangents read
+RAY_BYTES_PER_POINT = {"ray_forward": 32, "ray_backward": 64}
+# The plain versions run over this many heliostats at once on the card.
+RAY_PLAIN_HELIOSTATS = 100
+# Kernel against plain on the card: the forward rounds as PyTorch's kernels do, but for the
+# sines and cosines (sincosf against sin and cos) and the splat coordinates' last bits; the
+# backward contracts products into FMAs and sums the rays in another order.
+RAY_COORDINATE_TOLERANCE = 2.0**-10  # pixels, 64 ulp at 255
+RAY_INTENSITY_TOLERANCE = 8 * UNIT_ROUNDOFF  # of the largest intensity
+RAY_GRADIENT_TOLERANCE = 64 * UNIT_ROUNDOFF  # of the gradient's largest entry
+
+
+def ray_launches(forward: int, backward: int) -> dict[str, int]:
+    return {"ray_forward": forward, "ray_backward": backward}
+
+
+def ray_tower(device: torch.device, dtype: torch.dtype = torch.float32) -> SolarTower:
+    """Two planar target areas facing the field (+n): the synthetic field's 10 x 10 m
+    receiver at 45 m and a 4 x 3 m one at 30 m, 8 m east of it."""
+
+    def tensor(x) -> torch.Tensor:
+        return torch.tensor(x, dtype=dtype, device=device)
+
+    return SolarTower(
+        planar_centers=tensor([[0.0, -3.0, 45.0, 1.0], [8.0, -3.0, 30.0, 1.0]]),
+        planar_normals=tensor([[0.0, 1.0, 0.0, 0.0], [0.0, 1.0, 0.0, 0.0]]),
+        planar_dimensions=tensor([[10.0, 10.0], [4.0, 3.0]]),
+        cylindrical_centers=torch.zeros((0, 4), dtype=dtype, device=device),
+        cylindrical_axes=torch.zeros((0, 4), dtype=dtype, device=device),
+        cylindrical_normals=torch.zeros((0, 4), dtype=dtype, device=device),
+        cylindrical_radii=torch.zeros((0,), dtype=dtype, device=device),
+        cylindrical_heights=torch.zeros((0,), dtype=dtype, device=device),
+        cylindrical_opening_angles=torch.zeros((0,), dtype=dtype, device=device),
+        planar_names=("receiver", "second"),
+    )
+
+
+def ray_edge_cases(dtype: torch.dtype = torch.float32) -> tuple[torch.Tensor, torch.Tensor]:
+    """Origins and preferred directions ``[K, 4]`` of rays onto :func:`ray_tower`'s receiver,
+    traced with zero angles, each from 10 m in front of it straight at it unless said: on
+    each edge of the bitmap (e at 0 and at res_e - 1, u at 0 and at res_u - 1, exactly)
+    and one float step past it; a back-facing ray; a grazing one (d . n = 0); one from
+    behind the receiver (front-facing, at a negative distance); one at the centre."""
+    step = lambda x, toward: float(np.nextafter(np.float32(x), np.float32(toward)))  # noqa: E731
+    middle = 45.0
+    # The hit's e is 5 + the origin's e: a step of the origin past 5 must be one of 10.
+    past_right = float(np.float32(5.0) + np.spacing(np.float32(10.0)))
+    cases = [
+        ((-5.0, 7.0, middle), (0.0, -1.0, 0.0)),  # bitmap e (before the flip) at 0
+        ((step(-5.0, -10.0), 7.0, middle), (0.0, -1.0, 0.0)),
+        ((5.0, 7.0, middle), (0.0, -1.0, 0.0)),  # at res_e - 1
+        ((past_right, 7.0, middle), (0.0, -1.0, 0.0)),
+        ((0.0, 7.0, 40.0), (0.0, -1.0, 0.0)),  # u at 0
+        ((0.0, 7.0, step(40.0, 0.0)), (0.0, -1.0, 0.0)),
+        ((0.0, 7.0, 50.0), (0.0, -1.0, 0.0)),  # at res_u - 1
+        ((0.0, 7.0, step(50.0, 100.0)), (0.0, -1.0, 0.0)),
+        ((5.0, 7.0, 50.0), (0.0, -1.0, 0.0)),  # the corner
+        ((0.0, 7.0, middle), (0.0, 1.0, 0.0)),  # back-facing
+        ((0.0, 7.0, middle), (1.0, 0.0, 0.0)),  # grazing
+        ((0.0, -10.0, middle), (0.0, -1.0, 0.0)),  # from behind the receiver
+        ((0.0, 7.0, middle), (0.0, -1.0, 0.0)),  # the centre
+    ]
+    origins = torch.tensor([[*o, 1.0] for o, _ in cases], dtype=dtype)
+    directions = torch.tensor([[*d, 0.0] for _, d in cases], dtype=dtype)
+    return origins, directions
+
+
+def ray_chunk_inputs(heliostats: int, rays: int, points: int, device: torch.device, seed: int,
+                     dtype: torch.dtype = torch.float32) -> dict:
+    """A chunk's inputs for the ray pair: heliostats 25-60 m north of :func:`ray_tower`,
+    the odd ones aimed at its second target; each point aimed within +-7 m (+-3 m on the
+    second) of its target's centre, so that many rays miss it on every side; angles
+    drawn as ``Sun.get_distortions`` draws them, 10 mrad wide, as views of one
+    ``[M, R, P, 2]`` sample. Heliostat 0's first points are :func:`ray_edge_cases`
+    with zero angles. Also per-heliostat magnitudes ``[M, 1, 1]``."""
+    generator = torch.Generator(device=device).manual_seed(seed)
+
+    def uniform(low: float, high: float, *shape) -> torch.Tensor:
+        return low + (high - low) * torch.rand(shape, generator=generator, device=device, dtype=dtype)
+
+    tower = ray_tower(device, dtype)
+    targets = torch.arange(heliostats, device=device) % 2
+    position = torch.stack([uniform(-15.0, 15.0, heliostats), uniform(25.0, 60.0, heliostats),
+                            uniform(0.0, 3.0, heliostats)], dim=-1)
+    origins = torch.ones((heliostats, points, 4), dtype=dtype, device=device)
+    origins[..., :3] = position[:, None, :] + torch.stack(
+        [uniform(-2.0, 2.0, heliostats, points), uniform(-0.2, 0.2, heliostats, points),
+         uniform(-2.0, 2.0, heliostats, points)], dim=-1)
+    reach = torch.tensor([7.0, 3.0], dtype=dtype, device=device)[targets][:, None]
+    aim = tower.planar_centers[targets][:, None, :3].expand(heliostats, points, 3).clone()
+    aim[..., 0] += reach * uniform(-1.0, 1.0, heliostats, points)
+    aim[..., 2] += reach * uniform(-1.0, 1.0, heliostats, points)
+    preferred = torch.zeros_like(origins)
+    preferred[..., :3] = torch.nn.functional.normalize(aim - origins[..., :3], dim=-1)
+    sample = 0.01 * torch.randn((heliostats, rays, points, 2), generator=generator, device=device, dtype=dtype)
+    edge_origins, edge_directions = ray_edge_cases(dtype)
+    edges = min(points, edge_origins.shape[0])
+    origins[0, :edges] = edge_origins[:edges].to(device)
+    preferred[0, :edges] = edge_directions[:edges].to(device)
+    sample[0, :, :edges] = 0.0
+    return dict(
+        preferred=preferred, origins=origins, distortions_u=sample[..., 0], distortions_e=sample[..., 1],
+        tower=tower, targets=targets, magnitudes=uniform(0.5, 2.0, heliostats, 1, 1),
+    )
+
+
+def ray_arguments(inputs: dict, magnitude) -> tuple:
+    """The positional arguments of the pair's kernels and plain versions, but the cotangents."""
+    return (inputs["preferred"], inputs["origins"], inputs["distortions_u"], inputs["distortions_e"],
+            inputs["tower"], inputs["targets"], magnitude, RAY_BITMAP, RAY_EXTINCTION,
+            DEFAULT_MIRROR_REFLECTIVITY)
+
+
+def ray_slice(arguments: tuple, start: int, stop: int) -> tuple:
+    """``arguments`` for heliostats ``[start, stop)``."""
+    preferred, origins, du, de, tower, targets, magnitude, *rest = arguments
+    if isinstance(magnitude, torch.Tensor) and magnitude.numel() > 1:
+        magnitude = magnitude[start:stop]
+    return (preferred[start:stop], origins[start:stop], du[start:stop], de[start:stop], tower,
+            targets[start:stop], magnitude, *rest)
+
+
+def check_ray_pair(label: str, arguments: tuple, cotangents: tuple) -> dict:
+    """The pair at one shape against the plain versions (by RAY_PLAIN_HELIOSTATS
+    heliostats), two launches each bit-equal, launches counted. Returns the errors."""
+    before = dict(ray_kernels.LAUNCHES)
+    forward = ray_kernels.rays_forward_cuda(*arguments)
+    again = ray_kernels.rays_forward_cuda(*arguments)
+    grads = ray_kernels.rays_backward_cuda(*arguments, *cotangents)
+    grads_again = ray_kernels.rays_backward_cuda(*arguments, *cotangents)
+    torch.cuda.synchronize()
+    counted = {name: ray_kernels.LAUNCHES[name] - before[name] for name in before}
+    if counted != ray_launches(2, 2):
+        raise AssertionError(f"phase 19 {label}: launched {counted}, expected {ray_launches(2, 2)}")
+    if not all(torch.equal(a, b) for a, b in zip(forward + grads, again + grads_again)):
+        raise AssertionError(f"phase 19 {label}: two launches differ")
+    num = arguments[0].shape[0]
+    errors = dict(coordinates=0.0, intensities=0.0, preferred=0.0, origins=0.0, validity_flips=0, count_gap=0)
+    scale = dict(intensities=float(forward[2].abs().max()), preferred=float(grads[0].abs().max()),
+                 origins=float(grads[1].abs().max()))
+    for start in range(0, num, RAY_PLAIN_HELIOSTATS):
+        stop = min(num, start + RAY_PLAIN_HELIOSTATS)
+        part = ray_slice(arguments, start, stop)
+        e, u, w, counts = ray_kernels.rays_forward_plain(*part)
+        kernel = [x[start:stop] for x in forward[:3]]
+        invalid = [(x == RAY_BITMAP[0] - 1) & (y == 0) & (z == 0) for x, y, z in ((e, u, w), kernel)]
+        flips = invalid[0] != invalid[1]
+        errors["validity_flips"] += int(flips.sum())
+        keep = ~flips
+        errors["coordinates"] = max(errors["coordinates"], _max_abs_err(kernel[0][keep], e[keep]),
+                                    _max_abs_err(kernel[1][keep], u[keep]))
+        errors["intensities"] = max(errors["intensities"], _max_abs_err(kernel[2][keep], w[keep]))
+        errors["count_gap"] = max(errors["count_gap"], int((forward[3][:, start:stop] - counts).abs().max()))
+        plain_grads = ray_kernels.rays_backward_plain(*part, *(c[start:stop] for c in cotangents))
+        errors["preferred"] = max(errors["preferred"], _max_abs_err(grads[0][start:stop], plain_grads[0]))
+        errors["origins"] = max(errors["origins"], _max_abs_err(grads[1][start:stop], plain_grads[1]))
+        del e, u, w, counts, kernel, invalid, plain_grads
+    failures = []
+    if errors["validity_flips"] or errors["count_gap"]:
+        failures.append(f"{errors['validity_flips']} rays valid on one side only, counts apart by {errors['count_gap']}")
+    if errors["coordinates"] > RAY_COORDINATE_TOLERANCE:
+        failures.append(f"coordinates apart by {errors['coordinates']} px")
+    for key, tolerance in (("intensities", RAY_INTENSITY_TOLERANCE), ("preferred", RAY_GRADIENT_TOLERANCE),
+                           ("origins", RAY_GRADIENT_TOLERANCE)):
+        if errors[key] > tolerance * scale[key]:
+            failures.append(f"{key} apart by {errors[key]} (scale {scale[key]})")
+    if failures:
+        raise AssertionError(f"phase 19 {label}: " + "; ".join(failures))
+    return errors
+
+
+def ray_route_launches(device: torch.device) -> dict[str, dict[str, int]]:
+    """The pair's launches in :func:`small_step` at SMALL (2 checkpointed ray chunks: 2
+    forwards and 1 backward a chunk, then a render without a gradient, 1 forward a chunk)
+    and unchunked (a forward and a backward, then a forward). Phase 13 counts them in the
+    kinematics reconstructor's epochs and validations."""
+    rng = np.random.RandomState(SEED + 19)
+    points = 4 * SMALL["surface_points"][0] * SMALL["surface_points"][1]
+    distortions = rng.normal(0.0, 1e-2, (2, SMALL["heliostats"], SMALL["rays"], points)).astype(np.float32)
+    chunks = SMALL["rays"] // SMALL["ray_chunk"]
+    expected = {
+        "checkpointed": ray_launches(3 * chunks, chunks),
+        "unchunked": ray_launches(2, 1),
+    }
+    found = {}
+    for label, size in (("checkpointed", SMALL), ("unchunked", dict(SMALL, ray_chunk=None))):
+        ray_kernels.reset_launch_counts()
+        small_step(device, distortions, None, size)
+        found[label] = dict(ray_kernels.LAUNCHES)
+    if device.type == "cuda" and found != expected:
+        raise AssertionError(f"phase 19: the routes launched {found}, expected {expected}")
+    return found
+
+
+def check_ray_kernels(device: torch.device) -> dict[str, dict]:
+    """Phase 19: the ray pair against its plain versions at RAY_SHAPES (on and past the
+    bitmap's edges, a per-heliostat and a scalar magnitude), timed by events and from a
+    CUDA graph against the bytes bound; then the routes' launches. Returns the timings."""
+    timings = {name: {} for name in ("ray_forward", "ray_backward")}
+    for index, (label, (num, rays, points)) in enumerate(RAY_SHAPES.items()):
+        inputs = ray_chunk_inputs(num, rays, points, device, SEED + 19 + index)
+        magnitude = inputs["magnitudes"] if index % 2 == 0 else 0.75
+        arguments = ray_arguments(inputs, magnitude)
+        generator = torch.Generator(device=device).manual_seed(SEED + 190 + index)
+        cotangents = tuple(torch.randn((num, rays, points), generator=generator, device=device) for _ in range(3))
+        errors = check_ray_pair(label, arguments, cotangents)
+        total_rays = num * rays * points
+        for name, fn in (
+            ("ray_forward", lambda: ray_kernels.rays_forward_cuda(*arguments)),
+            ("ray_backward", lambda: ray_kernels.rays_backward_cuda(*arguments, *cotangents)),
+        ):
+            bytes_moved = RAY_BYTES_PER_RAY * total_rays + RAY_BYTES_PER_POINT[name] * num * points
+            timing = dict(
+                replaces="none (the PyTorch chain apply_distortion_rotation -> line_plane_intersections)",
+                ms=event_ms(fn, iterations=10), graph_ms=graph_ms(fn, iterations=10),
+                bound=bound_ms(bytes_moved, 0.0), max_abs_err=errors, plain_ms=None, library_ms=None,
+            )
+            timings[name][label] = timing
+            _log(
+                f"phase 19 {name} at [{num}, {rays}, {points}] ({label}): {timing['ms']:.4f} ms by events, "
+                f"{timing['graph_ms']:.4f} ms replayed from a CUDA graph, {describe_bound(timing)}, "
+                f"{100 * timing['bound'][0] / timing['graph_ms']:.1f}% of it; against the plain version "
+                f"{json.dumps(errors)}"
+            )
+        del inputs, arguments, cotangents
+        empty_cache(device)
+    found = ray_route_launches(device)
+    _log(f"phase 19 launches: {json.dumps(found)}")
+    return timings
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU", file=sys.stderr)
@@ -5936,6 +6199,8 @@ def main() -> int:
     timings.update(check_blocking_kernels(device))
     torch.cuda.empty_cache()
     timings.update(check_flat_kernels(device))
+    torch.cuda.empty_cache()
+    ray_timings = check_ray_kernels(device)
     torch.cuda.empty_cache()
     paths = {"surface_step": drive_surface_step(inputs, LAUNCHES_PER_STEP, "phase 4 surface step")}
     del inputs
@@ -6058,6 +6323,7 @@ def main() -> int:
             }
         )
     _log(json.dumps({"kernels": kernels}), stamp=False)
+    _log(json.dumps({"ray_kernels": ray_timings}), stamp=False)
     _log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device_name, "count": torch.cuda.device_count()}}),
          stamp=False)
     return 0
