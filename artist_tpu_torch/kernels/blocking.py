@@ -59,7 +59,10 @@ without a gradient, so that a selective checkpoint can save their outputs
 (:mod:`artist_tpu_torch.raytracing.render`). Each dispatches on the tensors'
 device: a CUDA tensor launches the kernel or raises; a CPU tensor runs the
 plain PyTorch version defined here. There is no fallback from one to the
-other. ``LAUNCHES`` counts kernel launches (never plain calls).
+other. ``LAUNCHES`` counts kernel launches (never plain calls). The sigma operators'
+forward and their autograd backward each run under a span (``artist.kernels.sigma_forward``,
+``artist.kernels.sigma_backward``; :func:`~artist_tpu_torch.util.logging_utils.span`), on both
+routes, the kernel's launch or the plain version.
 """
 
 from __future__ import annotations
@@ -70,6 +73,7 @@ import math
 import torch
 
 from artist_tpu_torch.kernels.build import load_library
+from artist_tpu_torch.util.logging_utils import span
 
 LAUNCHES = {
     "blocking_sigma_forward": 0,
@@ -563,10 +567,11 @@ def blocking_sigma(
 ) -> torch.Tensor:
     """Summed soft occlusion ``sigma [M, N]`` of each ray over its heliostat's candidates."""
     args = (origins, directions, t_target, columns, keep, softness, ray_origin_offset, epsilon)
-    if origins.is_cuda:
-        return sigma_forward_cuda(*args)
-    _check_inputs(origins, directions, t_target, columns, keep)
-    return sigma_forward_plain(*args)
+    with span("artist.kernels.sigma_forward"):
+        if origins.is_cuda:
+            return sigma_forward_cuda(*args)
+        _check_inputs(origins, directions, t_target, columns, keep)
+        return sigma_forward_plain(*args)
 
 
 @torch.library.custom_op("artist_tpu_torch::blocking_sigma_backward", mutates_args=())
@@ -596,10 +601,12 @@ def _setup_context(ctx, inputs, output) -> None:
 
 
 def _backward(ctx, gbar):
+    # Unpacked before the span: under a checkpoint the unpack recomputes the chunk.
     origins, directions, t_target, columns, keep = ctx.saved_tensors
-    grad_origins, grad_directions, grad_columns = blocking_sigma_backward(
-        origins, directions, t_target, columns, keep, gbar.contiguous(), *ctx.parameters
-    )
+    with span("artist.kernels.sigma_backward"):
+        grad_origins, grad_directions, grad_columns = blocking_sigma_backward(
+            origins, directions, t_target, columns, keep, gbar.contiguous(), *ctx.parameters
+        )
     return grad_origins, grad_directions, None, grad_columns, None, None, None, None
 
 
@@ -633,10 +640,11 @@ def blocking_sigma_flat(
 ) -> torch.Tensor:
     """Summed soft occlusion ``sigma [M, N]`` of each ray over every kept primitive."""
     args = (origins, directions, columns, keep, softness, ray_origin_offset, epsilon)
-    if origins.is_cuda:
-        return sigma_flat_forward_cuda(*args)
-    _check_flat_inputs(origins, directions, columns, keep)
-    return sigma_flat_forward_plain(*args)
+    with span("artist.kernels.sigma_forward"):
+        if origins.is_cuda:
+            return sigma_flat_forward_cuda(*args)
+        _check_flat_inputs(origins, directions, columns, keep)
+        return sigma_flat_forward_plain(*args)
 
 
 @torch.library.custom_op("artist_tpu_torch::blocking_sigma_flat_backward", mutates_args=())
@@ -666,9 +674,10 @@ def _setup_flat_context(ctx, inputs, output) -> None:
 
 def _flat_backward(ctx, gbar):
     origins, directions, columns, keep = ctx.saved_tensors
-    grad_origins, grad_directions, grad_columns = blocking_sigma_flat_backward(
-        origins, directions, columns, keep, gbar.contiguous(), *ctx.parameters
-    )
+    with span("artist.kernels.sigma_backward"):
+        grad_origins, grad_directions, grad_columns = blocking_sigma_flat_backward(
+            origins, directions, columns, keep, gbar.contiguous(), *ctx.parameters
+        )
     return grad_origins, grad_directions, grad_columns, None, None, None, None
 
 

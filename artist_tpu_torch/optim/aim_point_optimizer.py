@@ -52,6 +52,17 @@ drop, and no pixel may exceed the maximum flux density.
   the factors combined, and the parameters' gradient summed over the ranks.
   ``heliostat_chunk`` is ignored on a mesh of more than one rank, with a
   warning: the mesh splits the heliostat axis instead.
+
+Spans (:func:`~artist_tpu_torch.util.logging_utils.span`), as in the reconstructors:
+``artist.entry.call`` around :meth:`AimPointOptimizer.optimize`, ``artist.entry.preamble``
+from the pre-alignment to the loop's first epoch (the sun's sample, the epoch-0
+references, the optimizer), ``artist.optim.epoch`` a loop iteration with ``.update``
+(the rate and ``zero_grad``; Adam's step and the multipliers) and ``.fetch`` (the
+epoch's one ``.tolist()``) inside, ``artist.aten.trace`` around the forward (both
+phases: the primitives and the trace), ``artist.aten.align`` around each alignment
+inside it (a checkpointed chunk's recompute runs it again in the backward),
+``artist.aten.loss`` around the loss terms and ``artist.aten.backward`` around
+``loss.backward()``.
 """
 
 from __future__ import annotations
@@ -78,6 +89,7 @@ from artist_tpu_torch.raytracing.render import (
 )
 from artist_tpu_torch.scenario.scenario import Scenario
 from artist_tpu_torch.util import constants, indices
+from artist_tpu_torch.util.logging_utils import span
 
 log = logging.getLogger("artist_tpu_torch.optim")
 
@@ -330,6 +342,10 @@ class AimPointOptimizer:
             return torch.cat([x.reshape(x.shape[0], -1) for x in (corners, spans, normals)], dim=1)
 
         def forward(group_params):
+            with span("artist.aten.trace"):
+                return traced_forward(group_params)
+
+        def traced_forward(group_params):
             """Align this rank's groups, trace with field-wide blocking, sum the target's flux.
 
             A chunked group is aligned chunk by chunk inside the checkpointed
@@ -346,8 +362,9 @@ class AimPointOptimizer:
             }
 
             def aligned_chunk(g, idx):
-                active = hg.gather_active(groups[g], idx)
-                return hg.align_surfaces_with_motor_positions(active, motors[g].index_select(0, idx))[:2]
+                with span("artist.aten.align"):
+                    active = hg.gather_active(groups[g], idx)
+                    return hg.align_surfaces_with_motor_positions(active, motors[g].index_select(0, idx))[:2]
 
             blocks, aligned_full = [], {}
             for g in owned:
@@ -410,6 +427,10 @@ class AimPointOptimizer:
 
         def loss_fn(group_params, references, lambdas):
             total_flux, intercepts, on_targets, blockings = forward(group_params)
+            with span("artist.aten.loss"):
+                return loss_terms(total_flux, intercepts, on_targets, blockings, references, lambdas)
+
+        def loss_terms(total_flux, intercepts, on_targets, blockings, references, lambdas):
             loss_of = losses.kl_divergence_loss if use_constraints else losses.pixel_loss
             flux_loss = loss_of(total_flux[None], self.ground_truth[None])[0]
             aux = {
@@ -483,122 +504,132 @@ class AimPointOptimizer:
             forward. The scenario's heliostat groups get the optimized motor
             positions (on every rank, every group's).
         """
+        with span("artist.entry.call"):
+            return self._optimize(loss_definition, on_epoch)
+
+    def _optimize(self, loss_definition: str, on_epoch: Callable[[int, float], None] | None):
         log.info("Start the aim point optimization.")
-        params, forward, loss_fn = self.objective(loss_definition)
-        use_constraints = loss_definition == "kl_divergence"
-        rho_local, rho_integral, rho_intercept = self._rhos()
-        groups = list(self.scenario.heliostat_groups)
-        setup = self.distributed_setup
-        owned = [g for g in range(len(groups)) if runs_group(setup, g)]
-        # Each rank of a group-parallel run keeps its own groups' loop state.
-        if is_group_parallel(setup):
-            label, labels = f"aim_point_rank{setup.rank}", {f"aim_point_rank{r}" for r in range(setup.world_size)}
-        else:
-            label, labels = "aim_point", {"aim_point"}
+        with span("artist.entry.preamble"):
+            params, forward, loss_fn = self.objective(loss_definition)
+            use_constraints = loss_definition == "kl_divergence"
+            rho_local, rho_integral, rho_intercept = self._rhos()
+            groups = list(self.scenario.heliostat_groups)
+            setup = self.distributed_setup
+            owned = [g for g in range(len(groups)) if runs_group(setup, g)]
+            # Each rank of a group-parallel run keeps its own groups' loop state.
+            if is_group_parallel(setup):
+                label, labels = f"aim_point_rank{setup.rank}", {f"aim_point_rank{r}" for r in range(setup.world_size)}
+            else:
+                label, labels = "aim_point", {"aim_point"}
 
-        # Epoch-0 references (the constraint terms are exactly zero there).
-        with torch.no_grad():
-            init_flux, init_intercepts, _, _ = forward(params)
-        references = (torch.sum(init_flux), init_intercepts)
-        zero = torch.zeros((), device=self.device)
-        lambdas = (zero, zero, zero)
+            # Epoch-0 references (the constraint terms are exactly zero there).
+            with torch.no_grad():
+                init_flux, init_intercepts, _, _ = forward(params)
+            references = (torch.sum(init_flux), init_intercepts)
+            zero = torch.zeros((), device=self.device)
+            lambdas = (zero, zero, zero)
 
-        for p in params:
-            p.requires_grad_(True)
-        initial_lr = float(self.optimizer_dict[constants.initial_learning_rate])
-        optimizer = torch.optim.Adam(params, lr=initial_lr, betas=(0.9, 0.999), eps=1e-8)
-        scheduler = training.make_scheduler(initial_lr, self.scheduler_dict)
-        early_stopper = training.EarlyStopping(
-            window_size=int(self.optimizer_dict[constants.early_stopping_window]),
-            patience=int(self.optimizer_dict[constants.early_stopping_patience]),
-            min_improvement=float(self.optimizer_dict[constants.early_stopping_delta]),
-            relative=True,
-        )
-        max_epoch = int(self.optimizer_dict[constants.max_epoch])
-        tolerance = float(self.optimizer_dict[constants.tolerance])
-        log_step = int(self.optimizer_dict.get(constants.log_step, 0)) or max_epoch
-
-        history: dict[str, list[float]] = {k: [] for k in HISTORY_KEYS}
-        loss_value = np.inf
-        aux = None
-        epoch = 0
-
-        checkpointer = None
-        if self.checkpoint_dir is not None:
-            checkpointing.refuse_other_worlds(self.checkpoint_dir, labels, "aim_point")
-            checkpointer = checkpointing.LoopCheckpointer(
-                self.checkpoint_dir, label, every=self.checkpoint_every, **checkpointing.world_options(setup)
+            for p in params:
+                p.requires_grad_(True)
+            initial_lr = float(self.optimizer_dict[constants.initial_learning_rate])
+            optimizer = torch.optim.Adam(params, lr=initial_lr, betas=(0.9, 0.999), eps=1e-8)
+            scheduler = training.make_scheduler(initial_lr, self.scheduler_dict)
+            early_stopper = training.EarlyStopping(
+                window_size=int(self.optimizer_dict[constants.early_stopping_window]),
+                patience=int(self.optimizer_dict[constants.early_stopping_patience]),
+                min_improvement=float(self.optimizer_dict[constants.early_stopping_delta]),
+                relative=True,
             )
-            restored = checkpointer.restore_loop(optimizer, scheduler, early_stopper, history)
-            if restored is not None:
-                epoch, loss_value, state = restored
-                with torch.no_grad():
-                    for param, value in zip(params, checkpointing.unpack_pytree(state["params"])):
-                        param.copy_(value)
-                lambdas = checkpointing.unpack_pytree(state["lambdas"], self.device)
-                references = checkpointing.unpack_pytree(state["references"], self.device)
-                log.info("Resuming aim-point optimization at epoch %d.", epoch)
-        reference_integral = float(references[0])
+            max_epoch = int(self.optimizer_dict[constants.max_epoch])
+            tolerance = float(self.optimizer_dict[constants.tolerance])
+            log_step = int(self.optimizer_dict.get(constants.log_step, 0)) or max_epoch
+
+            history: dict[str, list[float]] = {k: [] for k in HISTORY_KEYS}
+            loss_value = np.inf
+            aux = None
+            epoch = 0
+
+            checkpointer = None
+            if self.checkpoint_dir is not None:
+                checkpointing.refuse_other_worlds(self.checkpoint_dir, labels, "aim_point")
+                checkpointer = checkpointing.LoopCheckpointer(
+                    self.checkpoint_dir, label, every=self.checkpoint_every, **checkpointing.world_options(setup)
+                )
+                restored = checkpointer.restore_loop(optimizer, scheduler, early_stopper, history)
+                if restored is not None:
+                    epoch, loss_value, state = restored
+                    with torch.no_grad():
+                        for param, value in zip(params, checkpointing.unpack_pytree(state["params"])):
+                            param.copy_(value)
+                    lambdas = checkpointing.unpack_pytree(state["lambdas"], self.device)
+                    references = checkpointing.unpack_pytree(state["references"], self.device)
+                    log.info("Resuming aim-point optimization at epoch %d.", epoch)
+            reference_integral = float(references[0])
 
         while loss_value > tolerance and epoch <= max_epoch:
-            if isinstance(scheduler, training.ReduceOnPlateau):
-                learning_rate = scheduler.learning_rate
-            else:
-                learning_rate = float(scheduler(epoch))
-            for param_group in optimizer.param_groups:
-                param_group["lr"] = learning_rate
-            optimizer.zero_grad(set_to_none=True)
-            loss, aux = loss_fn(params, references, lambdas)
-            loss.backward()
-            optimizer.step()
-            if use_constraints:
-                # Augmented-Lagrangian multiplier updates.
-                lambdas = tuple(
-                    torch.clamp(value + rho * aux[key].detach(), min=0.0)
-                    for value, rho, key in zip(
-                        lambdas,
-                        (rho_integral, rho_intercept, rho_local),
-                        ("flux_integral_difference", "intercept_differences_mean",
-                         "local_flux_violation_max"),
+            with span("artist.optim.epoch", lambda: str(epoch)):
+                with span("artist.optim.update"):
+                    if isinstance(scheduler, training.ReduceOnPlateau):
+                        learning_rate = scheduler.learning_rate
+                    else:
+                        learning_rate = float(scheduler(epoch))
+                    for param_group in optimizer.param_groups:
+                        param_group["lr"] = learning_rate
+                    optimizer.zero_grad(set_to_none=True)
+                loss, aux = loss_fn(params, references, lambdas)
+                with span("artist.aten.backward"):
+                    loss.backward()
+                with span("artist.optim.update"):
+                    optimizer.step()
+                    if use_constraints:
+                        # Augmented-Lagrangian multiplier updates.
+                        lambdas = tuple(
+                            torch.clamp(value + rho * aux[key].detach(), min=0.0)
+                            for value, rho, key in zip(
+                                lambdas,
+                                (rho_integral, rho_intercept, rho_local),
+                                ("flux_integral_difference", "intercept_differences_mean",
+                                 "local_flux_violation_max"),
+                            )
+                        )
+                scalars = ["flux_loss"]
+                if use_constraints:
+                    scalars += ["total_flux_sum", "local_flux_constraint", "intercept_constraint",
+                                "flux_integral_constraint"]
+                with span("artist.optim.fetch"):
+                    # One host transfer per epoch for the loss and the history.
+                    fetched = torch.stack([loss.detach()] + [aux[k].detach() for k in scalars]).tolist()
+                loss_value, values = fetched[0], dict(zip(scalars, fetched[1:]))
+                if collectives.is_multiprocess():
+                    # Every rank takes the decisions below on rank 0's loss, so that none
+                    # stops while another waits in the next epoch's collectives.
+                    loss_value = collectives.broadcast_object(loss_value, 0)
+                if isinstance(scheduler, training.ReduceOnPlateau):
+                    scheduler.step(loss_value)
+                if epoch % log_step == 0:
+                    log.info("Epoch: %d, Loss: %.6f, LR: %.2e", epoch, loss_value, learning_rate)
+                history["total_loss"].append(loss_value)
+                history["flux_loss"].append(values["flux_loss"])
+                if use_constraints:
+                    history["flux_integral"].append(
+                        100.0 / reference_integral
+                        * (values["total_flux_sum"] - reference_integral + 1e-8)
                     )
-                )
-            scalars = ["flux_loss"]
-            if use_constraints:
-                scalars += ["total_flux_sum", "local_flux_constraint", "intercept_constraint",
-                            "flux_integral_constraint"]
-            # One host transfer per epoch for the loss and the history.
-            fetched = torch.stack([loss.detach()] + [aux[k].detach() for k in scalars]).tolist()
-            loss_value, values = fetched[0], dict(zip(scalars, fetched[1:]))
-            if collectives.is_multiprocess():
-                # Every rank takes the decisions below on rank 0's loss, so that none
-                # stops while another waits in the next epoch's collectives.
-                loss_value = collectives.broadcast_object(loss_value, 0)
-            if isinstance(scheduler, training.ReduceOnPlateau):
-                scheduler.step(loss_value)
-            if epoch % log_step == 0:
-                log.info("Epoch: %d, Loss: %.6f, LR: %.2e", epoch, loss_value, learning_rate)
-            history["total_loss"].append(loss_value)
-            history["flux_loss"].append(values["flux_loss"])
-            if use_constraints:
-                history["flux_integral"].append(
-                    100.0 / reference_integral
-                    * (values["total_flux_sum"] - reference_integral + 1e-8)
-                )
-                for key in ("local_flux_constraint", "intercept_constraint", "flux_integral_constraint"):
-                    history[key].append(values[key])
-            if on_epoch is not None:
-                on_epoch(epoch, loss_value)
-            if early_stopper.step(loss_value):
-                log.info("Early stopping at epoch %d.", epoch)
-                break
-            if checkpointer is not None and checkpointer.should_save(epoch):
-                checkpointer.save_loop(
-                    epoch, optimizer, scheduler, early_stopper, history, loss_value,
-                    params=checkpointing.pack_pytree(params),
-                    lambdas=checkpointing.pack_pytree(lambdas),
-                    references=checkpointing.pack_pytree(references),
-                )
-            epoch += 1
+                    for key in ("local_flux_constraint", "intercept_constraint", "flux_integral_constraint"):
+                        history[key].append(values[key])
+                if on_epoch is not None:
+                    on_epoch(epoch, loss_value)
+                if early_stopper.step(loss_value):
+                    log.info("Early stopping at epoch %d.", epoch)
+                    break
+                if checkpointer is not None and checkpointer.should_save(epoch):
+                    checkpointer.save_loop(
+                        epoch, optimizer, scheduler, early_stopper, history, loss_value,
+                        params=checkpointing.pack_pytree(params),
+                        lambdas=checkpointing.pack_pytree(lambdas),
+                        references=checkpointing.pack_pytree(references),
+                    )
+                epoch += 1
 
         with torch.no_grad():
             motors = {

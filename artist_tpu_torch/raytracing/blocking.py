@@ -30,10 +30,22 @@ route's keep flags by per-ray traversal of a linear bounding volume hierarchy
 (:mod:`artist_tpu_torch.raytracing.lbvh`) instead of the dense AABB cull; the
 keep-set is the same, and so is the mask, bit for bit. As in the JAX package,
 whose compacted route requires the dense cull, it always takes the flat route.
+
+Spans (:func:`~artist_tpu_torch.util.logging_utils.span`): ``artist.blocking.mask``
+around :func:`soft_ray_blocking_mask`, ``artist.blocking.primitives`` around the
+corners picked by index and the primitives' table, ``artist.blocking.candidates``
+around the candidate test (the flat route's cull); the sigma operators open their
+own (``artist.kernels.sigma_*``).
+
+:data:`STATISTICS` keeps the compacted route's newest forwards, a checkpoint's
+recompute included: each one's rays and its kept-slot mask ``[M, K]`` (bool, on the
+tensors' device) as computed, neither read nor reduced, so that counting adds no
+launch and no wait for the device. :func:`blocking_statistics` reads them when asked.
 """
 
 from __future__ import annotations
 
+import collections
 import math
 
 import torch
@@ -41,10 +53,28 @@ import torch
 from artist_tpu_torch.geometry.transforms import _normalize
 from artist_tpu_torch.kernels.blocking import NUM_COLUMNS, blocking_cull, blocking_sigma, blocking_sigma_flat
 from artist_tpu_torch.raytracing.lbvh import lbvh_keep
+from artist_tpu_torch.util.logging_utils import span
 
 # Candidate lists are padded to a multiple of the TPU path's primitive tile,
 # so that both packages see the same K.
 CANDIDATE_TILE = 16
+# The compacted route's newest 256 forwards: (rays, kept-slot mask).
+STATISTICS: collections.deque[tuple[int, torch.Tensor]] = collections.deque(maxlen=256)
+
+
+def blocking_statistics() -> dict[str, int]:
+    """The forwards :data:`STATISTICS` holds, summed: ``forwards``, ``rays`` tested,
+    ``heliostats`` that cast them, ``candidate_slots`` (K a heliostat), ``kept_slots`` (slots
+    that the corridor test kept) and ``heliostats_kept`` (heliostats with a kept slot). Reads
+    the masks from the device."""
+    out = dict(forwards=len(STATISTICS), rays=0, heliostats=0, candidate_slots=0, kept_slots=0, heliostats_kept=0)
+    for rays, kept in STATISTICS:
+        out["rays"] += rays
+        out["heliostats"] += kept.shape[0]
+        out["candidate_slots"] += kept.numel()
+        out["kept_slots"] += int(kept.sum())
+        out["heliostats_kept"] += int(kept.any(dim=1).sum())
+    return out
 
 
 def _rectangle(corners: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
@@ -110,16 +140,17 @@ def create_blocking_primitives_rectangles_by_index(
     """
     count = surface_points.shape[1]
     side = int(math.sqrt(count / 4))
-    corners = torch.stack(
-        [
-            surface_points[:, count // 2],
-            surface_points[:, side - 1],
-            surface_points[:, count // 2 - 1],
-            surface_points[:, count - side],
-        ],
-        dim=1,
-    )
-    return _rectangle(corners)
+    with span("artist.blocking.primitives"):
+        corners = torch.stack(
+            [
+                surface_points[:, count // 2],
+                surface_points[:, side - 1],
+                surface_points[:, count // 2 - 1],
+                surface_points[:, count - side],
+            ],
+            dim=1,
+        )
+        return _rectangle(corners)
 
 
 @torch.no_grad()
@@ -304,40 +335,45 @@ def soft_ray_blocking_mask(
     """
     if cull_method not in ("dense", "lbvh"):
         raise ValueError(f"cull_method must be 'dense' or 'lbvh', got {cull_method!r}")
-    num, rays, points = ray_directions.shape[:3]
-    directions = ray_directions.reshape(num, rays * points, 4).contiguous()
-    table = primitive_table(
-        blocking_primitives_corners, blocking_primitives_spans, blocking_primitives_normals, epsilon
-    ).to(ray_origins.dtype)
-    parameters = (float(softness), float(ray_origin_offset), float(epsilon))
-    if cull_method == "dense" and max_candidates is not None and intersection_distances_target is not None:
-        indices, valid = select_blocking_candidates(
-            ray_origins, ray_directions, blocking_primitives_corners, ray_primitive_indices,
-            intersection_distances_target, max_candidates,
-        )
-        # Pad K to a multiple of the tile with keep = 0 slots.
-        k_pad = -(-indices.shape[1] // CANDIDATE_TILE) * CANDIDATE_TILE
-        indices = torch.nn.functional.pad(indices, (0, k_pad - indices.shape[1]))
-        valid = torch.nn.functional.pad(valid, (0, k_pad - valid.shape[1]))
-        # One gather for all columns; its backward scatter-adds the candidates'
-        # cotangents onto the primitives.
-        columns = table.index_select(0, indices.reshape(-1)).reshape(num, k_pad, NUM_COLUMNS)
-        sigma = blocking_sigma(
-            ray_origins.contiguous(),
-            directions,
-            intersection_distances_target.detach().reshape(num, rays * points).contiguous(),
-            columns,
-            valid.to(ray_origins.dtype),
-            *parameters,
-        )
-    else:
-        if intersection_distances_target is None:
-            keep = torch.ones(table.shape[0], dtype=table.dtype, device=table.device)
-        else:
-            cull = lbvh_keep if cull_method == "lbvh" else cull_primitives
-            keep = cull(
-                ray_origins, ray_directions, blocking_primitives_corners, ray_primitive_indices,
-                intersection_distances_target,
+    with span("artist.blocking.mask"):
+        num, rays, points = ray_directions.shape[:3]
+        directions = ray_directions.reshape(num, rays * points, 4).contiguous()
+        with span("artist.blocking.primitives"):
+            table = primitive_table(
+                blocking_primitives_corners, blocking_primitives_spans, blocking_primitives_normals, epsilon
+            ).to(ray_origins.dtype)
+        parameters = (float(softness), float(ray_origin_offset), float(epsilon))
+        if cull_method == "dense" and max_candidates is not None and intersection_distances_target is not None:
+            with span("artist.blocking.candidates"):
+                indices, valid = select_blocking_candidates(
+                    ray_origins, ray_directions, blocking_primitives_corners, ray_primitive_indices,
+                    intersection_distances_target, max_candidates,
+                )
+                STATISTICS.append((num * rays * points, valid))
+                # Pad K to a multiple of the tile with keep = 0 slots.
+                k_pad = -(-indices.shape[1] // CANDIDATE_TILE) * CANDIDATE_TILE
+                indices = torch.nn.functional.pad(indices, (0, k_pad - indices.shape[1]))
+                valid = torch.nn.functional.pad(valid, (0, k_pad - valid.shape[1]))
+                # One gather for all columns; its backward scatter-adds the candidates'
+                # cotangents onto the primitives.
+                columns = table.index_select(0, indices.reshape(-1)).reshape(num, k_pad, NUM_COLUMNS)
+            sigma = blocking_sigma(
+                ray_origins.contiguous(),
+                directions,
+                intersection_distances_target.detach().reshape(num, rays * points).contiguous(),
+                columns,
+                valid.to(ray_origins.dtype),
+                *parameters,
             )
-        sigma = blocking_sigma_flat(ray_origins.contiguous(), directions, table.contiguous(), keep, *parameters)
-    return 1.0 - torch.exp(-alpha * sigma.reshape(num, rays, points))
+        else:
+            with span("artist.blocking.candidates"):
+                if intersection_distances_target is None:
+                    keep = torch.ones(table.shape[0], dtype=table.dtype, device=table.device)
+                else:
+                    cull = lbvh_keep if cull_method == "lbvh" else cull_primitives
+                    keep = cull(
+                        ray_origins, ray_directions, blocking_primitives_corners, ray_primitive_indices,
+                        intersection_distances_target,
+                    )
+            sigma = blocking_sigma_flat(ray_origins.contiguous(), directions, table.contiguous(), keep, *parameters)
+        return 1.0 - torch.exp(-alpha * sigma.reshape(num, rays, points))

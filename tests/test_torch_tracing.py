@@ -228,3 +228,77 @@ def test_to_device_counts_the_host_bytes_and_converts():
     training.reset_transfer_counts()
     assert training.TRANSFERS == {"host_to_device_bytes": 0}
 
+
+
+# ---------------------------------------------------------------------------
+# The aim-point optimizer's loop: 4 heliostats on dense rows (blocking keeps slots),
+# heliostat chunks of 2, 3 epochs, under a CPU profiler.
+# ---------------------------------------------------------------------------
+
+AIM_EPOCHS = 2  # max_epoch: 3 epochs a call
+BLOCKING_PREFIXES = ("artist.blocking.", "artist.kernels.sigma_")
+
+
+@pytest.fixture(scope="module")
+def aim_traced():
+    """One ``optimize()`` call under a CPU profiler: its ``artist.`` spans and its epochs."""
+    scenario = chip_smoke.aim_point_scenario(CPU, 4, (3, 3), 2, row_spacing=chip_smoke.DENSE_ROW_SPACING)
+    optimizer = chip_smoke.aim_point_optimizer(
+        scenario, chip_smoke.aim_point_ground_truth((32, 32), CPU), AIM_EPOCHS, 16, (32, 32), heliostat_chunk=2
+    )
+    epochs: list[int] = []
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU]) as profiler:
+        optimizer.optimize(on_epoch=lambda epoch, loss: epochs.append(epoch))
+    spans = [
+        (event.name(), event.start_ns(), event.start_ns() + event.duration_ns())
+        for event in profiler.profiler.kineto_results.events()
+        if event.name().startswith("artist.")
+    ]
+    return dict(spans=spans, epochs=epochs)
+
+
+def test_aim_point_spans_nest_as_in_the_reconstructors(aim_traced):
+    (call,) = _named(aim_traced, "artist.entry.call")
+    (preamble,) = _named(aim_traced, "artist.entry.preamble")
+    assert _inside(preamble, call)
+    epochs = _named(aim_traced, "artist.optim.epoch")
+    assert len(aim_traced["epochs"]) == AIM_EPOCHS + 1
+    assert len(epochs) == len(aim_traced["epochs"]) == len(_named(aim_traced, "artist.optim.fetch"))
+    assert all(_inside(epoch, call) and epoch[1] >= preamble[2] for epoch in epochs)
+    # The epoch-0 references trace inside the preamble.
+    assert any(_inside(span, preamble) for span in _named(aim_traced, "artist.aten.trace"))
+    outers = epochs + [preamble]
+    layered = [span for span in aim_traced["spans"]
+               if span[0].startswith(LAYER_PREFIXES + ("artist.blocking.", "artist.optim.update"))]
+    assert all(any(_inside(span, outer) for outer in outers) for span in layered)
+    for epoch in epochs:
+        inner = {span[0] for span in aim_traced["spans"] if _inside(span, epoch) and span != epoch}
+        assert {"artist.optim.update", "artist.optim.fetch", "artist.aten.trace", "artist.aten.align",
+                "artist.aten.loss", "artist.aten.backward"} <= inner
+
+
+def test_aim_point_host_partition_sums_to_the_epochs(aim_traced):
+    from benchmark import spans as bench_spans
+    from benchmark import trace as bench_trace
+
+    start = min(span[1] for span in aim_traced["spans"])
+    host = [(name, (begin - start) * 1e-9, (end - start) * 1e-9) for name, begin, end in aim_traced["spans"]]
+    trace = bench_trace.Trace(device=[], runtime=[], host=host, start=0.0, end=max(end for _, _, end in host),
+                              epochs=len(aim_traced["epochs"]))
+    self_s, waits_s, epochs_s = bench_spans.epoch_partition(trace)
+    assert waits_s == 0.0 and epochs_s > 0
+    assert sum(self_s.values()) == pytest.approx(epochs_s, rel=1e-9)
+    assert {"artist.blocking.candidates", "artist.kernels.sigma_forward", "artist.kernels.sigma_backward"} <= set(self_s)
+
+
+def test_aim_point_blocking_spans_sit_inside_the_trace_or_the_backward(aim_traced):
+    traces, backwards = _named(aim_traced, "artist.aten.trace"), _named(aim_traced, "artist.aten.backward")
+    blocking = [span for span in aim_traced["spans"] if span[0].startswith(BLOCKING_PREFIXES)]
+    assert {span[0] for span in blocking} == {
+        "artist.blocking.mask", "artist.blocking.primitives", "artist.blocking.candidates",
+        "artist.kernels.sigma_forward", "artist.kernels.sigma_backward"}
+    assert all(any(_inside(span, outer) for outer in traces + backwards) for span in blocking)
+    # Each epoch's backward runs each chunk's sigma backward, and recomputes its forward first.
+    for kind in ("artist.kernels.sigma_backward", "artist.kernels.sigma_forward"):
+        recomputed = [span for span in _named(aim_traced, kind) if any(_inside(span, b) for b in backwards)]
+        assert len(recomputed) == 2 * len(aim_traced["epochs"]), kind
