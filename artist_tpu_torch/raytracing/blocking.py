@@ -31,6 +31,13 @@ route's keep flags by per-ray traversal of a linear bounding volume hierarchy
 keep-set is the same, and so is the mask, bit for bit. As in the JAX package,
 whose compacted route requires the dense cull, it always takes the flat route.
 
+The corridor test reads each heliostat's reductions over its rays
+(:func:`heliostat_statistics`: the origins' centre and radius, the mean direction, the least
+cosine to it, the farthest target distance); :func:`select_blocking_candidates` takes them
+computed elsewhere as well, which ``render.blocked_splat_inputs`` does with the kernels of
+:mod:`artist_tpu_torch.kernels.blocked_rays`, without the rays' ``[M, R, P, 4]`` tensor, and
+:func:`candidate_columns` gathers the kept candidates' columns for the sigma pair on both.
+
 Spans (:func:`~artist_tpu_torch.util.logging_utils.span`): ``artist.blocking.mask``
 around :func:`soft_ray_blocking_mask`, ``artist.blocking.primitives`` around the
 corners picked by index and the primitives' table, ``artist.blocking.candidates``
@@ -47,6 +54,7 @@ from __future__ import annotations
 
 import collections
 import math
+from typing import NamedTuple
 
 import torch
 
@@ -58,6 +66,13 @@ from artist_tpu_torch.util.logging_utils import span
 # Candidate lists are padded to a multiple of the TPU path's primitive tile,
 # so that both packages see the same K.
 CANDIDATE_TILE = 16
+# The soft mask's defaults: the gates' softness, the in-front offset of a ray's
+# origin (m), the smallest |d . n| and Gram determinant, and the opacity alpha
+# of 1 - exp(-alpha sigma).
+SOFTNESS = 1000.0
+RAY_ORIGIN_OFFSET = 0.05
+EPSILON = 1e-12
+ALPHA = 100.0
 # The compacted route's newest 256 forwards: (rays, kept-slot mask).
 STATISTICS: collections.deque[tuple[int, torch.Tensor]] = collections.deque(maxlen=256)
 
@@ -153,15 +168,42 @@ def create_blocking_primitives_rectangles_by_index(
         return _rectangle(corners)
 
 
+class HeliostatStatistics(NamedTuple):
+    """What the corridor test reads of each heliostat's rays, each ``[M]`` or ``[M, 3]``."""
+
+    center: torch.Tensor  # the mean of its ray origins (surface points)
+    radius: torch.Tensor  # the largest distance of an origin from the centre
+    mean_direction: torch.Tensor  # its rays' mean direction, normalised
+    least_cosine: torch.Tensor  # the least cosine of a ray to the mean direction (not clamped)
+    farthest: torch.Tensor  # the largest target distance of a ray
+
+
+@torch.no_grad()
+def heliostat_statistics(
+    ray_origins: torch.Tensor, ray_directions: torch.Tensor, intersection_distances_target: torch.Tensor
+) -> HeliostatStatistics:
+    """The corridor test's reductions over each heliostat's rays: origins ``[M, P, 4]``,
+    directions ``[M, R, P, 4]``, target distances ``[M, R, P]`` (stop-gradient)."""
+    origins = ray_origins[..., :3].detach()  # [M, P, 3]
+    directions = ray_directions[..., :3].detach()  # [M, R, P, 3]
+    center_m = origins.mean(dim=1)  # [M, 3]
+    radius_m = torch.sqrt(((origins - center_m[:, None]) ** 2).sum(dim=-1).max(dim=1).values)
+    mean_direction = _normalize(directions.mean(dim=(1, 2)), eps=1e-9)
+    cos_dev = torch.einsum("mrpk,mk->mrp", directions, mean_direction).amin(dim=(1, 2))
+    t_max = intersection_distances_target.detach().amax(dim=(1, 2))  # [M]
+    return HeliostatStatistics(center_m, radius_m, mean_direction, cos_dev, t_max)
+
+
 @torch.no_grad()
 def select_blocking_candidates(
     ray_origins: torch.Tensor,
-    ray_directions: torch.Tensor,
+    ray_directions: torch.Tensor | None,
     blocking_primitives_corners: torch.Tensor,
     ray_primitive_indices: torch.Tensor | None,
-    intersection_distances_target: torch.Tensor,
+    intersection_distances_target: torch.Tensor | None,
     max_candidates: int,
     margin: float = 0.25,
+    statistics: HeliostatStatistics | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Conservative per-heliostat top-K candidate blocker selection (stop-gradient).
 
@@ -170,7 +212,9 @@ def select_blocking_candidates(
     whose bounding sphere lies outside the corridor
     ``r_m + r_b + t tan_dev_m + margin`` cannot block them. The primitives
     most inside the corridor rank first; a heliostat's own primitive never
-    passes.
+    passes. ``statistics`` gives each heliostat's reductions over its rays as
+    :func:`heliostat_statistics` computes them; given, the rays (``ray_origins``,
+    ``ray_directions``, ``intersection_distances_target``) are not read.
 
     Returns
     -------
@@ -178,20 +222,15 @@ def select_blocking_candidates(
         Candidate primitive indices ``[M, K]`` (int64) and validity
         ``[M, K]`` (bool), K = ``max_candidates`` clamped to B.
     """
-    origins = ray_origins[..., :3].detach()  # [M, P, 3]
-    directions = ray_directions[..., :3].detach()  # [M, R, P, 3]
+    if statistics is None:
+        statistics = heliostat_statistics(ray_origins, ray_directions, intersection_distances_target)
+    center_m, radius_m, mean_direction, cos_dev, t_max = statistics
     corners = blocking_primitives_corners[:, :, :3].detach()
-    t_target = intersection_distances_target.detach()
     number_of_primitives = corners.shape[0]
     k = min(max_candidates, number_of_primitives)
 
-    center_m = origins.mean(dim=1)  # [M, 3]
-    radius_m = torch.sqrt(((origins - center_m[:, None]) ** 2).sum(dim=-1).max(dim=1).values)
-    mean_direction = _normalize(directions.mean(dim=(1, 2)), eps=1e-9)
-    cos_dev = torch.einsum("mrpk,mk->mrp", directions, mean_direction).amin(dim=(1, 2))
     cos_dev = torch.clamp(cos_dev, 0.05, 1.0)
     tan_dev = torch.sqrt(torch.clamp(1.0 - cos_dev**2, min=0.0)) / cos_dev  # [M]
-    t_max = t_target.amax(dim=(1, 2))  # [M]
 
     center_b = corners.mean(dim=1)  # [B, 3]
     radius_b = torch.sqrt(((corners - center_b[:, None]) ** 2).sum(dim=-1).max(dim=1).values)
@@ -214,6 +253,25 @@ def select_blocking_candidates(
     candidate_indices = torch.topk(-score, k, dim=1).indices
     candidate_valid = torch.gather(passes, 1, candidate_indices)
     return candidate_indices, candidate_valid
+
+
+def candidate_columns(
+    table: torch.Tensor, indices: torch.Tensor, valid: torch.Tensor, rays: int
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The sigma pair's ``columns [M, K', 16]`` and ``keep [M, K']`` (in the table's dtype) of
+    the candidates ``indices`` / ``valid [M, K]`` that the corridor test chose for ``rays``
+    rays, K padded to a multiple of :data:`CANDIDATE_TILE`; records the forward in
+    :data:`STATISTICS`."""
+    num = indices.shape[0]
+    STATISTICS.append((rays, valid))
+    # Pad K to a multiple of the tile with keep = 0 slots.
+    k_pad = -(-indices.shape[1] // CANDIDATE_TILE) * CANDIDATE_TILE
+    indices = torch.nn.functional.pad(indices, (0, k_pad - indices.shape[1]))
+    valid = torch.nn.functional.pad(valid, (0, k_pad - valid.shape[1]))
+    # One gather for all columns; its backward scatter-adds the candidates'
+    # cotangents onto the primitives.
+    columns = table.index_select(0, indices.reshape(-1)).reshape(num, k_pad, NUM_COLUMNS)
+    return columns, valid.to(table.dtype)
 
 
 def primitive_table(
@@ -289,10 +347,10 @@ def soft_ray_blocking_mask(
     blocking_primitives_normals: torch.Tensor,
     intersection_distances_target: torch.Tensor | None = None,
     ray_primitive_indices: torch.Tensor | None = None,
-    epsilon: float = 1e-12,
-    softness: float = 1000.0,
-    alpha: float = 100.0,
-    ray_origin_offset: float = 0.05,
+    epsilon: float = EPSILON,
+    softness: float = SOFTNESS,
+    alpha: float = ALPHA,
+    ray_origin_offset: float = RAY_ORIGIN_OFFSET,
     cull_method: str = "dense",
     primitive_chunk: int | None = None,
     method: str = "auto",
@@ -349,20 +407,13 @@ def soft_ray_blocking_mask(
                     ray_origins, ray_directions, blocking_primitives_corners, ray_primitive_indices,
                     intersection_distances_target, max_candidates,
                 )
-                STATISTICS.append((num * rays * points, valid))
-                # Pad K to a multiple of the tile with keep = 0 slots.
-                k_pad = -(-indices.shape[1] // CANDIDATE_TILE) * CANDIDATE_TILE
-                indices = torch.nn.functional.pad(indices, (0, k_pad - indices.shape[1]))
-                valid = torch.nn.functional.pad(valid, (0, k_pad - valid.shape[1]))
-                # One gather for all columns; its backward scatter-adds the candidates'
-                # cotangents onto the primitives.
-                columns = table.index_select(0, indices.reshape(-1)).reshape(num, k_pad, NUM_COLUMNS)
+                columns, keep = candidate_columns(table, indices, valid, num * rays * points)
             sigma = blocking_sigma(
                 ray_origins.contiguous(),
                 directions,
                 intersection_distances_target.detach().reshape(num, rays * points).contiguous(),
                 columns,
-                valid.to(ray_origins.dtype),
+                keep,
                 *parameters,
             )
         else:

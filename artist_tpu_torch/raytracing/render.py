@@ -34,8 +34,13 @@ On a tower of planar target areas with blocking off, the chain from the scatter
 angles to the splat's inputs (``ray_splat_inputs``' rotation, intersection and
 intensities) is the ray kernel pair of :mod:`artist_tpu_torch.kernels.rays`,
 which keeps no per-ray tensor: per checkpointed chunk two ray forwards and one
-ray backward, as for the splat. Blocking (which reads the rays' directions and
-distances) and cylindrical targets take ``ray_splat_inputs``.
+ray backward, as for the splat. With blocking on the compacted route
+(``blocking_candidates`` set) on such a tower, the chain around the sigma pair is
+the kernels of :mod:`artist_tpu_torch.kernels.blocked_rays`
+(:func:`blocked_splat_inputs`), which keep per ray only what the sigma pair
+reads and the splat's inputs: per checkpointed chunk each of their forwards
+twice and each backward once; that module is imported only there. The flat
+blocking route and cylindrical targets take ``ray_splat_inputs``.
 """
 
 from __future__ import annotations
@@ -54,11 +59,13 @@ from torch.utils.checkpoint import (
 
 from artist_tpu_torch.field.solar_tower import SolarTower
 from artist_tpu_torch.geometry.transforms import apply_distortion_rotation
+from artist_tpu_torch.kernels.blocking import blocking_sigma
 from artist_tpu_torch.kernels.rays import ray_chunk
 from artist_tpu_torch.kernels.splat_window import splat_dynamic_window
-from artist_tpu_torch.raytracing import geometry
+from artist_tpu_torch.raytracing import blocking, geometry
 from artist_tpu_torch.raytracing.blocking import soft_ray_blocking_mask
 from artist_tpu_torch.raytracing.splatting import bilinear_splat, point_tile_order
+from artist_tpu_torch.util.logging_utils import span
 
 DEFAULT_MIRROR_REFLECTIVITY = 0.935
 
@@ -215,6 +222,60 @@ def ray_splat_inputs(
     )
 
 
+def blocked_splat_inputs(
+    tower: SolarTower,
+    preferred_directions: torch.Tensor,
+    aligned_surface_points: torch.Tensor,
+    target_area_indices: torch.Tensor,
+    distortions_u: torch.Tensor,
+    distortions_e: torch.Tensor,
+    ray_magnitude: float | torch.Tensor,
+    config: RenderConfig,
+    blocking_primitives: tuple[torch.Tensor, torch.Tensor, torch.Tensor],
+    ray_primitive_indices: torch.Tensor | None,
+) -> tuple[torch.Tensor, ...]:
+    """Scatter, intersect and block one chunk of rays on the compacted route, on planar targets.
+
+    The semantics of :func:`ray_splat_inputs` with ``soft_ray_blocking_mask``'s compacted
+    route, through :mod:`artist_tpu_torch.kernels.blocked_rays`: the rays' directions and
+    target distances for the sigma pair, each heliostat's corridor statistics without the
+    rays' ``[M, r, P, 4]`` tensor, the candidates (``blocking.select_blocking_candidates``),
+    sigma, and the intensities through ``1 - exp(-alpha sigma)``. Returns ``bitmap_e``,
+    ``bitmap_u``, the final intensities ``[M, r, P]``, and the rays on target, intercepted and
+    unblocked (``blocked < 1e-3``) ``[M]``.
+    """
+    from artist_tpu_torch.kernels import blocked_rays
+
+    num, rays, points = distortions_u.shape
+    preferred = preferred_directions.contiguous()
+    origins = aligned_surface_points.contiguous()
+    directions, distances, e, u, intensities, on_target, partials = blocked_rays.blocked_trace(
+        preferred, origins, distortions_u, distortions_e, tower, target_area_indices, ray_magnitude,
+        config.bitmap_resolution,
+    )
+    corners, spans, normals = blocking_primitives
+    with span("artist.blocking.mask"):
+        with span("artist.blocking.primitives"):
+            table = blocking.primitive_table(corners, spans, normals, blocking.EPSILON).to(origins.dtype)
+        with span("artist.blocking.candidates"):
+            statistics = blocked_rays.corridor_statistics(
+                preferred, aligned_surface_points, distortions_u, distortions_e, directions, distances, partials
+            )
+            indices, valid = blocking.select_blocking_candidates(
+                aligned_surface_points, None, corners, ray_primitive_indices, None, config.blocking_candidates,
+                statistics=statistics,
+            )
+            columns, keep = blocking.candidate_columns(table, indices, valid, num * rays * points)
+        sigma = blocking_sigma(
+            origins, directions, distances, columns, keep, blocking.SOFTNESS, blocking.RAY_ORIGIN_OFFSET,
+            blocking.EPSILON,
+        )
+    w, intercepted, unblocked = blocked_rays.blocked_epilogue(
+        intensities, sigma, blocking.ALPHA, config.ray_extinction_factor, config.mirror_reflectivity
+    )
+    return e, u, w, on_target, intercepted, unblocked
+
+
 _SAVED_BLOCKING_OPS = (
     torch.ops.artist_tpu_torch.blocking_sigma.default,
     torch.ops.artist_tpu_torch.blocking_sigma_flat.default,
@@ -298,6 +359,13 @@ def trace_rays(
     # one kernel pair, which keeps no per-ray tensor. Blocking reads the rays'
     # directions and distances, and a cylinder its own intersection: the PyTorch chain.
     fused = not config.blocking_active and tower.number_of_cylindrical_target_areas == 0
+    # The compacted blocking route on planar targets takes its own kernels around the sigma
+    # pair; the flat route and cylinders keep the PyTorch chain.
+    compacted = (
+        config.blocking_active
+        and config.blocking_candidates is not None
+        and tower.number_of_cylindrical_target_areas == 0
+    )
 
     def trace_chunk(du: torch.Tensor, de: torch.Tensor):
         blocked = None
@@ -305,6 +373,11 @@ def trace_rays(
             e, u, w, on_target_count, intercept_count = ray_chunk(
                 preferred, aligned_surface_points, du, de, tower, target_area_indices, ray_magnitude,
                 config.bitmap_resolution, config.ray_extinction_factor, config.mirror_reflectivity,
+            )
+        elif compacted:
+            e, u, w, on_target_count, intercept_count, unblocked_count = blocked_splat_inputs(
+                tower, preferred, aligned_surface_points, target_area_indices, du, de, ray_magnitude, config,
+                blocking_primitives, ray_primitive_indices,
             )
         else:
             rays = ray_splat_inputs(
@@ -340,6 +413,8 @@ def trace_rays(
                 flip_up_down=False,
                 window=config.splat_window,
             )
+        if compacted:
+            return partial_flux, on_target_count, intercept_count, unblocked_count
         if blocked is None:
             unblocked_count = torch.full_like(on_target_count, du.shape[1] * num_points)
         else:

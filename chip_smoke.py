@@ -243,6 +243,7 @@ from artist_tpu_torch.examples.paint_plots import (  # noqa: E402
 from artist_tpu_torch.io.calibration import CalibrationData, CalibrationDataParser  # noqa: E402
 from artist_tpu_torch.io import paint_scenario_parser  # noqa: E402
 from artist_tpu_torch.io.stral import extract_stral_deflectometry_data  # noqa: E402
+from artist_tpu_torch.kernels import blocked_rays  # noqa: E402
 from artist_tpu_torch.kernels import blocking as blocking_kernels  # noqa: E402
 from artist_tpu_torch.kernels import lbvh as lbvh_kernels  # noqa: E402
 from artist_tpu_torch.kernels import rays as ray_kernels  # noqa: E402
@@ -266,8 +267,12 @@ from artist_tpu_torch.optim.surface_reconstructor import SurfaceReconstructor  #
 from artist_tpu_torch.parallel import collectives, setup_distributed_environment  # noqa: E402
 from artist_tpu_torch.parallel.env import runs_group  # noqa: E402
 from artist_tpu_torch.raytracing import geometry, lbvh  # noqa: E402
+from artist_tpu_torch.raytracing import blocking as blocking_module  # noqa: E402
 from artist_tpu_torch.raytracing.blocking import (  # noqa: E402
+    _rectangle as blocking_rectangle,
+    candidate_columns,
     create_blocking_primitives_rectangles_by_index,
+    primitive_table,
     soft_ray_blocking_mask,
 )
 from artist_tpu_torch.raytracing.render import (  # noqa: E402
@@ -1345,6 +1350,7 @@ def reset_launch_counts() -> None:
     splat_scatter.reset_launch_counts()
     lbvh_kernels.reset_launch_counts()
     ray_kernels.reset_launch_counts()
+    blocked_rays.reset_launch_counts()
 
 
 def launch_counts() -> dict[str, int]:
@@ -6158,6 +6164,399 @@ def check_ray_kernels(device: torch.device) -> dict[str, dict]:
     return timings
 
 
+# Phase 20: the compacted blocking route's ray kernels (kernels/blocked_rays.py,
+# csrc/blocked_rays.cu) against their plain versions, on the aim1000.aim_point cell's first
+# chunk and on a small grid field with edge rays.
+BLOCKED_CELL = "aim1000.aim_point"
+BLOCKED_SEED = 2_930_000_011
+BLOCKED_CANDIDATES = 16
+# Bytes a ray and a point of each kernel (the source's head note).
+BLOCKED_BYTES = {
+    "blocked_trace_forward": (40, 32),
+    "corridor_statistics": (8, 32),
+    "blocked_epilogue": (12, 0),
+    "blocked_epilogue_backward": (20, 0),
+    "blocked_trace_backward": (36, 64),
+}
+# The plain versions run over this many heliostats at once on the card.
+BLOCKED_PLAIN_HELIOSTATS = 50
+# Kernel against plain on the card: the ray forward rounds as PyTorch's kernels do but for the
+# sines and cosines (sincosf against sin and cos); the statistics sum in another order (the
+# mean direction and the centre, in double across blocks) and contract the cosine's products
+# into FMAs; the backwards contract products and sum the rays in another order.
+BLOCKED_DIRECTION_TOLERANCE = 8 * UNIT_ROUNDOFF  # a unit vector's components
+BLOCKED_STATISTICS_TOLERANCE = 2.0**-16  # statistics_err: of the largest length, or absolute on unit vectors
+BLOCKED_GRADIENT_TOLERANCE = 64 * UNIT_ROUNDOFF  # of the gradient's largest entry
+# A small grid field: 3 columns 4.5 m apart, 7 rows 3.5 m apart from 100 m north.
+BLOCKED_GRID = dict(heliostats=21, rays=3, points=40)
+
+
+class _Captured(Exception):
+    """Ends a call once the first traced chunk's inputs are kept."""
+
+
+def captured_trace_inputs(entry) -> dict:
+    """The keyword arguments of the first ``trace_rays`` call that ``entry``'s aim-point
+    optimizer makes (the first chunk of its epoch-0 references), detached."""
+    import artist_tpu_torch.optim.aim_point_optimizer as optimizer_module
+
+    original, kept = optimizer_module.trace_rays, {}
+
+    def detached(x):
+        if isinstance(x, tuple):
+            return tuple(detached(y) for y in x)
+        return x.detach() if isinstance(x, torch.Tensor) else x
+
+    def capture(**kwargs):
+        kept.update({key: detached(value) for key, value in kwargs.items()})
+        raise _Captured
+
+    optimizer_module.trace_rays = capture
+    try:
+        entry.restore()
+        entry.call(lambda epoch, loss: None)
+    except _Captured:
+        pass
+    finally:
+        optimizer_module.trace_rays = original
+    if not kept:
+        raise AssertionError("the entry traced nothing")
+    return kept
+
+
+def blocked_inputs_from_trace(kwargs: dict) -> dict:
+    """The compacted route's kernel inputs from ``trace_rays``' keyword arguments."""
+    config = kwargs["config"]
+    preferred = geometry.reflect(kwargs["incident_ray_directions"][:, None, :], kwargs["aligned_surface_normals"])
+    return dict(
+        preferred=preferred.contiguous(), origins=kwargs["aligned_surface_points"].contiguous(),
+        distortions_u=kwargs["distortions_u"], distortions_e=kwargs["distortions_e"], tower=kwargs["tower"],
+        targets=kwargs["target_area_indices"], magnitudes=kwargs["ray_magnitude"],
+        primitives=kwargs["blocking_primitives"], own=kwargs["ray_primitive_indices"],
+        candidates=config.blocking_candidates, bitmap=tuple(config.bitmap_resolution),
+        extinction=config.ray_extinction_factor, reflectivity=config.mirror_reflectivity,
+    )
+
+
+def aim1000_chunk_inputs(device: torch.device, seed: int = BLOCKED_SEED) -> dict:
+    """The first chunk of the benchmark's aim1000.aim_point cell as its job builds it from
+    ``seed`` on ``device``: ``[250, 30, 10000]`` rays, 1,000 primitives, K = 16."""
+    from benchmark import run as benchmark_run
+    from benchmark.field import field_arrays
+    from benchmark.jobs import aim_point_optimization as job
+
+    _, _, workload, config = benchmark_run.cell(REPO, BLOCKED_CELL)
+    arrays = field_arrays(config["field"])
+    data = job.make_traffic(arrays, workload["traffic_parameters"], seed, device)
+    entry = job.build(config, workload, arrays, data, seed, device)
+    return blocked_inputs_from_trace(captured_trace_inputs(entry))
+
+
+def blocked_chunk_inputs(heliostats: int, rays: int, points: int, device: torch.device, seed: int,
+                         dtype: torch.dtype = torch.float32, columns: int = 3, row_spacing: float = 3.5) -> dict:
+    """A chunk's inputs for the compacted route on :func:`ray_tower`: heliostats on a grid of
+    ``columns`` columns 4.5 m apart and rows ``row_spacing`` apart from 100 m north, heliostat
+    0 in the back row; each a vertical 3.2 x 2.5 m panel facing north at 1.7 m (its points
+    drawn on it, its primitive the panel), aimed as :func:`ray_chunk_inputs` aims, its angles
+    10 mrad wide as views of one ``[M, R, P, 2]`` sample; the odd ones at the second target.
+    Heliostat 0's first points are :func:`ray_edge_cases` with zero angles; heliostat 1's first
+    ray a point scatters 30 times wider, so that its corridor holds every heliostat ahead of it
+    and it keeps a candidate in every slot. Rays climb ~0.4 m a metre, so that a row blocks the
+    lower part of the one behind it."""
+    generator = torch.Generator(device=device).manual_seed(seed)
+
+    def uniform(low: float, high: float, *shape) -> torch.Tensor:
+        return low + (high - low) * torch.rand(shape, generator=generator, device=device, dtype=dtype)
+
+    tower = ray_tower(device, dtype)
+    targets = torch.arange(heliostats, device=device) % 2
+    index = torch.arange(heliostats, device=device, dtype=dtype)
+    rows = -(-heliostats // columns)
+    east = (index % columns - (columns - 1) / 2) * 4.5
+    north = 100.0 + (rows - 1 - torch.div(index, columns, rounding_mode="floor")) * row_spacing
+    centre = torch.stack([east, north, torch.full_like(east, 1.7)], dim=-1)
+    half = torch.tensor([1.6, 0.0, 1.25], dtype=dtype, device=device)
+    origins = torch.ones((heliostats, points, 4), dtype=dtype, device=device)
+    origins[..., :3] = centre[:, None, :] + torch.stack(
+        [uniform(-1.6, 1.6, heliostats, points), uniform(-0.05, 0.05, heliostats, points),
+         uniform(-1.25, 1.25, heliostats, points)], dim=-1)
+    reach = torch.tensor([7.0, 3.0], dtype=dtype, device=device)[targets][:, None]
+    aim = tower.planar_centers[targets][:, None, :3].expand(heliostats, points, 3).clone()
+    aim[..., 0] += reach * uniform(-1.0, 1.0, heliostats, points)
+    aim[..., 2] += reach * uniform(-1.0, 1.0, heliostats, points)
+    preferred = torch.zeros_like(origins)
+    preferred[..., :3] = torch.nn.functional.normalize(aim - origins[..., :3], dim=-1)
+    sample = 0.01 * torch.randn((heliostats, rays, points, 2), generator=generator, device=device, dtype=dtype)
+    edge_origins, edge_directions = ray_edge_cases(dtype)
+    edges = min(points, edge_origins.shape[0])
+    origins[0, :edges] = edge_origins[:edges].to(device)
+    preferred[0, :edges] = edge_directions[:edges].to(device)
+    sample[0, :, :edges] = 0.0
+    sample[1:2, :1] *= 30.0
+    corners = torch.ones((heliostats, 4, 4), dtype=dtype, device=device)
+    for k, (de, du) in enumerate(((-1, -1), (-1, 1), (1, 1), (1, -1))):  # ll, ul, ur, lr
+        corners[:, k, :3] = centre + half * torch.tensor([de, 0.0, du], dtype=dtype, device=device)
+    return dict(
+        preferred=preferred, origins=origins, distortions_u=sample[..., 0], distortions_e=sample[..., 1],
+        tower=tower, targets=targets, magnitudes=uniform(0.5, 2.0, heliostats, 1, 1),
+        primitives=blocking_rectangle(corners), own=torch.arange(heliostats, device=device),
+        candidates=BLOCKED_CANDIDATES, bitmap=RAY_BITMAP, extinction=RAY_EXTINCTION,
+        reflectivity=DEFAULT_MIRROR_REFLECTIVITY,
+    )
+
+
+def blocked_trace_arguments(inputs: dict, start: int = 0, stop: int | None = None) -> tuple:
+    """The ray kernels' and their plain versions' arguments for heliostats ``[start, stop)``."""
+    stop = inputs["preferred"].shape[0] if stop is None else stop
+    magnitude = inputs["magnitudes"]
+    if isinstance(magnitude, torch.Tensor) and magnitude.numel() > 1:
+        magnitude = magnitude[start:stop]
+    return (inputs["preferred"][start:stop], inputs["origins"][start:stop], inputs["distortions_u"][start:stop],
+            inputs["distortions_e"][start:stop], inputs["tower"], inputs["targets"][start:stop], magnitude,
+            inputs["bitmap"])
+
+
+def blocked_route_sigma(inputs: dict, directions, distances, statistics) -> tuple[torch.Tensor, torch.Tensor]:
+    """The route's sigma ``[M, N]`` from the kernels' (or plain) rays and statistics, and the kept
+    candidates' mask ``[M, K]``, as ``render.blocked_splat_inputs`` computes them."""
+    corners, spans, normals = inputs["primitives"]
+    origins = inputs["origins"]
+    table = primitive_table(corners, spans, normals, blocking_module.EPSILON).to(origins.dtype)
+    indices, valid = blocking_module.select_blocking_candidates(
+        origins, None, corners, inputs["own"], None, inputs["candidates"], statistics=statistics,
+    )
+    columns, keep = candidate_columns(table, indices, valid, distances.numel())
+    sigma = blocking_kernels.blocking_sigma(
+        origins, directions, distances, columns, keep, blocking_module.SOFTNESS, blocking_module.RAY_ORIGIN_OFFSET,
+        blocking_module.EPSILON,
+    )
+    return sigma, kept_sets(indices, valid)
+
+
+def kept_sets(indices: torch.Tensor, valid: torch.Tensor) -> list[list[int]]:
+    """Each heliostat's kept candidates, sorted."""
+    return [sorted(i for i, k in zip(row, keep) if k) for row, keep in zip(indices.tolist(), valid.tolist())]
+
+
+def aten_kept_candidates(inputs: dict) -> list[list[int]]:
+    """The kept candidates of the PyTorch chain (``ray_splat_inputs``' rays into
+    ``select_blocking_candidates``), by BLOCKED_PLAIN_HELIOSTATS heliostats."""
+    kept = []
+    config = RenderConfig(bitmap_resolution=inputs["bitmap"])
+    num = inputs["preferred"].shape[0]
+    corners = inputs["primitives"][0]
+    for start in range(0, num, BLOCKED_PLAIN_HELIOSTATS):
+        stop = min(num, start + BLOCKED_PLAIN_HELIOSTATS)
+        preferred, origins, du, de, tower, targets, magnitude, _ = blocked_trace_arguments(inputs, start, stop)
+        with torch.no_grad():
+            chain = ray_splat_inputs(tower, preferred, origins, targets, du, de, magnitude, config)
+            indices, valid = blocking_module.select_blocking_candidates(
+                origins, chain.ray_directions, corners, inputs["own"][start:stop], chain.distances,
+                inputs["candidates"],
+            )
+        kept += kept_sets(indices, valid)
+        del chain
+    return kept
+
+
+def statistics_err(ours, theirs, start: int, stop: int) -> float:
+    """The largest gap of the kernel's statistics (heliostats ``[start, stop)``) from the plain
+    version's: lengths (centre, radius, farthest distance) over the largest of them, the unit
+    mean direction and least cosine as they are. Both sum 10^4-10^5 fp32 terms for the centre
+    and the mean, in other orders, and the radius inherits the centre's rounding."""
+    lengths = (theirs.center, theirs.radius, theirs.farthest)
+    scale = max(float(x.abs().max()) for x in lengths)
+    gaps = [_max_abs_err(a[start:stop], b) / scale for a, b in zip((ours.center, ours.radius, ours.farthest), lengths)]
+    gaps += [_max_abs_err(ours.mean_direction[start:stop], theirs.mean_direction),
+             _max_abs_err(ours.least_cosine[start:stop], theirs.least_cosine)]
+    return max(gaps)
+
+
+def _relative_err(a: torch.Tensor, b: torch.Tensor) -> float:
+    scale = float(b.abs().max()) if b.numel() else 0.0
+    return _max_abs_err(a, b) / scale if scale > 0 else _max_abs_err(a, b)
+
+
+def check_blocked_rays(label: str, inputs: dict) -> dict:
+    """Phase 20 at one chunk: each kernel against its plain version (by
+    BLOCKED_PLAIN_HELIOSTATS heliostats), two launches of each bit-equal, the kept candidates
+    equal to the PyTorch chain's, launches counted. Returns the errors and counts."""
+    arguments = blocked_trace_arguments(inputs)
+    num, rays, points = inputs["distortions_u"].shape
+    resolution = inputs["bitmap"]
+    before = dict(blocked_rays.LAUNCHES)
+    forward = blocked_rays.trace_forward_cuda(*arguments)
+    again = blocked_rays.trace_forward_cuda(*arguments)
+    statistics = blocked_rays.corridor_statistics_cuda(*arguments[:4], forward[6])
+    statistics_again = blocked_rays.corridor_statistics_cuda(*arguments[:4], again[6])
+    sigma, kept = blocked_route_sigma(inputs, forward[0], forward[1], statistics)
+    constants = (blocking_module.ALPHA, inputs["extinction"], inputs["reflectivity"])
+    w, counts = blocked_rays.epilogue_cuda(forward[4], sigma, *constants)
+    w_again, counts_again = blocked_rays.epilogue_cuda(forward[4], sigma, *constants)
+    generator = torch.Generator(device=sigma.device).manual_seed(SEED + 200)
+    grad_w = torch.randn(w.shape, generator=generator, device=w.device)
+    cotangents = (torch.randn((num, rays * points, 4), generator=generator, device=w.device),
+                  *(torch.randn(w.shape, generator=generator, device=w.device) for _ in range(2)))
+    epilogue_grads = blocked_rays.epilogue_backward_cuda(grad_w, forward[4], sigma, *constants)
+    epilogue_grads_again = blocked_rays.epilogue_backward_cuda(grad_w, forward[4], sigma, *constants)
+    grads = blocked_rays.trace_backward_cuda(*arguments, *cotangents, epilogue_grads[0])
+    grads_again = blocked_rays.trace_backward_cuda(*arguments, *cotangents, epilogue_grads[0])
+    torch.cuda.synchronize()
+    counted = {name: blocked_rays.LAUNCHES[name] - before[name] for name in before}
+    if counted != dict.fromkeys(before, 2):
+        raise AssertionError(f"phase 20 {label}: launched {counted}, expected 2 of each")
+    pairs = dict(blocked_trace_forward=(forward, again), corridor_statistics=(statistics, statistics_again),
+                 blocked_epilogue=((w, counts), (w_again, counts_again)),
+                 blocked_epilogue_backward=(epilogue_grads, epilogue_grads_again),
+                 blocked_trace_backward=(grads, grads_again))
+    differ = [name for name, (first, second) in pairs.items()
+              if not all(torch.equal(a, b) for a, b in zip(first, second))]
+    if differ:
+        raise AssertionError(f"phase 20 {label}: two launches of {differ} differ")
+    if kept != aten_kept_candidates(inputs):
+        raise AssertionError(f"phase 20 {label}: the kept candidates differ from the PyTorch chain's")
+
+    errors = dict(directions=0.0, distances=0.0, coordinates=0.0, intensities=0.0, statistics=0.0, w=0.0,
+                  grad_intensities=0.0, grad_sigma=0.0, preferred=0.0, origins=0.0, validity_flips=0, count_gap=0)
+    scale = dict(intensities=float(forward[4].abs().max()), w=float(w.abs().max()),
+                 grad_intensities=float(epilogue_grads[0].abs().max()),
+                 grad_sigma=float(epilogue_grads[1].abs().max()), preferred=float(grads[0].abs().max()),
+                 origins=float(grads[1].abs().max()))
+    for start in range(0, num, BLOCKED_PLAIN_HELIOSTATS):
+        stop = min(num, start + BLOCKED_PLAIN_HELIOSTATS)
+        part = blocked_trace_arguments(inputs, start, stop)
+        plain = blocked_rays.trace_forward_plain(*part)
+        kernel = [x[start:stop] for x in forward[:6]]
+        invalid = [(x[2] == resolution[0] - 1) & (x[3] == 0) & (x[4] == 0) for x in (plain, kernel)]
+        flips = invalid[0] != invalid[1]
+        errors["validity_flips"] += int(flips.sum())
+        keep = ~flips
+        errors["directions"] = max(errors["directions"], _max_abs_err(kernel[0][..., :3], plain[0][..., :3]))
+        errors["distances"] = max(errors["distances"], _relative_err(kernel[1], plain[1]))
+        errors["coordinates"] = max(errors["coordinates"], _max_abs_err(kernel[2][keep], plain[2][keep]),
+                                    _max_abs_err(kernel[3][keep], plain[3][keep]))
+        errors["intensities"] = max(errors["intensities"], _max_abs_err(kernel[4][keep], plain[4][keep]))
+        errors["count_gap"] = max(errors["count_gap"], int((kernel[5] - plain[5]).abs().max()))
+        reference = blocked_rays.corridor_statistics_plain(part[1], plain[0], plain[1], rays)
+        errors["statistics"] = max(errors["statistics"], statistics_err(statistics, reference, start, stop))
+        sigma_part = sigma[start:stop]
+        plain_w, plain_counts = blocked_rays.epilogue_plain(forward[4][start:stop], sigma_part, *constants)
+        errors["w"] = max(errors["w"], _max_abs_err(w[start:stop], plain_w))
+        errors["count_gap"] = max(errors["count_gap"], int((counts[:, start:stop] - plain_counts).abs().max()))
+        plain_epilogue = blocked_rays.epilogue_backward_plain(grad_w[start:stop], forward[4][start:stop], sigma_part,
+                                                              *constants)
+        errors["grad_intensities"] = max(errors["grad_intensities"],
+                                         _max_abs_err(epilogue_grads[0][start:stop], plain_epilogue[0]))
+        errors["grad_sigma"] = max(errors["grad_sigma"], _max_abs_err(epilogue_grads[1][start:stop], plain_epilogue[1]))
+        plain_grads = blocked_rays.trace_backward_plain(
+            *part, *(c[start:stop] for c in cotangents), epilogue_grads[0][start:stop]
+        )
+        errors["preferred"] = max(errors["preferred"], _max_abs_err(grads[0][start:stop], plain_grads[0]))
+        errors["origins"] = max(errors["origins"], _max_abs_err(grads[1][start:stop], plain_grads[1]))
+        del plain, kernel, invalid, reference, plain_w, plain_epilogue, plain_grads
+    failures = []
+    if errors["validity_flips"] or errors["count_gap"]:
+        failures.append(f"{errors['validity_flips']} rays valid on one side only, counts apart by {errors['count_gap']}")
+    if errors["coordinates"] > RAY_COORDINATE_TOLERANCE:
+        failures.append(f"coordinates apart by {errors['coordinates']} px")
+    if errors["directions"] > BLOCKED_DIRECTION_TOLERANCE or errors["distances"] > BLOCKED_DIRECTION_TOLERANCE:
+        failures.append(f"directions apart by {errors['directions']}, distances by {errors['distances']} (relative)")
+    if errors["statistics"] > BLOCKED_STATISTICS_TOLERANCE:
+        failures.append(f"statistics apart by {errors['statistics']} (relative)")
+    for key, tolerance in (("intensities", RAY_INTENSITY_TOLERANCE), ("w", RAY_INTENSITY_TOLERANCE),
+                           ("grad_intensities", RAY_INTENSITY_TOLERANCE), ("grad_sigma", RAY_INTENSITY_TOLERANCE),
+                           ("preferred", BLOCKED_GRADIENT_TOLERANCE), ("origins", BLOCKED_GRADIENT_TOLERANCE)):
+        if errors[key] > tolerance * scale[key]:
+            failures.append(f"{key} apart by {errors[key]} (scale {scale[key]})")
+    if failures:
+        raise AssertionError(f"phase 20 {label}: " + "; ".join(failures))
+    errors["kept_slots"] = sum(map(len, kept))
+    errors["full_heliostats"] = sum(len(k) == inputs["candidates"] for k in kept)
+    errors["unblocked_share"] = float(counts[1].sum()) / (num * rays * points)
+    return dict(errors=errors, timed=(arguments, forward, sigma, grad_w, cotangents, epilogue_grads, constants))
+
+
+def time_blocked_rays(inputs: dict, timed: tuple) -> dict[str, dict]:
+    """Each kernel of the route at ``inputs``' chunk, by events and from a CUDA graph, against
+    its bytes bound (BLOCKED_BYTES)."""
+    arguments, forward, sigma, grad_w, cotangents, epilogue_grads, constants = timed
+    num, rays, points = inputs["distortions_u"].shape
+    calls = {
+        "blocked_trace_forward": lambda: blocked_rays.trace_forward_cuda(*arguments),
+        "corridor_statistics": lambda: blocked_rays.corridor_statistics_cuda(*arguments[:4], forward[6]),
+        "blocked_epilogue": lambda: blocked_rays.epilogue_cuda(forward[4], sigma, *constants),
+        "blocked_epilogue_backward": lambda: blocked_rays.epilogue_backward_cuda(grad_w, forward[4], sigma,
+                                                                                 *constants),
+        "blocked_trace_backward": lambda: blocked_rays.trace_backward_cuda(*arguments, *cotangents,
+                                                                           epilogue_grads[0]),
+    }
+    timings = {}
+    for name, fn in calls.items():
+        per_ray, per_point = BLOCKED_BYTES[name]
+        timing = dict(
+            replaces="none (the PyTorch chain around the sigma pair on the compacted blocking route)",
+            ms=event_ms(fn, iterations=10), graph_ms=graph_ms(fn, iterations=10),
+            bound=bound_ms(per_ray * num * rays * points + per_point * num * points, 0.0), plain_ms=None,
+            library_ms=None,
+        )
+        timings[name] = timing
+        _log(
+            f"phase 20 {name} at [{num}, {rays}, {points}]: {timing['ms']:.4f} ms by events, "
+            f"{timing['graph_ms']:.4f} ms replayed from a CUDA graph, {describe_bound(timing)}, "
+            f"{100 * timing['bound'][0] / timing['graph_ms']:.1f}% of it"
+        )
+    return timings
+
+
+def blocked_route_launches(device: torch.device) -> dict[str, dict[str, int]]:
+    """The route's launches in :func:`small_step` with blocking at SMALL (2 checkpointed ray
+    chunks: each forward kernel 3 times a chunk, the forward, its recompute and the render
+    without a gradient; each backward once) and with the flat route (none); the ray pair
+    launches nothing with blocking."""
+    rng = np.random.RandomState(SEED + 20)
+    points = 4 * SMALL["surface_points"][0] * SMALL["surface_points"][1]
+    distortions = rng.normal(0.0, 1e-2, (2, SMALL["heliostats"], SMALL["rays"], points)).astype(np.float32)
+    chunks = SMALL["rays"] // SMALL["ray_chunk"]
+    forwards = ("blocked_trace_forward", "corridor_statistics", "blocked_epilogue")
+    expected = {
+        "compacted": {name: 3 * chunks if name in forwards else chunks for name in blocked_rays.LAUNCHES},
+        "flat": dict.fromkeys(blocked_rays.LAUNCHES, 0),
+    }
+    found = {}
+    for label, candidates in (("compacted", CANDIDATES), ("flat", None)):
+        blocked_rays.reset_launch_counts()
+        ray_kernels.reset_launch_counts()
+        small_step(device, distortions, None, SMALL, blocking_active=True, blocking_candidates=candidates)
+        found[label] = dict(blocked_rays.LAUNCHES)
+        if any(ray_kernels.LAUNCHES.values()):
+            raise AssertionError(f"phase 20 {label}: the ray pair launched {ray_kernels.LAUNCHES} with blocking")
+    if device.type == "cuda" and found != expected:
+        raise AssertionError(f"phase 20: the routes launched {found}, expected {expected}")
+    return found
+
+
+def check_blocked_ray_kernels(device: torch.device) -> dict[str, dict]:
+    """Phase 20: the compacted route's kernels on the small grid field (edge rays, a heliostat
+    keeping every slot) and on the aim1000.aim_point cell's first chunk, against their plain
+    versions; timed there; then the routes' launches. Returns the timings."""
+    grid = blocked_chunk_inputs(**BLOCKED_GRID, device=device, seed=SEED + 20)
+    checked = check_blocked_rays("grid", grid)
+    _log(f"phase 20 grid field {BLOCKED_GRID}: {json.dumps(checked['errors'])}")
+    if not checked["errors"]["full_heliostats"]:
+        raise AssertionError("phase 20 grid: no heliostat keeps every slot")
+    del grid, checked
+    inputs = aim1000_chunk_inputs(device)
+    checked = check_blocked_rays(BLOCKED_CELL, inputs)
+    _log(f"phase 20 {BLOCKED_CELL} first chunk {list(inputs['distortions_u'].shape)}, K = {inputs['candidates']}: "
+         f"{json.dumps(checked['errors'])}")
+    timings = time_blocked_rays(inputs, checked["timed"])
+    del inputs, checked
+    empty_cache(device)
+    found = blocked_route_launches(device)
+    _log(f"phase 20 launches: {json.dumps(found)}")
+    return timings
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs only on a GPU", file=sys.stderr)
@@ -6201,6 +6600,8 @@ def main() -> int:
     timings.update(check_flat_kernels(device))
     torch.cuda.empty_cache()
     ray_timings = check_ray_kernels(device)
+    torch.cuda.empty_cache()
+    blocked_ray_timings = check_blocked_ray_kernels(device)
     torch.cuda.empty_cache()
     paths = {"surface_step": drive_surface_step(inputs, LAUNCHES_PER_STEP, "phase 4 surface step")}
     del inputs
@@ -6324,6 +6725,7 @@ def main() -> int:
         )
     _log(json.dumps({"kernels": kernels}), stamp=False)
     _log(json.dumps({"ray_kernels": ray_timings}), stamp=False)
+    _log(json.dumps({"blocked_ray_kernels": blocked_ray_timings}), stamp=False)
     _log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": device_name, "count": torch.cuda.device_count()}}),
          stamp=False)
     return 0

@@ -127,6 +127,8 @@ def test_a_planted_reference_fault_fails_a_limit(sides, fault):
 
 
 def test_the_port_without_blocking_fails_a_limit(sides, monkeypatch):
+    # The compacted route on the cell's planar receiver reads sigma from render's blocking_sigma.
+    monkeypatch.setattr(port_render, "blocking_sigma", lambda origins, directions, *args: torch.zeros(directions.shape[:2]))
     monkeypatch.setattr(port_render, "soft_ray_blocking_mask",
                         lambda ray_directions, **kwargs: torch.zeros(ray_directions.shape[:3]))
     numbers = check.compare(program_steps(), sides["reference"])

@@ -225,10 +225,16 @@ def test_trace_rays_takes_the_kernels_on_planar_targets_without_blocking(monkeyp
 
 
 def test_trace_rays_keeps_the_chain_with_blocking(monkeypatch):
+    """Blocking never takes the ray pair: the flat route keeps the PyTorch chain; the compacted
+    route takes its own kernels (tests/test_torch_blocked_ray_kernel.py)."""
     calls = _counted(monkeypatch)
-    chip_smoke.small_step(CPU, _small_distortions(chip_smoke.SMALL), None, chip_smoke.SMALL, blocking_active=True)
+    distortions = _small_distortions(chip_smoke.SMALL)
+    chip_smoke.small_step(CPU, distortions, None, chip_smoke.SMALL, blocking_active=True, blocking_candidates=None)
     chunks = chip_smoke.SMALL["rays"] // chip_smoke.SMALL["ray_chunk"]
     assert calls == {"ray_forward": 0, "ray_backward": 0, "chain": 3 * chunks}
+    calls.update(dict.fromkeys(calls, 0))
+    chip_smoke.small_step(CPU, distortions, None, chip_smoke.SMALL, blocking_active=True)
+    assert calls == {"ray_forward": 0, "ray_backward": 0, "chain": 0}
 
 
 def test_trace_rays_keeps_the_chain_on_a_mixed_tower(monkeypatch):
